@@ -1,0 +1,40 @@
+"""Guards on the port's boundaries that need no card: tracer_torch and
+chip_smoke.py import neither JAX nor the JAX package, and chip_smoke.py
+refuses to run (non-zero exit, no result line) without CUDA or outside the
+repository."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|tracer)(\s|\.|$)", re.M)
+
+
+def test_port_imports_no_jax():
+    files = sorted((ROOT / "tracer_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
+    assert not bad, f"imports jax or tracer: {bad}"
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_refuses_without_cuda():
+    proc = _run_smoke(ROOT)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_refuses_alone(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout

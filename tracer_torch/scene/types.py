@@ -1,0 +1,112 @@
+"""Scene representation: geometry + materials + lights as frozen dataclasses
+of tensors (torch counterpart of tracer/scene/types.py)."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class Lights:
+    """Point lights: position (L, 3), intensity (L, 3) RGB radiant power."""
+
+    position: torch.Tensor
+    intensity: torch.Tensor
+
+    @property
+    def count(self) -> int:
+        return self.position.shape[0]
+
+    @staticmethod
+    def make(position, intensity, *, device) -> "Lights":
+        return Lights(position=_f32(position, device),
+                      intensity=_f32(intensity, device))
+
+
+@dataclasses.dataclass(frozen=True)
+class Materials:
+    """Per-material SoA, indexed by Scene.mat_id: albedo (M, 3), emission
+    (M, 3), mirror (M,), specular (M,) Phong ks, shininess (M,) exponent."""
+
+    albedo: torch.Tensor
+    emission: torch.Tensor
+    mirror: torch.Tensor
+    specular: torch.Tensor
+    shininess: torch.Tensor
+
+    @staticmethod
+    def make(albedo, emission=None, mirror=None, specular=None,
+             shininess=None, *, device) -> "Materials":
+        albedo = np.asarray(albedo, np.float32)
+        m = albedo.shape[0]
+        pick = lambda x, default: default if x is None else x
+        return Materials(
+            albedo=_f32(albedo, device),
+            emission=_f32(pick(emission, np.zeros((m, 3))), device),
+            mirror=_f32(pick(mirror, np.zeros((m,))), device),
+            specular=_f32(pick(specular, np.zeros((m,))), device),
+            shininess=_f32(pick(shininess, np.full((m,), 32.0)), device),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """verts (V, 3) f32; tris (T, 3) i32; mat_id (T,) i32; materials;
+    lights; normals (V, 3) per-vertex shading normals."""
+
+    verts: torch.Tensor
+    tris: torch.Tensor
+    mat_id: torch.Tensor
+    materials: Materials
+    lights: Lights
+    normals: torch.Tensor
+
+    @property
+    def num_tris(self) -> int:
+        return self.tris.shape[0]
+
+    @staticmethod
+    def make(verts, tris, mat_id, materials: Materials, lights: Lights,
+             normals=None, *, device) -> "Scene":
+        verts = np.asarray(verts, np.float32)
+        tris = np.asarray(tris, np.int32)
+        if normals is None:
+            normals = compute_vertex_normals(verts, tris)
+        return Scene(
+            verts=_f32(verts, device),
+            tris=torch.as_tensor(tris, device=device),
+            mat_id=torch.as_tensor(np.asarray(mat_id, np.int32), device=device),
+            materials=materials,
+            lights=lights,
+            normals=_f32(normals, device),
+        )
+
+
+def compute_vertex_normals(verts: np.ndarray, tris: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals (host-side, at load time)."""
+    v0, v1, v2 = verts[tris[:, 0]], verts[tris[:, 1]], verts[tris[:, 2]]
+    fn = np.cross(v1 - v0, v2 - v0)
+    out = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(out, tris[:, k], fn)
+    norm = np.linalg.norm(out, axis=-1, keepdims=True)
+    return (out / np.maximum(norm, 1e-20)).astype(np.float32)
+
+
+def merge_meshes(parts):
+    """Concatenate (verts, tris, mat_id) triples with index fix-up."""
+    verts, tris, mats = [], [], []
+    off = 0
+    for v, t, m in parts:
+        verts.append(v)
+        tris.append(np.asarray(t) + off)
+        mats.append(m)
+        off += len(v)
+    return (np.concatenate(verts, axis=0), np.concatenate(tris, axis=0),
+            np.concatenate(mats, axis=0))
