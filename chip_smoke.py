@@ -16,8 +16,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      versions), held to the golden image gate;
   6. timing: tracer_torch.api.benchmark("bench100k") with 2 warm-ups and 10
      frames;
-  7. profile: device time by kernel over one warm bench100k frame
-     (torch.profiler).
+  7. layers: the bench100k frame's layers one at a time, with a sync after
+     each (host clock, median of 5 warm repetitions);
+  8. profile: device time by kernel over one warm bench100k frame
+     (torch.profiler), and the device's idle share in that same frame.
 The last lines are a JSON line of per-kernel results, the nvidia-smi line,
 and {"ok": true, "device": {...}}.
 """
@@ -223,8 +225,82 @@ def phase_timing(smi: str):
         f"{res['live_rays_per_s']:.4g} live rays/s")
 
 
+def phase_layers(cfg, reps: int = 5):
+    """Time of each layer of the frame's first bounce and first light, run
+    one at a time: host clock from a synchronize before the layer to one
+    after it, median of `reps` warm repetitions. A layer's time includes
+    its own host syncs and launch gaps; the syncs between layers make the
+    sum exceed an unsynchronised frame."""
+    scene, camera = api.get_scene(cfg, "cuda")
+    lpos = scene.lights.position[0]
+    s = {}
+
+    def primary_rays():
+        s["o"], s["d"], _ = generate_rays_tiled(camera, cfg.height, cfg.width, 64)
+
+    def primary_cull():
+        s["words"], s["counts"], _, _ = cull_clusters_sorted2(s["accel"], s["o"], s["d"], T_FAR)
+
+    def closest():
+        _, s["gid"], _, _ = t2.trace_tiles_split(s["o"], s["d"], s["accel"], s["words"],
+                                                 s["counts"])
+
+    def shade():
+        rows = s["accel"].shade[s["gid"].clamp_min(0).long()]
+        found, p, n = tiled._surface(s["o"], s["d"], s["gid"], rows, cfg.smooth_shading)
+        *_, s["target"] = tiled._light_target(p, n, found, lpos)
+
+    def segment_rays():
+        s["so"], s["sd"], s["tmax"] = tiled._segment_rays(lpos, s["target"])
+
+    def shadow_cull():
+        s["words2"], s["counts2"], _, _ = cull_clusters_sorted2(s["accel"], s["so"], s["sd"],
+                                                                s["tmax"])
+
+    def anyhit():
+        t2.any_hit_tiles_graded(s["so"], s["sd"], s["tmax"], s["accel"], s["words2"],
+                                s["counts2"])
+
+    layers = (primary_rays, primary_cull, closest, shade, segment_rays, shadow_cull, anyhit)
+    times = {fn.__name__: [] for fn in layers}
+    with torch.inference_mode():
+        s["accel"] = build_scene_accel(scene)
+        for rep in range(reps + 1):                  # repetition 0 warms up
+            for fn in layers:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                if rep:
+                    times[fn.__name__].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    total = sum(med.values())
+    log(f"[layers] {cfg.scene} {cfg.width}x{cfg.height}, median of {reps} (ms): "
+        + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in med.items())
+        + f"; sum {total:.3f}")
+
+
+def busy_ms(events) -> float:
+    """Union of the device-activity intervals of a profile, in ms."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e3
+
+
 def phase_profile():
-    """Device time by kernel over one warm bench100k frame."""
+    """Device time by kernel over one warm bench100k frame, and the
+    device's idle share in that same frame: 1 - (union of its device
+    activity) / (its own wall time, host clock from the call to the end of a
+    synchronize). The profiler's host overhead makes the frame slower than
+    an unprofiled one."""
     from torch.profiler import ProfilerActivity, profile
 
     cfg = load_config("bench100k")
@@ -233,9 +309,15 @@ def phase_profile():
     run(scene, camera)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run(scene, camera)
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    check(busy > 0.0, "the profile holds no device activity")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    log(f"[profile] one frame: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+        f"idle {1.0 - busy / wall:.1%}")
 
 
 def main() -> int:
@@ -247,6 +329,7 @@ def main() -> int:
     launches = phase_frame(bench, "cuda")
     phase_cross_device(load_config("bench100k", height=270, width=480))
     phase_timing(smi)
+    phase_layers(bench)
     phase_profile()
     kernels = [{"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
                 "launches": launches[k], **results[k]} for k in REPLACES]

@@ -72,3 +72,13 @@ def test_api_render_fn_and_benchmark_keys():
     assert res["device"] == "cpu" and res["overflow"] == 0
     assert res["num_tris"] == scene.num_tris
     np.testing.assert_array_equal(res["image"], img.numpy())
+
+
+@pytest.mark.parametrize("override", [{"dtype": "bfloat16"}, {"profile": True}])
+def test_make_render_fn_refuses_what_it_cannot_honour(override):
+    """A config field the port does not implement raises instead of being
+    ignored: the port renders in float32 and has no profile option."""
+    cfg = load_config("bench100k", **override)
+    scene, _ = get_scene(load_config("cornell256"), "cpu")
+    with pytest.raises(ValueError, match="float32"):
+        make_render_fn(scene, cfg, "cpu")

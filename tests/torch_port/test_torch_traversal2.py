@@ -120,8 +120,9 @@ def test_anyhit_graded_matches_pallas(case):
 
 @pytest.mark.parametrize("batch", [1, 2, 8])
 def test_plain_batch_invariance(case, batch):
-    """The any-hit result does not depend on B; the closest-hit one only
-    through exact-t ties, which these fixtures do not have."""
+    """The plain versions' any-hit result does not depend on B; the
+    closest-hit one only through exact-t ties, which these fixtures do not
+    have. (The CUDA kernels are built for B = BATCH only.)"""
     j_accel, t_accel, o_t, d_t, name, words, counts = case
     args = [torch.from_numpy(np.array(x)) for x in (words, counts)]
     o4 = torch.from_numpy(np.concatenate([o_t, np.ones_like(o_t[..., :1])], -1))

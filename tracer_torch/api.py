@@ -46,7 +46,11 @@ def get_scene(cfg: RenderConfig, device) -> tuple[Scene, Camera]:
 def make_render_fn(scene: Scene, cfg: RenderConfig, device):
     """(scene, camera, with_aux=False) -> image (H, W, 3) [, aux] on
     `device`. The cluster accel is built when a new scene object arrives
-    and reused across frames."""
+    and reused across frames. Raises on a config the port cannot honour:
+    a dtype other than float32, or profile=True."""
+    if cfg.dtype != "float32" or cfg.profile:
+        raise ValueError(f"the port renders in float32 with no profile option, got "
+                         f"dtype={cfg.dtype!r}, profile={cfg.profile}")
     device = torch.device(device)
     wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
     state = {"scene": None, "accel": None}

@@ -25,12 +25,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_float
 # Entry points of traversal2.cu: name -> argtypes (see its extern "C" block).
 _SIGNATURES = {
-    "tt_closest": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P],
-    "tt_closest_fast": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _F, _P, _P, _P],
-    "tt_anyhit": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P],
+    "tt_closest": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    "tt_closest_fast": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
+    "tt_anyhit": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 

@@ -1,9 +1,9 @@
 // Closest-hit and any-hit traversal kernels for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of tracer/kernels/traversal2.py:
-//   closest_hit_kernel<B>   <- _closest_kernel       (generic while-loop region)
-//   closest_fast_kernel     <- _closest_fast_kernel  (tiles with count <= 1)
-//   anyhit_kernel<B>        <- _anyhit_kernel        (light-origin shadow segments)
+//   closest_hit_kernel   <- _closest_kernel       (generic while-loop region)
+//   closest_fast_kernel  <- _closest_fast_kernel  (tiles with count <= 1)
+//   anyhit_kernel        <- _anyhit_kernel        (light-origin shadow segments)
 //
 // What they compute. A tile is TR rays (one block, one thread per ray) plus
 // the tile's candidate clusters: packed int32 words (entry-t bits | cluster
@@ -13,7 +13,7 @@
 // two barycentrics (f = 1, 2) of triangle `lane`. Per ray and triangle:
 //   so = ((w3 + o0*w0) + o1*w1) + o2*w2,  sd = (d0*w0 + d1*w1) + d2*w2
 //   t = -so_n / sd_n,  u = so_u + t*sd_u,  v = so_v + t*sd_v
-//   hit iff u >= 0, v >= 0, 1-u-v >= 0, t_min < t < t_max, |sd_n| > 1e-12
+//   hit iff u >= 0, v >= 0, 1-u-v >= 0, kTMin < t < t_max, |sd_n| > 1e-12
 // in exactly that operation order. Built with -fmad=false and without fast
 // math, the products and the IEEE divide round as the plain PyTorch version
 // (kernels/traversal2.py) rounds them, so the two agree bit for bit.
@@ -27,7 +27,7 @@
 // long candidate lists that keep one block busy while the rest of the grid
 // has drained.
 //
-// What the design does about it. The block stages B candidate clusters at a
+// What the design does about it. The block stages kBatch candidate clusters at a
 // time in shared memory, transposed so that one triangle's 12 coefficients
 // are three float4s: every thread of the block reads the same address, a
 // broadcast, and the loop body is three 16-byte shared loads and the
@@ -45,6 +45,10 @@ constexpr int kClusterBits = 17;
 constexpr int kClMask = (1 << kClusterBits) - 1;
 constexpr float kTFar = 1e30f;
 constexpr int kIntMax = 2147483647;
+constexpr float kTMin = 1e-4f;  // T_MIN of kernels/traversal.py
+// Candidate clusters staged per step of the closest-hit and any-hit loops
+// (kBatch * 6 KB of shared memory at C = 128); BATCH of kernels/traversal2.py.
+constexpr int kBatch = 4;
 
 // Stage the clusters of candidate slots k .. k+n_load-1 into shared memory:
 // s[(j*C + lane)*3 + f] = column f*C + lane of cluster j's (4, 3C) matrix.
@@ -66,8 +70,7 @@ __device__ __forceinline__ void stage_clusters(float4* s, const float* __restric
 }
 
 // t of one (ray, triangle) pair, or kTFar when the pair does not hit.
-__device__ __forceinline__ float tri_t(const float4* p, float4 o, float4 d,
-                                       float t_min, float t_max) {
+__device__ __forceinline__ float tri_t(const float4* p, float4 o, float4 d, float t_max) {
   const float4 n = p[0], a = p[1], b = p[2];
   const float so_n = ((n.w + o.x * n.x) + o.y * n.y) + o.z * n.z;
   const float so_u = ((a.w + o.x * a.x) + o.y * a.y) + o.z * a.z;
@@ -79,7 +82,7 @@ __device__ __forceinline__ float tri_t(const float4* p, float4 o, float4 d,
   const float u = so_u + t * sd_u;
   const float v = so_v + t * sd_v;
   const bool ok = (u >= 0.0f) && (v >= 0.0f) && ((1.0f - u - v) >= 0.0f) &&
-                  (t > t_min) && (t < t_max) && (fabsf(sd_n) > 1e-12f);
+                  (t > kTMin) && (t < t_max) && (fabsf(sd_n) > 1e-12f);
   return ok ? t : kTFar;
 }
 
@@ -94,15 +97,14 @@ __device__ __forceinline__ int block_max(int v, int* s_red) {
   return v;
 }
 
-// Closest hit over a tile's sorted candidates, B clusters per step. Per ray:
+// Closest hit over a tile's sorted candidates, kBatch clusters per step. Per ray:
 // within a step the earliest candidate j wins a lane (strict <), across lanes
 // the smallest t and on equal t the smaller slot cl*C + lane, and a step
 // replaces the running best only on a strict < (traversal2.py:_batch_best).
-template <int B>
 __global__ void closest_hit_kernel(const int* __restrict__ words, const int* __restrict__ counts,
                                    int k_cap, const float4* __restrict__ o4,
                                    const float4* __restrict__ d4, const float* __restrict__ w,
-                                   int n_cl, int c, float t_min, float* __restrict__ bt_out,
+                                   int n_cl, int c, float* __restrict__ bt_out,
                                    int* __restrict__ bid_out) {
   extern __shared__ float4 s_w[];
   __shared__ int s_red[32];
@@ -114,15 +116,15 @@ __global__ void closest_hit_kernel(const int* __restrict__ words, const int* __r
   float bt = kTFar;
   int bid = -1;
   int bound = __float_as_int(kTFar);
-  for (int k = 0; k < n; k += B) {
+  for (int k = 0; k < n; k += kBatch) {
     if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform
     __syncthreads();                          // the last step's readers are done
-    stage_clusters(s_w, w, wt, k, B, k_cap, n_cl, c);
+    stage_clusters(s_w, w, wt, k, kBatch, k_cap, n_cl, c);
     __syncthreads();
-    int cl[B];
-    bool live[B];
+    int cl[kBatch];
+    bool live[kBatch];
 #pragma unroll
-    for (int j = 0; j < B; ++j) {
+    for (int j = 0; j < kBatch; ++j) {
       cl[j] = min(wt[min(k + j, k_cap - 1)] & kClMask, n_cl - 1);
       live[j] = k + j < n;
     }
@@ -132,8 +134,8 @@ __global__ void closest_hit_kernel(const int* __restrict__ words, const int* __r
       float m = kTFar;
       int mb = 0;
 #pragma unroll
-      for (int j = 0; j < B; ++j) {
-        const float tv = live[j] ? tri_t(s_w + (j * c + lane) * 3, o, d, t_min, kTFar) : kTFar;
+      for (int j = 0; j < kBatch; ++j) {
+        const float tv = live[j] ? tri_t(s_w + (j * c + lane) * 3, o, d, kTFar) : kTFar;
         if (j == 0 || tv < m) {
           m = tv;
           mb = cl[j] * c + lane;
@@ -159,7 +161,7 @@ __global__ void closest_hit_kernel(const int* __restrict__ words, const int* __r
 __global__ void closest_fast_kernel(const int* __restrict__ words, const int* __restrict__ counts,
                                     int k_cap, const float4* __restrict__ o4,
                                     const float4* __restrict__ d4, const float* __restrict__ w,
-                                    int n_cl, int c, float t_min, float* __restrict__ bt_out,
+                                    int n_cl, int c, float* __restrict__ bt_out,
                                     int* __restrict__ bid_out) {
   extern __shared__ float4 s_w[];
   const int tile = blockIdx.x;
@@ -173,7 +175,7 @@ __global__ void closest_fast_kernel(const int* __restrict__ words, const int* __
   float tb = kTFar;
   int tbid = kIntMax;
   for (int lane = 0; lane < c; ++lane) {
-    const float tv = live ? tri_t(s_w + lane * 3, o, d, t_min, kTFar) : kTFar;
+    const float tv = live ? tri_t(s_w + lane * 3, o, d, kTFar) : kTFar;
     const int b = cl * c + lane;
     if (tv < tb || (tv == tb && b < tbid)) {
       tb = tv;
@@ -186,13 +188,12 @@ __global__ void closest_fast_kernel(const int* __restrict__ words, const int* __
 }
 
 // Occlusion: a ray is occluded iff some candidate triangle has t in
-// (t_min, t_max[ray]). Stops once every ray is occluded, or once the next
+// (kTMin, t_max[ray]). Stops once every ray is occluded, or once the next
 // word's entry bits reach the max t_max of the rays still unoccluded.
-template <int B>
 __global__ void anyhit_kernel(const int* __restrict__ words, const int* __restrict__ counts,
                               int k_cap, const float4* __restrict__ o4,
                               const float4* __restrict__ d4, const float* __restrict__ tmax,
-                              const float* __restrict__ w, int n_cl, int c, float t_min,
+                              const float* __restrict__ w, int n_cl, int c,
                               uint8_t* __restrict__ occ_out) {
   extern __shared__ float4 s_w[];
   __shared__ int s_red[32];
@@ -204,16 +205,16 @@ __global__ void anyhit_kernel(const int* __restrict__ words, const int* __restri
   const float tm = tmax[ray];
   bool occ = false;
   int bound = block_max(__float_as_int(tm), s_red);
-  for (int k = 0; k < n; k += B) {
+  for (int k = 0; k < n; k += kBatch) {
     if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform; all occluded -> bound 0
     __syncthreads();
-    stage_clusters(s_w, w, wt, k, B, k_cap, n_cl, c);
+    stage_clusters(s_w, w, wt, k, kBatch, k_cap, n_cl, c);
     __syncthreads();
     if (!occ) {
-      int n_live = min(B, n - k);
+      int n_live = min(kBatch, n - k);
       for (int lane = 0; lane < c && !occ; ++lane) {
         for (int j = 0; j < n_live; ++j) {
-          if (tri_t(s_w + (j * c + lane) * 3, o, d, t_min, tm) < kTFar) {
+          if (tri_t(s_w + (j * c + lane) * 3, o, d, tm) < kTFar) {
             occ = true;
             break;
           }
@@ -239,64 +240,38 @@ size_t stage_bytes(int batch, int c) { return (size_t)batch * c * 3 * sizeof(flo
 extern "C" {
 
 int tt_closest(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
-               const void* o4, const void* d4, const void* w, int n_cl, int c, float t_min,
-               int batch, void* bt, void* bid, void* stream) {
-  const size_t smem = stage_bytes(batch, c);
-  cudaStream_t s = (cudaStream_t)stream;
-#define TT_CLOSEST(B)                                                                        \
-  {                                                                                          \
-    cudaError_t e = launch_prep(closest_hit_kernel<B>, smem);                                \
-    if (e != cudaSuccess) return (int)e;                                                     \
-    closest_hit_kernel<B><<<n_tiles, tr, smem, s>>>(                                         \
-        (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4, \
-        (const float*)w, n_cl, c, t_min, (float*)bt, (int*)bid);                             \
-    break;                                                                                   \
-  }
-  switch (batch) {
-    case 1: TT_CLOSEST(1)
-    case 2: TT_CLOSEST(2)
-    case 4: TT_CLOSEST(4)
-    case 8: TT_CLOSEST(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef TT_CLOSEST
+               const void* o4, const void* d4, const void* w, int n_cl, int c, void* bt,
+               void* bid, void* stream) {
+  const size_t smem = stage_bytes(kBatch, c);
+  cudaError_t e = launch_prep(closest_hit_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  closest_hit_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
+      (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
+      (const float*)w, n_cl, c, (float*)bt, (int*)bid);
   return (int)cudaGetLastError();
 }
 
 int tt_closest_fast(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
-                    const void* o4, const void* d4, const void* w, int n_cl, int c,
-                    float t_min, void* bt, void* bid, void* stream) {
+                    const void* o4, const void* d4, const void* w, int n_cl, int c, void* bt,
+                    void* bid, void* stream) {
   const size_t smem = stage_bytes(1, c);
   cudaError_t e = launch_prep(closest_fast_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   closest_fast_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
       (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
-      (const float*)w, n_cl, c, t_min, (float*)bt, (int*)bid);
+      (const float*)w, n_cl, c, (float*)bt, (int*)bid);
   return (int)cudaGetLastError();
 }
 
 int tt_anyhit(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
               const void* o4, const void* d4, const void* tmax, const void* w, int n_cl, int c,
-              float t_min, int batch, void* occ, void* stream) {
-  const size_t smem = stage_bytes(batch, c);
-  cudaStream_t s = (cudaStream_t)stream;
-#define TT_ANYHIT(B)                                                                          \
-  {                                                                                           \
-    cudaError_t e = launch_prep(anyhit_kernel<B>, smem);                                      \
-    if (e != cudaSuccess) return (int)e;                                                      \
-    anyhit_kernel<B><<<n_tiles, tr, smem, s>>>(                                               \
-        (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,  \
-        (const float*)tmax, (const float*)w, n_cl, c, t_min, (uint8_t*)occ);                  \
-    break;                                                                                    \
-  }
-  switch (batch) {
-    case 1: TT_ANYHIT(1)
-    case 2: TT_ANYHIT(2)
-    case 4: TT_ANYHIT(4)
-    case 8: TT_ANYHIT(8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef TT_ANYHIT
+              void* occ, void* stream) {
+  const size_t smem = stage_bytes(kBatch, c);
+  cudaError_t e = launch_prep(anyhit_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  anyhit_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
+      (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
+      (const float*)tmax, (const float*)w, n_cl, c, (uint8_t*)occ);
   return (int)cudaGetLastError();
 }
 

@@ -32,9 +32,9 @@ _CL_MASK = (1 << CLUSTER_BITS) - 1
 _INT_MAX = 2147483647
 
 # Candidate clusters per step of the generic closest-hit and any-hit loops
-# (shared-memory stage of B * 6 KB at C = 128), and of the fast tier.
-SPLIT_BATCH = 4
-ANYHIT_BATCH = 4
+# (shared-memory stage of B * 6 KB at C = 128; kBatch of csrc/traversal2.cu,
+# which builds the kernels for this B only), and of the fast tier.
+BATCH = 4
 FAST_BATCH = 1
 
 # Kernel launches per wrapper (reset by callers that count a run).
@@ -48,7 +48,7 @@ _PLAIN_BYTES = 1 << 30
 # Plain versions
 # ---------------------------------------------------------------------------
 
-def _cluster_t(o4, d4, w, t_min: float, t_max):
+def _cluster_t(o4, d4, w, t_max):
     """Rays (..., TR, 4) x clusters (..., 4, 3C) -> tv (..., TR, C): t, or
     T_FAR where the pair misses. Products in the reference's order
     (_products): so = ((w3 + o0*w0) + o1*w1) + o2*w2, sd = (d0*w0 + d1*w1)
@@ -64,7 +64,7 @@ def _cluster_t(o4, d4, w, t_min: float, t_max):
     u = so[..., c:2 * c] + t * sd[..., c:2 * c]
     v = so[..., 2 * c:] + t * sd[..., 2 * c:]
     ok = ((torch.minimum(torch.minimum(u, v), 1.0 - u - v) >= 0.0)
-          & (t > t_min) & (t < t_max) & (den.abs() > 1e-12))
+          & (t > T_MIN) & (t < t_max) & (den.abs() > 1e-12))
     return torch.where(ok, t, T_FAR)
 
 
@@ -98,8 +98,7 @@ def _candidates(words, counts, k: int, batch: int, n_cl: int):
     return cl, j[None] < counts[:, None]
 
 
-def closest_hit_plain(o4, d4, w, words, counts, t_min: float = T_MIN,
-                      batch: int = SPLIT_BATCH):
+def closest_hit_plain(o4, d4, w, words, counts, batch: int = BATCH):
     """Closest hit: o4, d4 (Nt, TR, 4) f32, w (Ncl, 4, 3C) f32, words
     (Nt, K) i32 sorted, counts (Nt,) i32 -> (bt (Nt, TR) f32 best t or
     T_FAR, bid (Nt, TR) i32 slot cl*C + lane or -1)."""
@@ -112,26 +111,24 @@ def closest_hit_plain(o4, d4, w, words, counts, t_min: float = T_MIN,
         bt_c, bid_c = bt[a:b], bid[a:b]
         for k in range(0, n_max, batch):
             cl, live = _candidates(words[a:b], counts[a:b], k, batch, n_cl)
-            tv = _cluster_t(o4[a:b, None], d4[a:b, None], w[cl.long()], t_min, T_FAR)
+            tv = _cluster_t(o4[a:b, None], d4[a:b, None], w[cl.long()], T_FAR)
             tv = torch.where(live[..., None, None], tv, T_FAR)
             bt_c, bid_c = _batch_best(tv, cl, c, bt_c, bid_c)
         bt[a:b], bid[a:b] = bt_c, bid_c
     return bt, bid
 
 
-def closest_fast_plain(o4, d4, w, words, counts, t_min: float = T_MIN):
+def closest_fast_plain(o4, d4, w, words, counts):
     """closest_hit_plain for tiles with count <= 1: one step over the first
     word only, live iff count > 0 (a heavier tile gets its first candidate
     only)."""
-    return closest_hit_plain(o4, d4, w, words[:, :1], torch.clamp_max(counts, 1), t_min,
-                             batch=1)
+    return closest_hit_plain(o4, d4, w, words[:, :1], torch.clamp_max(counts, 1), batch=1)
 
 
-def anyhit_plain(o4, d4, tmax, w, words, counts, t_min: float = T_MIN,
-                 batch: int = ANYHIT_BATCH):
+def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
     """Occlusion: as closest_hit_plain plus tmax (Nt, TR) f32 per-ray upper
     bound -> occ (Nt, TR) bool, True iff some candidate triangle has t in
-    (t_min, tmax)."""
+    (T_MIN, tmax)."""
     n_tiles, tr, _ = o4.shape
     n_cl, c = w.shape[0], w.shape[-1] // 3
     occ = torch.zeros((n_tiles, tr), dtype=torch.bool, device=o4.device)
@@ -140,7 +137,7 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, t_min: float = T_MIN,
         tm = tmax[a:b, None, :, None]
         for k in range(0, n_max, batch):
             cl, live = _candidates(words[a:b], counts[a:b], k, batch, n_cl)
-            tv = _cluster_t(o4[a:b, None], d4[a:b, None], w[cl.long()], t_min, tm)
+            tv = _cluster_t(o4[a:b, None], d4[a:b, None], w[cl.long()], tm)
             hit = (tv < T_FAR) & live[..., None, None]
             occ[a:b] |= hit.any(-1).any(1)
     return occ
@@ -191,49 +188,44 @@ def _closest_out(o4):
             torch.empty((n_tiles, tr), dtype=torch.int32, device=o4.device))
 
 
-def closest_hit(o4, d4, w, words, counts, t_min: float = T_MIN,
-                batch: int = SPLIT_BATCH):
+def closest_hit(o4, d4, w, words, counts):
     """closest_hit_plain on CPU tensors; the CUDA kernel
-    closest_hit_kernel<batch> on CUDA tensors."""
+    closest_hit_kernel on CUDA tensors."""
     if o4.device.type == "cpu":
-        return closest_hit_plain(o4, d4, w, words, counts, t_min, batch)
+        return closest_hit_plain(o4, d4, w, words, counts)
     _check_cuda(o4, d4, w, words, counts)
     bt, bid = _closest_out(o4)
     if o4.shape[0]:
         _launch("closest", "tt_closest", o4.device, words, counts, o4.shape[0],
-                words.shape[1], o4.shape[1], o4, d4, w, w.shape[0], w.shape[2] // 3,
-                t_min, batch, bt, bid)
+                words.shape[1], o4.shape[1], o4, d4, w, w.shape[0], w.shape[2] // 3, bt, bid)
     return bt, bid
 
 
-def closest_fast(o4, d4, w, words, counts, t_min: float = T_MIN):
+def closest_fast(o4, d4, w, words, counts):
     """closest_fast_plain on CPU tensors; the CUDA kernel
     closest_fast_kernel on CUDA tensors."""
     if o4.device.type == "cpu":
-        return closest_fast_plain(o4, d4, w, words, counts, t_min)
+        return closest_fast_plain(o4, d4, w, words, counts)
     _check_cuda(o4, d4, w, words, counts)
     bt, bid = _closest_out(o4)
     if o4.shape[0]:
         _launch("closest_fast", "tt_closest_fast", o4.device, words, counts, o4.shape[0],
-                words.shape[1], o4.shape[1], o4, d4, w, w.shape[0], w.shape[2] // 3,
-                t_min, bt, bid)
+                words.shape[1], o4.shape[1], o4, d4, w, w.shape[0], w.shape[2] // 3, bt, bid)
     return bt, bid
 
 
-def anyhit(o4, d4, tmax, w, words, counts, t_min: float = T_MIN,
-           batch: int = ANYHIT_BATCH):
-    """anyhit_plain on CPU tensors; the CUDA kernel anyhit_kernel<batch>
-    on CUDA tensors."""
+def anyhit(o4, d4, tmax, w, words, counts):
+    """anyhit_plain on CPU tensors; the CUDA kernel anyhit_kernel on CUDA
+    tensors."""
     if o4.device.type == "cpu":
-        return anyhit_plain(o4, d4, tmax, w, words, counts, t_min, batch)
+        return anyhit_plain(o4, d4, tmax, w, words, counts)
     _check_cuda(o4, d4, w, words, counts, (tmax, torch.float32))
     if tmax.shape != o4.shape[:2]:
         raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
     occ = torch.empty(o4.shape[:2], dtype=torch.uint8, device=o4.device)
     if o4.shape[0]:
         _launch("anyhit", "tt_anyhit", o4.device, words, counts, o4.shape[0],
-                words.shape[1], o4.shape[1], o4, d4, tmax, w, w.shape[0], w.shape[2] // 3,
-                t_min, batch, occ)
+                words.shape[1], o4.shape[1], o4, d4, tmax, w, w.shape[0], w.shape[2] // 3, occ)
     return occ.bool()
 
 
@@ -249,7 +241,7 @@ def _count_sort(counts):
     return order, inv
 
 
-def trace_tiles_split(o_t, d_t, accel, words, counts, t_min: float = T_MIN):
+def trace_tiles_split(o_t, d_t, accel, words, counts):
     """Closest hit over count-sorted tiles in three regions:
 
       [0, P)   generic kernel (count > 1), P = #tiles with count > FAST_BATCH;
@@ -269,11 +261,11 @@ def trace_tiles_split(o_t, d_t, accel, words, counts, t_min: float = T_MIN):
     excess = (counts_s[P:Z] > FAST_BATCH).sum() + (counts_s[Z:] > 0).sum()
     parts_bt, parts_bid = [], []
     if P > 0:
-        bt_g, bid_g = closest_hit(o4[:P], d4[:P], w, words_s[:P], counts_s[:P], t_min)
+        bt_g, bid_g = closest_hit(o4[:P], d4[:P], w, words_s[:P], counts_s[:P])
         parts_bt.append(bt_g)
         parts_bid.append(bid_g)
     if Z > P:
-        bt_f, bid_f = closest_fast(o4[P:Z], d4[P:Z], w, words_s[P:Z], counts_s[P:Z], t_min)
+        bt_f, bid_f = closest_fast(o4[P:Z], d4[P:Z], w, words_s[P:Z], counts_s[P:Z])
         parts_bt.append(bt_f)
         parts_bid.append(bid_f)
     if n_tiles > Z:
@@ -284,8 +276,7 @@ def trace_tiles_split(o_t, d_t, accel, words, counts, t_min: float = T_MIN):
     return bt, bid, excess, (P, Z)
 
 
-def any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts,
-                         t_min: float = T_MIN):
+def any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts):
     """Occlusion over count-sorted tiles: ONE any-hit launch over the Z
     tiles with count > 0, zero-count tiles unoccluded. (The reference
     grades the kernel region into B=4 and B=1 parts because its lockstep
@@ -309,5 +300,5 @@ def any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts,
     occ_s = torch.zeros((n_tiles, tr), dtype=torch.bool, device=o_t.device)
     if Z > 0:
         occ_s[:Z] = anyhit(o4[:Z], d4[:Z], tmax_s[:Z], accel.tri_w, words_s[:Z],
-                           counts_s[:Z], t_min)
+                           counts_s[:Z])
     return occ_s[inv], excess, (need_b1, Z)

@@ -13,7 +13,9 @@ class RenderConfig:
 
     `use_bvh` and `use_pallas` name tracer tiers of the JAX package; the
     port has one tier, the tiled cluster kernels, and renders every config
-    through it."""
+    through it, whatever these two say. The port renders in float32 and has
+    no profile option: api.make_render_fn raises on any other `dtype` and
+    on `profile=True`."""
 
     scene: str = "cornell"          # cornell | bunny | hall | bench | soup
     height: int = 256
