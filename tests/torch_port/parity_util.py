@@ -1,10 +1,20 @@
 """Helpers shared by the torch-port parity tests: JAX dataclass leaves as
-numpy arrays, the unit-vector tolerance, and the golden image gate."""
+numpy arrays, the unit-vector tolerance, the golden image gate, and the
+traversal fixtures (tiled rays over the bunny and a triangle soup, and the
+reference's exact cull)."""
 from __future__ import annotations
 
 import dataclasses
+import functools
 
+import jax
+import jax.numpy as jnp
 import numpy as np
+
+from tracer.bvh.cull import cull_clusters_sorted2
+from tracer.core.camera import Camera as JCamera
+from tracer.kernels.traversal import generate_rays_tiled, tile_rays
+from tracer.scene.procedural import bunny_scene, random_tri_soup
 
 
 def leaves(obj) -> dict:
@@ -34,3 +44,38 @@ def golden_check(img, ref, frac_tol=0.015, p98_tol=2e-3):
     assert frac_bad < frac_tol, f"{frac_bad:.2%} pixels off (max err {err.max():.4f})"
     p98 = np.percentile(err, 98)
     assert p98 < p98_tol, f"p98 err {p98:.2e} (max err {err.max():.4f})"
+
+
+def bunny_rays(size: int = 64):
+    """The subdiv-3 bunny and its primary rays, (size/8)^2 tiles of 8x8."""
+    scene, cam = bunny_scene(3)
+    o, d, _ = generate_rays_tiled(JCamera.make(**cam), size, size, 64)
+    return scene, np.array(o), np.array(d)
+
+
+def soup_rays(size: int = 32):
+    """400 random triangles seen from one origin along seeded random
+    directions into their cube (no spatial coherence in the tiles)."""
+    scene = random_tri_soup(400)
+    rng = np.random.default_rng(7)
+    o = np.broadcast_to(np.array([0.0, 0.0, 3.0], np.float32), (size, size, 3))
+    d = rng.uniform(-1.0, 1.0, size=(size, size, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o_t, d_t, _ = tile_rays(jnp.asarray(o), jnp.asarray(d), 64)
+    return scene, np.array(o_t), np.array(d_t)
+
+
+@functools.partial(jax.jit, static_argnames=("k", "s"))
+def _cull_jit(accel, o_t, d_t, t_max, k, s):
+    return cull_clusters_sorted2(accel, o_t, d_t, t_max, k, s_cap=s, bf16_fetch=False)
+
+
+def exact_cull(accel, o_t, d_t, t_max):
+    """The reference's cull at caps wide enough to drop nothing, with the
+    exact f32 box fetch -> (words, counts)."""
+    k = max(8, -(-accel.num_clusters // 8) * 8)
+    words, counts, excess, _ = _cull_jit(accel, jnp.asarray(o_t), jnp.asarray(d_t),
+                                         jnp.asarray(t_max, jnp.float32), k=k,
+                                         s=accel.super_lo.shape[0])
+    assert int(excess) == 0
+    return words, counts

@@ -16,37 +16,14 @@ import pytest
 import torch
 
 from tracer.bvh.cluster import build_clusters
-from tracer.bvh.cull import cull_clusters_sorted2
-from tracer.core.camera import Camera as JCamera
 from tracer.core.types import T_FAR
-from tracer.kernels.traversal import generate_rays_tiled, tile_rays
 from tracer.kernels import traversal2 as jt2
-from tracer.scene.procedural import bunny_scene, random_tri_soup
 from tracer_torch.bridge import accel_from_arrays
 from tracer_torch.kernels import traversal2 as tt2
 
-from parity_util import leaves
+from parity_util import bunny_rays, exact_cull as _cull, leaves, soup_rays
 
-
-def _bunny_rays():
-    scene, cam = bunny_scene(3)
-    o, d, _ = generate_rays_tiled(JCamera.make(**cam), 64, 64, 64)
-    return scene, np.array(o), np.array(d)
-
-
-def _soup_rays():
-    """400 random triangles seen from one origin along seeded random
-    directions into their cube (no spatial coherence in the tiles)."""
-    scene = random_tri_soup(400)
-    rng = np.random.default_rng(7)
-    o = np.broadcast_to(np.array([0.0, 0.0, 3.0], np.float32), (32, 32, 3))
-    d = rng.uniform(-1.0, 1.0, size=(32, 32, 3)).astype(np.float32) - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    o_t, d_t, _ = tile_rays(jnp.asarray(o), jnp.asarray(d), 64)
-    return scene, np.array(o_t), np.array(d_t)
-
-
-FIXTURES = {"bunny3": _bunny_rays, "soup400": _soup_rays}
+FIXTURES = {"bunny3": functools.partial(bunny_rays, 64), "soup400": soup_rays}
 
 
 @pytest.fixture(scope="module", params=sorted(FIXTURES))
@@ -56,20 +33,6 @@ def case(request):
     words, counts = _cull(accel, o_t, d_t, T_FAR)
     return (accel, accel_from_arrays(leaves(accel), "cpu"), o_t, d_t, request.param,
             words, counts)
-
-
-@functools.partial(jax.jit, static_argnames=("k", "s"))
-def _cull_jit(accel, o_t, d_t, t_max, k, s):
-    return cull_clusters_sorted2(accel, o_t, d_t, t_max, k, s_cap=s, bf16_fetch=False)
-
-
-def _cull(accel, o_t, d_t, t_max):
-    k = max(8, -(-accel.num_clusters // 8) * 8)
-    words, counts, excess, _ = _cull_jit(accel, jnp.asarray(o_t), jnp.asarray(d_t),
-                                         jnp.asarray(t_max, jnp.float32), k=k,
-                                         s=accel.super_lo.shape[0])
-    assert int(excess) == 0
-    return words, counts
 
 
 def test_closest_split_matches_pallas(case):

@@ -1,8 +1,16 @@
 """User-facing API: get_scene / make_render_fn / render / benchmark (torch
-counterpart of tracer/api.py, tiled path only).
+counterpart of tracer/api.py, forward frames).
 
-The reference recompiles its tiled frame until static candidate caps are
-wide enough (a sizing loop with a persisted caps cache), because XLA needs
+make_render_fn picks one of two tiers, as the reference does for its
+Pallas configs:
+  * the tiled tier (render/tiled.py over kernels/traversal2.py), the
+    default;
+  * the streamed tier (render/whitted.py's wavefront integrator over
+    kernels/stream.py), for a use_bvh + use_pallas config whose scene has
+    more than TILED_MAX_CLUSTERS clusters.
+
+The reference recompiles its frames until static candidate caps are wide
+enough (a sizing loop with a persisted caps cache), because XLA needs
 static shapes. Here each pass reads its needs and runs at exactly that size,
 so every frame is exact by construction and there is nothing to size.
 """
@@ -13,13 +21,19 @@ import time
 import numpy as np
 import torch
 
-from tracer_torch.bvh.cluster import build_scene_accel
-from tracer_torch.core.camera import Camera
+from tracer_torch.bvh.cluster import CLUSTER_SIZE, build_scene_accel
+from tracer_torch.core.camera import Camera, generate_rays
+from tracer_torch.kernels.stream import make_streamed_tracers_aux
 from tracer_torch.render.tiled import render_tiled
-from tracer_torch.render.whitted import WhittedConfig
+from tracer_torch.render.whitted import WhittedConfig, render_wavefront_aux
 from tracer_torch.scene import procedural
 from tracer_torch.scene.types import Scene
 from tracer_torch.utils.config import RenderConfig, load_config
+
+# Clusters (of CLUSTER_SIZE triangles) up to which a use_bvh + use_pallas
+# config renders through the tiled tier; past it, through the streamed one.
+# The reference's _VMEM_RESIDENT_CLUSTERS (tracer/api.py:64).
+TILED_MAX_CLUSTERS = 2048
 
 
 def get_scene(cfg: RenderConfig, device) -> tuple[Scene, Camera]:
@@ -43,11 +57,25 @@ def get_scene(cfg: RenderConfig, device) -> tuple[Scene, Camera]:
     return scene, Camera.make(**cam, device=device)
 
 
+def use_streamed_tier(scene: Scene, cfg: RenderConfig) -> bool:
+    """Whether make_render_fn renders (scene, cfg) through the streamed tier."""
+    n_clusters = -(-scene.num_tris // CLUSTER_SIZE)
+    return cfg.use_bvh and cfg.use_pallas and n_clusters > TILED_MAX_CLUSTERS
+
+
 def make_render_fn(scene: Scene, cfg: RenderConfig, device):
-    """(scene, camera, with_aux=False) -> image (H, W, 3) [, aux] on
-    `device`. The cluster accel is built when a new scene object arrives
-    and reused across frames. Raises on a config the port cannot honour:
-    a dtype other than float32, or profile=True."""
+    """(scene, camera, with_aux=False, ensure_exact=False) -> image (H, W, 3)
+    [, aux] on `device`.
+
+    Routing: a use_bvh + use_pallas config whose scene has more than
+    TILED_MAX_CLUSTERS clusters renders through the streamed tier (aux keys
+    overflow, need_trace_k, need_occ_k, need_s); every other config through
+    the tiled tier (aux keys overflow, live_rays and its need_* sizes). The
+    cluster accel is built when a new scene object arrives and reused
+    across frames. Every frame is exact by construction (overflow 0), so
+    ensure_exact, the reference's re-sizing request, changes nothing.
+    Raises on a config the port cannot honour: a dtype other than float32,
+    or profile=True."""
     if cfg.dtype != "float32" or cfg.profile:
         raise ValueError(f"the port renders in float32 with no profile option, got "
                          f"dtype={cfg.dtype!r}, profile={cfg.profile}")
@@ -55,7 +83,17 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, device):
     wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
     state = {"scene": None, "accel": None}
 
-    def run(scene: Scene, camera: Camera, with_aux: bool = False):
+    def tiled_frame(scene, accel, camera):
+        return render_tiled(scene, accel, camera, cfg.height, cfg.width, wcfg, with_aux=True)
+
+    def streamed_frame(scene, accel, camera):
+        trace_fn, occlude_fn = make_streamed_tracers_aux(scene, accel)
+        rays = generate_rays(camera, cfg.height, cfg.width)
+        return render_wavefront_aux(scene, rays, wcfg, trace_fn, occlude_fn)
+
+    frame = streamed_frame if use_streamed_tier(scene, cfg) else tiled_frame
+
+    def run(scene: Scene, camera: Camera, with_aux: bool = False, ensure_exact: bool = False):
         for name, x in (("scene", scene.verts), ("camera", camera.position)):
             if x.device.type != device.type:
                 raise ValueError(f"{name} lives on {x.device}, the render fn on {device}")
@@ -63,8 +101,7 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, device):
             if state["scene"] is not scene:
                 state["accel"] = build_scene_accel(scene)
                 state["scene"] = scene
-            img, aux = render_tiled(scene, state["accel"], camera, cfg.height,
-                                    cfg.width, wcfg, with_aux=True)
+            img, aux = frame(scene, state["accel"], camera)
         return (img, aux) if with_aux else img
 
     run.state = state
@@ -103,8 +140,10 @@ def benchmark(config: str | RenderConfig | None = None, iters: int = 10,
     primary_rays = cfg.height * cfg.width
     # Every traced wavefront: per bounce one closest-hit pass plus one
     # shadow pass per light. primary_rays_per_s counts the closest-hit
-    # passes only; live_rays_per_s only rays actually traced (d != 0).
+    # passes only; live_rays_per_s only rays actually traced (d != 0), and
+    # is None for a tier that does not count them (the streamed one).
     rays_per_frame = primary_rays * cfg.max_bounces * (1 + scene.lights.count)
+    live_rays = aux.get("live_rays")
     return {
         "config": cfg,
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
@@ -112,7 +151,7 @@ def benchmark(config: str | RenderConfig | None = None, iters: int = 10,
         "fps": 1.0 / dt,
         "rays_per_s": rays_per_frame / dt,
         "primary_rays_per_s": primary_rays * cfg.max_bounces / dt,
-        "live_rays_per_s": aux["live_rays"] / dt,
+        "live_rays_per_s": None if live_rays is None else live_rays / dt,
         "num_tris": scene.num_tris,
         "overflow": aux["overflow"],
         "image": img.cpu().numpy(),

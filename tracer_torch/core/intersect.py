@@ -6,12 +6,14 @@ with n = e1 x e2, au = (e2 x n)/|n|^2, av = (n x e1)/|n|^2, so that for a
 homogeneous ray (o, 1) + t (d, 0) the plane value and both barycentrics are
 affine in t. The traversal kernels (kernels/traversal2.py) evaluate exactly
 these maps; `moller_trumbore` is the classic formulation they are held to.
+`intersect_brute` and `any_hit_brute` test every ray against every
+triangle: the brute-force tracers, and the oracle of the accel tiers' tests.
 """
 from __future__ import annotations
 
 import torch
 
-from tracer_torch.core.types import T_FAR, dot
+from tracer_torch.core.types import T_FAR, Hit, Ray, dot
 
 
 def moller_trumbore(ray_o, ray_d, v0, v1, v2, t_min: float = 1e-4,
@@ -55,3 +57,70 @@ def triangle_affine_maps(verts: torch.Tensor, tris: torch.Tensor) -> torch.Tenso
     rows = torch.stack([n, au, av], dim=1)  # (T, 3, 3)
     offs = -(rows * v0[:, None, :]).sum(-1)  # (T, 3)
     return torch.cat([rows, offs[..., None]], dim=-1)
+
+
+# Bytes of (rays, 3T) products the brute-force passes hold at once.
+_BRUTE_BYTES = 1 << 28
+
+
+def _packed_epilogue(so, sd, t_min, t_max, eps):
+    """(R, T, 3) plane/u/v values at the origins and along the directions ->
+    (t, u, v, hit) each (R, T); t == T_FAR where the pair misses."""
+    denom = sd[..., 0]
+    safe = denom.abs() > eps
+    t = -so[..., 0] / torch.where(safe, denom, 1.0)
+    u = so[..., 1] + t * sd[..., 1]
+    v = so[..., 2] + t * sd[..., 2]
+    hit = safe & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < t_max)
+    return torch.where(hit, t, T_FAR), u, v, hit
+
+
+def _brute_chunks(ray: Ray, maps: torch.Tensor, t_min, t_max, eps: float = 1e-12):
+    """Every ray against every triangle's affine map, in chunks of rays ->
+    yields (t, u, v, hit) each (R_chunk, T), in ray order. t_max is a scalar
+    or a (R,) per-ray bound."""
+    o = ray.o.reshape(-1, 3)
+    d = ray.d.reshape(-1, 3)
+    n_tri = maps.shape[0]
+    w = maps.reshape(n_tri * 3, 4).T  # (4, 3T)
+    step = max(1, _BRUTE_BYTES // max(1, 8 * 3 * n_tri * 4))
+    for a in range(0, o.shape[0], step):
+        sl = slice(a, min(a + step, o.shape[0]))
+        o4 = torch.cat([o[sl], o.new_ones((o[sl].shape[0], 1))], dim=-1)
+        d4 = torch.cat([d[sl], d.new_zeros((d[sl].shape[0], 1))], dim=-1)
+        so = (o4 @ w).reshape(-1, n_tri, 3)
+        sd = (d4 @ w).reshape(-1, n_tri, 3)
+        tm = t_max[sl, None] if isinstance(t_max, torch.Tensor) and t_max.ndim > 0 else t_max
+        yield _packed_epilogue(so, sd, t_min, tm, eps)
+
+
+def nearest_hit(t, u, v) -> Hit:
+    """Reduce (R, T) per-pair results to the nearest Hit per ray (the first
+    triangle among equal t)."""
+    idx = torch.argmin(t, dim=-1)
+    r = torch.arange(t.shape[0], device=t.device)
+    t_best = t[r, idx]
+    uv = torch.stack([u[r, idx], v[r, idx]], dim=-1)
+    tri = torch.where(t_best < T_FAR, idx.to(torch.int32), -1)
+    return Hit(t=t_best, tri=tri, uv=torch.where(t_best[..., None] < T_FAR, uv, 0.0))
+
+
+def intersect_brute(ray: Ray, verts, tris, t_min: float = 1e-4, t_max: float = T_FAR) -> Hit:
+    """All rays x all triangles: the nearest hit per ray, in the ray batch's
+    shape. Rays run in chunks so the (R, 3T) products stay near 256 MB."""
+    maps = triangle_affine_maps(verts, tris)
+    parts = [nearest_hit(*res[:3]) for res in _brute_chunks(ray, maps, t_min, t_max)]
+    shape = ray.batch_shape
+    return Hit(t=torch.cat([h.t for h in parts]).reshape(shape),
+               tri=torch.cat([h.tri for h in parts]).reshape(shape),
+               uv=torch.cat([h.uv for h in parts]).reshape(shape + (2,)))
+
+
+def any_hit_brute(ray: Ray, verts, tris, t_min: float = 1e-4, t_max=T_FAR) -> torch.Tensor:
+    """Occlusion: True where any triangle has t in (t_min, t_max); t_max a
+    scalar or a per-ray tensor of the ray batch shape."""
+    maps = triangle_affine_maps(verts, tris)
+    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
+        t_max = t_max.reshape(-1)
+    parts = [res[3].any(-1) for res in _brute_chunks(ray, maps, t_min, t_max)]
+    return torch.cat(parts).reshape(ray.batch_shape)

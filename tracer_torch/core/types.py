@@ -24,6 +24,10 @@ class Ray:
     def batch_shape(self):
         return tuple(self.o.shape[:-1])
 
+    def at(self, t: torch.Tensor) -> torch.Tensor:
+        """Points o + t*d; t broadcasts against the batch shape."""
+        return self.o + t[..., None] * self.d
+
 
 @dataclasses.dataclass(frozen=True)
 class Hit:

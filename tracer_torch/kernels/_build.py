@@ -4,6 +4,8 @@ with a plain C interface -> ctypes).
 The library is compiled for sm_90a at first use, into build/tracer_torch/
 at the repository root, under a name keyed by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
+Each source compiles to an object in its own nvcc process, all started
+together, and one more nvcc links the objects into the library.
 -fmad=false and the absence of fast math keep every product and the IEEE
 divide rounded as the plain PyTorch versions round them.
 """
@@ -18,18 +20,22 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("traversal2.cu",)
+SOURCES = ("traversal2.cu", "stream.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Entry points of traversal2.cu: name -> argtypes (see its extern "C" block).
+_CLOSEST = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
+_ANYHIT = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P]
+# Entry points (see the extern "C" block of each source): name -> argtypes.
 _SIGNATURES = {
-    "tt_closest": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
-    "tt_closest_fast": [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P],
-    "tt_anyhit": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P],
+    "tt_closest": _CLOSEST,      # traversal2.cu
+    "tt_closest_fast": _CLOSEST,
+    "tt_anyhit": _ANYHIT,
+    "st_closest": _CLOSEST,      # stream.cu
+    "st_anyhit": _ANYHIT,
 }
 
 
@@ -48,21 +54,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtracer_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> str:
+    """Wait for every (cmd, Popen); raise on the first failure, else return
+    the compilers' joined output."""
+    logs, failed = [], None
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}"
+    if failed:
+        raise RuntimeError(failed)
+    return "".join(logs)
+
+
+def _spawn(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
 def build() -> tuple[Path, str]:
     """Compile the library unless it is already built; returns (path, the
-    compiler's log: ptxas register/spill lines, empty when cached)."""
+    compilers' log: ptxas register/spill lines, empty when cached)."""
     out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    nvcc = _nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
+    try:
+        log = _run([_spawn([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)])
+                    for s, o in zip(SOURCES, objs)])
+        log += _run([_spawn([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    return out, log
 
 
 @functools.cache

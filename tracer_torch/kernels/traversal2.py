@@ -4,10 +4,10 @@ candidate clusters (torch counterpart of tracer/kernels/traversal2.py).
 Each of the three kernels of the pass has three pieces here:
   * a plain PyTorch version (closest_hit_plain, closest_fast_plain,
     anyhit_plain) that computes the same function, vectorized over tiles in
-    chunks and exhaustive over the candidate words in batches of the same B
-    (the kernels' early-out cannot change a result: a skipped cluster
-    cannot give a strictly smaller t, nor any t below an unoccluded ray's
-    t_max);
+    chunks and exhaustive over each tile's candidate words in batches of
+    the same B (the kernels' early-out cannot change a result: a skipped
+    cluster cannot give a strictly smaller t, nor any t below an unoccluded
+    ray's t_max);
   * a wrapper (closest_hit, closest_fast, anyhit) that runs the plain
     version for CPU tensors and launches the CUDA kernel of
     csrc/traversal2.cu for CUDA tensors, or raises;
@@ -18,14 +18,15 @@ candidate count and set the partition points at run time from the counts
 (P = tiles with count > 1, Z = tiles with count > 0), so every tile lands in
 a region that is exact for it. The reference's static partitions, and the
 excess they could leave, are computed with the reference's formulas and are
-0 by construction.
+0 by construction. recover_hit maps a selected slot back to a full Hit.
 """
 from __future__ import annotations
 
 import torch
 
 from tracer_torch.bvh.cull import CLUSTER_BITS
-from tracer_torch.core.types import T_FAR
+from tracer_torch.core.intersect import moller_trumbore
+from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels.traversal import _homog, T_MIN
 
 _CL_MASK = (1 << CLUSTER_BITS) - 1
@@ -37,8 +38,10 @@ _INT_MAX = 2147483647
 BATCH = 4
 FAST_BATCH = 1
 
-# Kernel launches per wrapper (reset by callers that count a run).
-LAUNCHES = {"closest": 0, "closest_fast": 0, "anyhit": 0}
+# Kernel launches per wrapper (reset by callers that count a run), those of
+# kernels/stream.py included.
+LAUNCHES = {"closest": 0, "closest_fast": 0, "anyhit": 0, "closest_stream": 0,
+            "anyhit_stream": 0}
 
 # Bytes of (tiles, B, TR, 3C) temporaries a plain version holds at once.
 _PLAIN_BYTES = 1 << 30
@@ -89,6 +92,12 @@ def _chunks(n_tiles: int, batch: int, tr: int, c: int):
     return [(a, min(a + step, n_tiles)) for a in range(0, n_tiles, step)]
 
 
+def _live_tiles(counts, a: int, b: int, k: int):
+    """Indices of the tiles in [a, b) with a candidate left at word k; the
+    others' batch would be all T_FAR, which changes no result."""
+    return a + torch.nonzero(counts[a:b] > k)[:, 0]
+
+
 def _candidates(words, counts, k: int, batch: int, n_cl: int):
     """Words k .. k+batch-1 of each tile (clamped reads replay the last
     word) -> (cluster ids (Nt, B), live (Nt, B))."""
@@ -107,14 +116,12 @@ def closest_hit_plain(o4, d4, w, words, counts, batch: int = BATCH):
     bt = torch.full((n_tiles, tr), T_FAR, dtype=torch.float32, device=o4.device)
     bid = torch.full((n_tiles, tr), -1, dtype=torch.int32, device=o4.device)
     for a, b in _chunks(n_tiles, batch, tr, c):
-        n_max = int(counts[a:b].max())
-        bt_c, bid_c = bt[a:b], bid[a:b]
-        for k in range(0, n_max, batch):
-            cl, live = _candidates(words[a:b], counts[a:b], k, batch, n_cl)
-            tv = _cluster_t(o4[a:b, None], d4[a:b, None], w[cl.long()], T_FAR)
+        for k in range(0, int(counts[a:b].max()), batch):
+            t = _live_tiles(counts, a, b, k)
+            cl, live = _candidates(words[t], counts[t], k, batch, n_cl)
+            tv = _cluster_t(o4[t, None], d4[t, None], w[cl.long()], T_FAR)
             tv = torch.where(live[..., None, None], tv, T_FAR)
-            bt_c, bid_c = _batch_best(tv, cl, c, bt_c, bid_c)
-        bt[a:b], bid[a:b] = bt_c, bid_c
+            bt[t], bid[t] = _batch_best(tv, cl, c, bt[t], bid[t])
     return bt, bid
 
 
@@ -133,13 +140,12 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
     n_cl, c = w.shape[0], w.shape[-1] // 3
     occ = torch.zeros((n_tiles, tr), dtype=torch.bool, device=o4.device)
     for a, b in _chunks(n_tiles, batch, tr, c):
-        n_max = int(counts[a:b].max())
-        tm = tmax[a:b, None, :, None]
-        for k in range(0, n_max, batch):
-            cl, live = _candidates(words[a:b], counts[a:b], k, batch, n_cl)
-            tv = _cluster_t(o4[a:b, None], d4[a:b, None], w[cl.long()], tm)
+        for k in range(0, int(counts[a:b].max()), batch):
+            t = _live_tiles(counts, a, b, k)
+            cl, live = _candidates(words[t], counts[t], k, batch, n_cl)
+            tv = _cluster_t(o4[t, None], d4[t, None], w[cl.long()], tmax[t, None, :, None])
             hit = (tv < T_FAR) & live[..., None, None]
-            occ[a:b] |= hit.any(-1).any(1)
+            occ[t] |= hit.any(-1).any(1)
     return occ
 
 
@@ -302,3 +308,19 @@ def any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts):
         occ_s[:Z] = anyhit(o4[:Z], d4[:Z], tmax_s[:Z], accel.tri_w, words_s[:Z],
                            counts_s[:Z])
     return occ_s[inv], excess, (need_b1, Z)
+
+
+def recover_hit(scene, ray: Ray, bt, gid, accel, t_min=T_MIN) -> Hit:
+    """Kernel output (best t, slot cl*C + lane or -1) -> a full Hit: the
+    original triangle through accel.tri_ids, and (t, u, v) from one
+    Moller-Trumbore per ray (the kernel's t only selects). Relaxed
+    barycentric bounds (bary_eps 1e-5) keep the recompute from vetoing the
+    affine-map selection over rounding differences."""
+    valid = gid >= 0
+    tri = torch.where(valid, accel.tri_ids.reshape(-1)[gid.clamp_min(0).long()], -1)
+    idx = scene.tris[tri.clamp_min(0).long()].long()
+    v0, v1, v2 = (scene.verts[idx[..., i]] for i in range(3))
+    t, u, v, hitm = moller_trumbore(ray.o, ray.d, v0, v1, v2, t_min=t_min, bary_eps=1e-5)
+    valid = valid & hitm
+    return Hit(t=torch.where(valid, t, T_FAR), tri=torch.where(valid, tri, -1),
+               uv=torch.where(valid[..., None], torch.stack([u, v], dim=-1), 0.0))

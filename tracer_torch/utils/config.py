@@ -11,11 +11,14 @@ from typing import Any
 class RenderConfig:
     """One fully-specified render/benchmark configuration.
 
-    `use_bvh` and `use_pallas` name tracer tiers of the JAX package; the
-    port has one tier, the tiled cluster kernels, and renders every config
-    through it, whatever these two say. The port renders in float32 and has
-    no profile option: api.make_render_fn raises on any other `dtype` and
-    on `profile=True`."""
+    `use_bvh` and `use_pallas` name tracer tiers of the JAX package. The
+    port has two tiers: a config with both set whose scene has more than
+    api.TILED_MAX_CLUSTERS clusters renders through the streamed tier
+    (kernels/stream.py, as the reference's >VMEM scenes do); every other
+    config, whatever these two say, through the tiled tier
+    (render/tiled.py). The port renders in float32 and has no profile
+    option: api.make_render_fn raises on any other `dtype` and on
+    `profile=True`."""
 
     scene: str = "cornell"          # cornell | bunny | hall | bench | soup
     height: int = 256
