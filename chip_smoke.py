@@ -38,14 +38,43 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      the golden image gate;
   13. timing: tracer_torch.api.benchmark("pod-1m", max_bounces=1) with 1
      warm-up and 3 frames.
+  The wavefront tiers behind the (trace_fn, occlude_fn) seam, on the
+  bench100k frame (1 bounce, 1 light), one scene and accel shared by phases
+  14-16:
+  14. wavefront kernels: the work-list kernels (traversal.cu) at tiles of 256
+     rays in order, the pair kernels (traversal3.cu) at 8x8 tiles, each at
+     the frame's primary rays and its first light's surface-origin shadow
+     rays (the heaviest tiles plus a stride), against its plain version:
+     ids, slots and occlusion equal, t, u, v bit-equal;
+  15. wavefront frames: render_wavefront over make_accel_tracers(
+     use_pallas=True), make_sorted_tracers, make_pair_tracers and
+     make_streamed_tracers: a finite, lit image each, its own kernels
+     launched and no other tier's, no warning, the four images pairwise
+     under the golden gate; each of 10 frames after 2 timed on the host
+     clock, then one profiled frame's device time by kernel;
+  16. routing: make_render_fn on cornell256 and bunny-grad: the wavefront
+     aux {"overflow": 0}, no kernel launched, and a 64x64 frame of each on
+     the card against the CPU under the golden gate; where pixels differ,
+     their primary hits and first-light occlusion on both devices.
 Each phase prints its wall time. The last lines are a JSON line of
 per-kernel results, the nvidia-smi line, and {"ok": true, "device": {...}}.
+
+A kernel's bound is the larger of its operations over the card's fp32 peak
+and its bytes over the card's memory rate, counting what its function needs
+on this run's inputs and nothing its specification lets it skip: a walk
+with an early-out needs the words under the tile's final bound; a pair
+kernel tests those of them that pass its slab vote against the final state,
+and slab-tests all of them; an OR needs, for a ray it leaves unoccluded,
+every candidate the ray can reach before its t_max, and for a ray it
+occludes one triangle test.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -54,11 +83,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from tracer_torch import api  # noqa: E402
 from tracer_torch.bvh.cluster import build_scene_accel  # noqa: E402
-from tracer_torch.bvh.cull import cull_clusters_sorted2  # noqa: E402
+from tracer_torch.bvh.cull import (  # noqa: E402
+    CLUSTER_BITS, cull_clusters, cull_clusters_sorted, cull_clusters_sorted2)
 from tracer_torch.core.camera import generate_rays  # noqa: E402
 from tracer_torch.core.types import T_FAR  # noqa: E402
-from tracer_torch.kernels import _build, stream as st, traversal2 as t2  # noqa: E402
-from tracer_torch.kernels.traversal import _homog, generate_rays_tiled, tile_rays  # noqa: E402
+from tracer_torch.kernels import (  # noqa: E402
+    _build, stream as st, traversal as t1, traversal2 as t2, traversal3 as t3)
+from tracer_torch.kernels.traversal import (  # noqa: E402
+    _homog, generate_rays_tiled, tile_rays, tiled_tmax)
 from tracer_torch.render import tiled, whitted  # noqa: E402
 from tracer_torch.utils.config import load_config  # noqa: E402
 
@@ -70,10 +102,39 @@ KERNELS = {
     "anyhit": ("tracer_torch/kernels/csrc/traversal2.cu", "tracer/kernels/traversal2.py:286"),
     "closest_stream": ("tracer_torch/kernels/csrc/stream.cu", "tracer/kernels/stream.py:45"),
     "anyhit_stream": ("tracer_torch/kernels/csrc/stream.cu", "tracer/kernels/stream.py:116"),
+    "worklist_closest": ("tracer_torch/kernels/csrc/traversal.cu",
+                         "tracer/kernels/traversal.py:333"),
+    "worklist_anyhit": ("tracer_torch/kernels/csrc/traversal.cu",
+                        "tracer/kernels/traversal.py:449"),
+    "pair_closest": ("tracer_torch/kernels/csrc/traversal3.cu",
+                     "tracer/kernels/traversal3.py:122"),
+    "pair_anyhit": ("tracer_torch/kernels/csrc/traversal3.cu",
+                    "tracer/kernels/traversal3.py:162"),
 }
+KERNEL_FUNCTIONS = {"closest_hit_kernel"} | {f"{k}_kernel" for k in KERNELS if k != "closest"}
 # The kernels each tier's frame must launch; it must launch none of the others.
 TIERS = {"tiled": ("closest", "closest_fast", "anyhit"),
-         "streamed": ("closest_stream", "anyhit_stream")}
+         "sorted": ("closest", "closest_fast", "anyhit"),
+         "streamed": ("closest_stream", "anyhit_stream"),
+         "worklist": ("worklist_closest", "worklist_anyhit"),
+         "pair": ("pair_closest", "pair_anyhit")}
+
+# Published peaks of one H100 SXM at its full 700 W power limit: fp32 outside
+# the tensor cores, and device memory. A kernel's bound is the larger of its
+# operations over the first and its bytes over the second.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Arithmetic operations per (ray, triangle) test, compares not counted.
+# tri_t (traversal2.cu, stream.cu, traversal3.cu): so 3 x (3 mul + 3 add), sd
+# 3 x (3 mul + 2 add), negate, divide, u and v 2 x (mul + add), 1 - u - v.
+FLOPS_TRI = 41
+# field_t (traversal.cu): so and sd 6 x (4 mul + 3 add), negate, divide, u
+# and v 2 x (mul + add), u + v.
+FLOPS_FIELD = 49
+# _slab_enter (traversal3.cu) per (ray, box): per axis 2 subtractions, 2
+# products, and 4 min/max.
+FLOPS_SLAB = 24
+_CL_MASK = (1 << CLUSTER_BITS) - 1
 
 
 def log(msg: str):
@@ -134,39 +195,123 @@ def count_stats(counts: torch.Tensor) -> str:
     return f"count max {int(counts.max())}, mean {float(c.mean()):.2f}"
 
 
+def bound(flops, n_tiles, tr, list_items, cluster_bytes, in_ray, out_ray):
+    """The least time the card could take for a traversal kernel's work on
+    this run's inputs: `flops` operations, against these bytes, each input
+    once and each output once: in_ray + out_ray per ray, 4 per list item and
+    per tile, and cluster_bytes of cluster data."""
+    nbytes = n_tiles * tr * (in_ray + out_ray) + 4 * (list_items + n_tiles) + cluster_bytes
+    ops_ms, bytes_ms = float(flops) / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None}
+
+
+def needed_words(words, counts, final_bits):
+    """Which of each tile's sorted words any front-to-back walk of this data
+    must visit: those whose entry bits lie under the tile's final bound (the
+    bound only falls during a walk) -> (Nt, K) bool."""
+    slot = torch.arange(words.shape[1], device=words.device)[None]
+    return ((words & ~_CL_MASK) < final_bits[:, None]) & (slot < counts[:, None])
+
+
+def closest_bound(words, counts, final_bits, tr, c):
+    """bound() of a closest-hit kernel that walks sorted words with an
+    early-out and tests every ray of the tile against a visited cluster.
+    Rays: o4, d4 in (32 B), bt, bid out (8 B)."""
+    need = needed_words(words, counts, final_bits)
+    tests = int(need.sum())
+    clusters = torch.unique((words & _CL_MASK)[need]).numel()
+    return (bound(tests * tr * c * FLOPS_TRI, words.shape[0], tr, tests, clusters * 48 * c,
+                  32, 8), f"{tests} cluster tests x {tr} x {c} x {FLOPS_TRI}")
+
+
+def open_rays(occ, tmax):
+    """The rays an OR must follow to the end: not occluded, and with a
+    non-empty interval (T_MIN, t_max)."""
+    return ~occ & (tmax > t1.T_MIN)
+
+
+def anyhit_bound(words, counts, occ, tmax, c):
+    """bound() of an any-hit kernel over sorted words, per ray: a ray left
+    unoccluded needs every word whose entry bits lie under its own t_max (the
+    tile frustum's entry distance is a lower bound of the ray's), a ray that
+    ends occluded one triangle test. Rays: o4, d4, tmax in (36 B), occ out
+    (1 B)."""
+    slot = torch.arange(words.shape[1], device=words.device)[None]
+    valid = slot < counts[:, None]
+    need = (((words & ~_CL_MASK)[:, :, None] < float_bits(tmax)[:, None, :])
+            & valid[:, :, None] & open_rays(occ, tmax)[:, None, :])          # (Nt, K, TR)
+    tests = int(need.sum()) * c + int(occ.sum())
+    used = need.any(2)
+    items = int(torch.maximum(used.sum(1), occ.any(1).long()).sum())
+    clusters = torch.unique((words & _CL_MASK)[used]).numel()
+    return (bound(tests * FLOPS_TRI, words.shape[0], occ.shape[1], items, clusters * 48 * c,
+                  36, 1), f"{tests} (ray, triangle) tests x {FLOPS_TRI}")
+
+
+def pair_enter(o4, d4, lo, hi, words, need):
+    """For each needed (tile, word) pair, the entry distance of every ray of
+    the tile into the word's cluster box -> (tile (P,), cluster (P,), enter
+    (P, TR))."""
+    t, k = torch.nonzero(need, as_tuple=True)
+    cl = (words[t, k] & _CL_MASK).long()
+    rt = t3._ray_rows(o4[..., :3], d4[..., :3])
+    return t, cl, t3._slab_enter(rt[t], lo[cl], hi[cl])
+
+
+def float_bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def report(name, results, n_tiles, what, ms, plain_ms, err, bnd, tests):
+    log(f"[kernels] {name}: {n_tiles} tiles, {what}; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']} "
+        f"({tests})")
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
+
+
 def compare_closest(name, kernel, plain, o4, d4, w, words, counts, results):
     check(o4.shape[0] > 0, f"{name}: the selection holds no tile of this kernel's region")
     bt_k, bid_k = kernel(o4, d4, w, words, counts)
     bt_p, bid_p = plain(o4, d4, w, words, counts)
     torch.cuda.synchronize()
     bad_bid = int((bid_k != bid_p).sum())
-    bad_bt = int((bt_k.view(torch.int32) != bt_p.view(torch.int32)).sum())
+    bad_bt = int((float_bits(bt_k) != float_bits(bt_p)).sum())
     err = float((bt_k - bt_p).abs().max()) if bt_k.numel() else 0.0
     ms = cuda_ms(lambda: kernel(o4, d4, w, words, counts), 20)
     plain_ms = cuda_ms(lambda: plain(o4, d4, w, words, counts), 3)
-    log(f"[kernels] {name}: {o4.shape[0]} tiles, {count_stats(counts)}: "
-        f"gid mismatches {bad_bid}, bt bit mismatches {bad_bt}, max |dbt| {err:.3g}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    # The fast kernel's walk is its first word, whatever the bound.
+    if name == "closest_fast":
+        bnd, tests = closest_bound(words[:, :1], counts.clamp_max(1),
+                                   torch.full_like(counts, 2**31 - 1), o4.shape[1],
+                                   w.shape[2] // 3)
+    else:
+        bnd, tests = closest_bound(words, counts, float_bits(bt_k).amax(1), o4.shape[1],
+                                   w.shape[2] // 3)
+    report(name, results, o4.shape[0],
+           f"{count_stats(counts)}: gid mismatches {bad_bid}, bt bit mismatches {bad_bt}, "
+           f"max |dbt| {err:.3g}", ms, plain_ms, err, bnd, tests)
     if bad_bid or bad_bt:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
-    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def compare_anyhit(name, kernel, plain, args, results):
     """args = (o4, d4, tmax, w, words, counts) of tiles with count > 0."""
     check(args[0].shape[0] > 0, f"{name}: the selection holds no tile")
+    o4, _, tmax, w, words, counts = args
     occ_k = kernel(*args)
     occ_p = plain(*args)
     torch.cuda.synchronize()
     bad = int((occ_k != occ_p).sum())
     ms = cuda_ms(lambda: kernel(*args), 20)
     plain_ms = cuda_ms(lambda: plain(*args), 3)
-    log(f"[kernels] {name}: {args[0].shape[0]} tiles, {count_stats(args[5])}, "
-        f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad}; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    bnd, tests = anyhit_bound(words, counts, occ_k, tmax, w.shape[2] // 3)
+    report(name, results, o4.shape[0],
+           f"{count_stats(counts)}, occluded {float(occ_k.float().mean()):.3f}: occ "
+           f"mismatches {bad}", ms, plain_ms, float(bad > 0), bnd, tests)
     if bad:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
-    results[name] = {"max_abs_err": float(bad > 0), "ms": ms, "plain_ms": plain_ms}
 
 
 def anyhit_args(accel, so, sd, tmax, words, counts):
@@ -252,7 +397,7 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
         p, n, _ = whitted.shading_frame(scene, rays, hit, cfg.smooth_shading)
         sray, t_max, *_ = whitted.shadow_ray(p, n, hit.valid, scene.lights.position[0])
         so, sd, _ = tile_rays(sray.o, sray.d, 64)
-        tm = st._tiled_tmax(t_max, sray, so, 64)
+        tm = tiled_tmax(t_max, sray, so, 64)
         words2, counts2, excess2, need2 = cull_clusters_sorted2(accel, so, sd, tm)
         check(int(excess2) == 0, "shadow cull dropped candidates")
         far = int((tm.amax(1) > 1e29).sum())
@@ -260,6 +405,323 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
             f"S {need2[1]}; {far} tiles hold a ray with t_max > 1e29 (a missed receiver)")
         compare_anyhit("anyhit_stream", st.anyhit_stream, st.anyhit_stream_plain,
                        anyhit_args(accel, so, sd, tm, words2, counts2), results)
+
+
+def first_shadow_rays(scene, cfg, rays, trace_fn, tr):
+    """The first light's shadow rays from the primary hits of trace_fn, as
+    bounce_step builds them, in tiles of tr -> (so, sd, t_max (Nt, TR))."""
+    hit = trace_fn(rays)
+    p, n, _ = whitted.shading_frame(scene, rays, hit, cfg.smooth_shading)
+    sray, t_max, *_ = whitted.shadow_ray(p, n, hit.valid, scene.lights.position[0])
+    so, sd, _ = tile_rays(sray.o, sray.d, tr)
+    return so, sd, tiled_tmax(t_max, sray, so, tr)
+
+
+def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
+    """One work-list kernel against its plain version on the selected
+    tiles: closest hit when tmax_t is None, else any-hit."""
+    sel = select_tiles(counts)
+    if tmax_t is not None:
+        sel = sel[counts[sel] > 0]
+    check(sel.numel() > 0, "work-list comparison: the selection holds no tile")
+    offs, clusters = t1.tile_runs(cand[sel], counts[sel])
+    o4, d4 = _homog(o_t[sel], d_t[sel])
+    w, ids = accel.tri_w, accel.tri_ids
+    tr, c = o4.shape[1], ids.shape[1]
+    if tmax_t is None:
+        name = "worklist_closest"
+        run_k = lambda: t1.worklist_closest(o4, d4, w, ids, offs, clusters)
+        run_p = lambda: t1.worklist_closest_plain(o4, d4, w, ids, offs, clusters)
+        out_k, out_p = run_k(), run_p()
+        torch.cuda.synchronize()
+        bad = [int((float_bits(k) != float_bits(q)).sum()) for k, q in zip(out_k, out_p)]
+        err = max(float((out_k[i] - out_p[i]).abs().max()) for i in (0, 2, 3))
+        what = (f"bit mismatches bt {bad[0]}, btri {bad[1]}, bu {bad[2]}, bv {bad[3]}, "
+                f"max |d| {err:.3g}")
+        # No early-out: every item, every ray. Inputs o4, d4 (32 B a ray),
+        # outputs bt, btri, bu, bv (16 B a ray); a cluster is its matrix plus
+        # its C triangle ids.
+        bnd = bound(clusters.numel() * tr * c * FLOPS_FIELD, sel.numel(), tr, clusters.numel(),
+                    torch.unique(clusters).numel() * 52 * c, 32, 16)
+        tests = f"{clusters.numel()} cluster tests x {tr} x {c} x {FLOPS_FIELD}"
+    else:
+        name = "worklist_anyhit"
+        tm = tmax_t[sel].contiguous()
+        run_k = lambda: t1.worklist_anyhit(o4, d4, tm, w, offs, clusters)
+        run_p = lambda: t1.worklist_anyhit_plain(o4, d4, tm, w, offs, clusters)
+        occ_k, occ_p = run_k(), run_p()
+        torch.cuda.synchronize()
+        bad = [int((occ_k != occ_p).sum())]
+        err = float(bad[0] > 0)
+        what = f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad[0]}"
+        # Per ray, in an unsorted list: a ray left unoccluded needs every
+        # item of its tile, a ray that ends occluded one triangle test.
+        # Inputs o4, d4, tmax (36 B a ray), output occ (1 B a ray).
+        open_ = open_rays(occ_k, tm)
+        n_items = counts[sel].long()
+        n_tests = int((open_.sum(1) * n_items).sum()) * c + int(occ_k.sum())
+        walked = torch.repeat_interleave(open_.any(1), n_items)
+        items = int(walked.sum()) + int((occ_k.any(1) & ~open_.any(1)).sum())
+        bnd = bound(n_tests * FLOPS_FIELD, sel.numel(), tr, items,
+                    torch.unique(clusters[walked]).numel() * 48 * c, 36, 1)
+        tests = f"{n_tests} (ray, triangle) tests x {FLOPS_FIELD}"
+    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 2)
+    report(name, results, sel.numel(), f"{count_stats(counts[sel])}: {what}", ms, plain_ms,
+           err, bnd, tests)
+    if any(bad):
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+
+
+def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
+    """One pair kernel against its plain version on the selected tiles:
+    closest hit when tmax_t is None, else any-hit (t_max 0 for d == 0)."""
+    sel = select_tiles(counts)
+    if tmax_t is not None:
+        sel = sel[counts[sel] > 0]
+    check(sel.numel() > 0, "pair comparison: the selection holds no tile")
+    w_s, c_s = words[sel].contiguous(), counts[sel].contiguous()
+    offs, pwords, overflow = t3._tile_stream(w_s, c_s, None)
+    check(not overflow, "an exact pair stream overflowed")
+    o4, d4 = _homog(o_t[sel], d_t[sel])
+    w = accel.tri_w
+    lo, hi = accel.cluster_lo.contiguous(), accel.cluster_hi.contiguous()
+    tr, c = o4.shape[1], w.shape[2] // 3
+    if tmax_t is None:
+        name = "pair_closest"
+        run_k = lambda: t3.pair_closest(o4, d4, w, lo, hi, offs, pwords)
+        run_p = lambda: t3.pair_closest_plain(o4, d4, w, lo, hi, offs, pwords)
+        (bt_k, bid_k), (bt_p, bid_p) = run_k(), run_p()
+        torch.cuda.synchronize()
+        bad = [int((bid_k != bid_p).sum()), int((float_bits(bt_k) != float_bits(bt_p)).sum())]
+        err = float((bt_k - bt_p).abs().max())
+        what = f"gid mismatches {bad[0]}, bt bit mismatches {bad[1]}, max |dbt| {err:.3g}"
+        # Every word under the tile's final bound is slab-tested by every
+        # ray; those that some ray enters before its final best t are tested
+        # by every ray (the vote against the final state passes only where
+        # the walk's own did). Inputs o4, d4 (32 B a ray), outputs bt, bid (8 B);
+        # a visited cluster's box is 24 B, a tested one's matrix 48 C.
+        need = needed_words(w_s, c_s, float_bits(bt_k).amax(1))
+        t, cl, enter = pair_enter(o4, d4, lo, hi, w_s, need)
+        voted = (enter < bt_k[t]).any(1)
+        n_vis, n_tst = int(need.sum()), int(voted.sum())
+        bnd = bound(n_tst * tr * c * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, sel.numel(), tr, n_vis,
+                    torch.unique(cl).numel() * 24 + torch.unique(cl[voted]).numel() * 48 * c,
+                    32, 8)
+        tests = (f"{n_tst} cluster tests x {tr} x {c} x {FLOPS_TRI} + {n_vis} slab tests x "
+                 f"{tr} x {FLOPS_SLAB}")
+    else:
+        name = "pair_anyhit"
+        tm = torch.where((d_t[sel] != 0.0).any(-1), tmax_t[sel], 0.0).contiguous()
+        run_k = lambda: t3.pair_anyhit(o4, d4, tm, w, lo, hi, offs, pwords)
+        run_p = lambda: t3.pair_anyhit_plain(o4, d4, tm, w, lo, hi, offs, pwords)
+        occ_k, occ_p = run_k(), run_p()
+        torch.cuda.synchronize()
+        bad = [int((occ_k != occ_p).sum())]
+        err = float(bad[0] > 0)
+        what = f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad[0]}"
+        # Every word under the tile's final bound is slab-tested by every
+        # ray. Per ray: one left unoccluded needs every such cluster it
+        # enters before its t_max, one that ends occluded one triangle test.
+        # Inputs o4, d4, tmax (36 B a ray), output occ (1 B a ray).
+        open_ = open_rays(occ_k, tm)
+        need = needed_words(w_s, c_s, float_bits(torch.where(occ_k, 0.0, tm)).amax(1))
+        t, cl, enter = pair_enter(o4, d4, lo, hi, w_s, need)
+        reach = (enter < tm[t]) & open_[t]
+        n_vis, n_tst = int(need.sum()), int(reach.sum()) * c + int(occ_k.sum())
+        items = int(torch.maximum(need.sum(1), occ_k.any(1).long()).sum())
+        used = reach.any(1)
+        bnd = bound(n_tst * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, sel.numel(), tr, items,
+                    torch.unique(cl).numel() * 24 + torch.unique(cl[used]).numel() * 48 * c,
+                    36, 1)
+        tests = (f"{n_tst} (ray, triangle) tests x {FLOPS_TRI} + {n_vis} slab tests x {tr} x "
+                 f"{FLOPS_SLAB}")
+    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 2)
+    report(name, results, sel.numel(), f"{count_stats(c_s)}: {what}", ms, plain_ms, err, bnd,
+           tests)
+    if any(bad):
+        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+
+
+def phase_bench_scene(cfg, dev="cuda"):
+    """The bench100k scene and its accel on the card, built once for phases
+    14-15."""
+    scene, camera = api.get_scene(cfg, dev)
+    with torch.inference_mode():
+        accel = build_scene_accel(scene)
+    log(f"[scene] {cfg.scene}: {scene.num_tris} triangles, {accel.num_clusters} clusters, "
+        f"{scene.lights.count} light(s), tri_w {accel.tri_w.numel() * 4 / 1e6:.1f} MB")
+    return scene, camera, accel
+
+
+def phase_wavefront_kernels(results: dict, cfg, scene, camera, accel):
+    """The four kernels of the work-list and pair tiers vs their plain
+    versions at the frame's own shapes: the primary rays, and the first
+    light's shadow rays from each tier's own primary hits."""
+    with torch.inference_mode():
+        rays = generate_rays(camera, cfg.height, cfg.width)
+
+        o_t, d_t, tiling = tile_rays(rays.o, rays.d, t1.DEFAULT_TILE)
+        check(tiling.tile_hw is None, "1080 rows do not fold into 16x16 tiles")
+        cand, counts, excess = cull_clusters(accel, o_t, d_t, T_FAR)
+        check(int(excess) == 0, "work-list primary cull dropped candidates")
+        log(f"[wavefront] work-list primary cull: {o_t.shape[0]} in-order tiles of "
+            f"{o_t.shape[1]}, {count_stats(counts)}, total {int(counts.sum())}")
+        compare_worklist(results, accel, o_t, d_t, None, cand, counts)
+        trace_fn, _ = t1.make_accel_tracers(scene, accel, use_pallas=True)
+        so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, t1.DEFAULT_TILE)
+        cand, counts, excess = cull_clusters(accel, so, sd, tm)
+        check(int(excess) == 0, "work-list shadow cull dropped candidates")
+        log(f"[wavefront] work-list shadow cull (light 0): {so.shape[0]} tiles, "
+            f"{count_stats(counts)}, total {int(counts.sum())}")
+        compare_worklist(results, accel, so, sd, tm, cand, counts)
+        del cand
+
+        o_t, d_t, _ = tile_rays(rays.o, rays.d, 64)
+        words, counts, excess = cull_clusters_sorted(accel, o_t, d_t, T_FAR)
+        check(int(excess) == 0, "pair primary cull dropped candidates")
+        log(f"[wavefront] pair primary cull: {o_t.shape[0]} tiles of 64, {count_stats(counts)}, "
+            f"total {int(counts.sum())}")
+        compare_pairs(results, accel, o_t, d_t, None, words, counts)
+        trace_fn, _ = t3.make_pair_tracers(scene, accel)
+        so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, 64)
+        words, counts, excess = cull_clusters_sorted(accel, so, sd, tm)
+        check(int(excess) == 0, "pair shadow cull dropped candidates")
+        log(f"[wavefront] pair shadow cull (light 0): {so.shape[0]} tiles, "
+            f"{count_stats(counts)}, total {int(counts.sum())}")
+        compare_pairs(results, accel, so, sd, tm, words, counts)
+
+
+def golden_gate(a, b, what: str):
+    """< 1.5% of pixels off by > 2e-3 and p98 error < 2e-3, or exit."""
+    err = np.abs(a - b).max(axis=-1)
+    frac = float((err > 2e-3).mean())
+    p98 = float(np.percentile(err, 98))
+    log(f"[gate] {what}: pixels off by > 2e-3: {frac:.4%}, p98 {p98:.3g}, max {err.max():.3g}")
+    if not (frac < 0.015 and p98 < 2e-3):
+        raise SystemExit(f"{what}: the frames disagree beyond the golden gate")
+
+
+def phase_wavefront_frames(smi: str, cfg, scene, camera, accel) -> dict:
+    """The frame through render_wavefront over each tracer factory. For each
+    tier the launch counts are set to 0 just before its first frame and read
+    just after: its own kernels must have launched, and no other tier's. The
+    tracers' lists hold every candidate; any warning is an error. Then 10
+    frames, each timed on the host clock around a synchronize, after one
+    more warm-up; then one profiled frame's device time, by kernel of the
+    port (the four tiers trace the same rays, so these compare). Returns the
+    launches of the work-list and pair tiers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces,
+                                 smooth_shading=cfg.smooth_shading)
+    factories = {"worklist": lambda: t1.make_accel_tracers(scene, accel, use_pallas=True),
+                 "sorted": lambda: t2.make_sorted_tracers(scene, accel),
+                 "pair": lambda: t3.make_pair_tracers(scene, accel),
+                 "streamed": lambda: st.make_streamed_tracers(scene, accel)}
+    images, launched = {}, {}
+    for tier, factory in factories.items():
+        tracers = factory()
+
+        def frame():
+            with torch.inference_mode():
+                rays = generate_rays(camera, cfg.height, cfg.width)
+                return whitted.render_wavefront(scene, rays, wcfg, *tracers)
+
+        torch.cuda.reset_peak_memory_stats()
+        for key in t2.LAUNCHES:
+            t2.LAUNCHES[key] = 0
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            img = frame()
+            torch.cuda.synchronize()
+            launches = dict(t2.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            frame()
+            torch.cuda.synchronize()
+            ms = []
+            for _ in range(10):
+                t0 = time.perf_counter()
+                frame()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            frame()
+            torch.cuda.synchronize()
+        by_kernel = device_ms_by_kernel(prof.events())
+        img = img.cpu().numpy()
+        log(f"[wavefront] {tier} tier, {cfg.scene} {cfg.width}x{cfg.height}, "
+            f"{cfg.max_bounces} bounce(s), on {smi}: ms/frame over 10 frames after 2: mean "
+            f"{np.mean(ms):.3f}, median {np.median(ms):.3f}, min {min(ms):.3f}, max "
+            f"{max(ms):.3f}; one profiled frame: device busy {busy_ms(prof.events()):.3f} ms, "
+            f"of it { {k: round(v, 3) for k, v in by_kernel.items()} }; "
+            f"image mean {img.mean():.4f}, launches { {k: v for k, v in launches.items() if v} }, "
+            f"peak device memory {peak:.2f} GiB, no warning")
+        check(img.shape == (cfg.height, cfg.width, 3) and bool(np.isfinite(img).all()),
+              f"{tier}: the frame is not a finite (H, W, 3) image")
+        check(img.mean() > 0.01, f"{tier}: the frame is black (mean {img.mean()})")
+        missing = [k for k in TIERS[tier] if launches[k] == 0]
+        stray = [k for k, v in launches.items() if v and k not in TIERS[tier]]
+        check(not missing and not stray,
+              f"the {tier} frame never launched {missing}, and launched {stray}")
+        images[tier], launched[tier] = img, launches
+    tiers = list(images)
+    for i, a in enumerate(tiers):
+        for b in tiers[i + 1:]:
+            golden_gate(images[a], images[b], f"{a} vs {b}")
+    return {k: launched[tier][k] for tier in ("worklist", "pair") for k in TIERS[tier]}
+
+
+def phase_routing(preset: str):
+    """make_render_fn on a preset that is not use_bvh + use_pallas: the
+    wavefront aux, no kernel launched, and a 64x64 card-vs-CPU gate."""
+    cfg = load_config(preset)
+    scene, camera = api.get_scene(cfg, "cuda")
+    for key in t2.LAUNCHES:
+        t2.LAUNCHES[key] = 0
+    img, aux = api.make_render_fn(scene, cfg, "cuda")(scene, camera, with_aux=True)
+    torch.cuda.synchronize()
+    img = img.cpu().numpy()
+    log(f"[routing] {preset} {cfg.width}x{cfg.height} (use_bvh {cfg.use_bvh}, use_pallas "
+        f"{cfg.use_pallas}): aux {aux}, image mean {img.mean():.4f}, launches "
+        f"{sum(t2.LAUNCHES.values())}")
+    check(aux == {"overflow": 0}, f"{preset}: not the wavefront integrator's aux: {aux}")
+    check(not any(t2.LAUNCHES.values()), f"{preset} launched a kernel: {t2.LAUNCHES}")
+    check(bool(np.isfinite(img).all()) and img.mean() > 0.01, f"{preset}: frame not lit")
+    small = cfg.replace(height=64, width=64)
+    card, cpu = phase_cross_device(small)
+    log_flips(small, np.abs(card - cpu).max(axis=-1) > 2e-3)
+
+
+def log_flips(cfg, flipped):
+    """Where the card's and the CPU's frame differ: what every trace and
+    every occlusion pass of the frame, in its order, returns for those
+    pixels on each device, through the config's own tracers."""
+    ys, xs = np.nonzero(flipped)
+    if not len(ys):
+        return
+    log(f"[flips] {cfg.scene} {cfg.width}x{cfg.height}: pixels (y, x) "
+        f"{list(zip(ys.tolist(), xs.tolist()))}")
+    wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces,
+                                 smooth_shading=cfg.smooth_shading)
+    for dev in ("cuda", "cpu"):
+        scene, camera = api.get_scene(cfg, dev)
+        trace_fn, occlude_fn = api.build_tracers(scene, cfg)
+
+        def trace(ray):
+            hit = trace_fn(ray)
+            log(f"[flips]   {dev} trace: tri {hit.tri[ys, xs].tolist()}, t "
+                f"{hit.t[ys, xs].tolist()}")
+            return hit
+
+        def occlude(ray, t_max):
+            occ = occlude_fn(ray, t_max)
+            log(f"[flips]   {dev} occlude: {occ[ys, xs].tolist()}, t_max "
+                f"{t_max[ys, xs].tolist()}")
+            return occ
+
+        with torch.inference_mode():
+            whitted.render_wavefront(scene, generate_rays(camera, cfg.height, cfg.width), wcfg,
+                                     trace, occlude)
 
 
 def phase_frame(cfg, dev, tier, scene=None, camera=None, accel=None) -> dict:
@@ -315,12 +777,8 @@ def phase_cross_device(cfg, devs=("cuda", "cpu")):
             f"{time.perf_counter() - t0:.1f} s, live_rays {aux.get('live_rays', 'not counted')}")
     card, cpu = (imgs[d] for d in devs)
     check(np.isfinite(card).all(), "card frame is not finite")
-    err = np.abs(card - cpu).max(axis=-1)
-    frac = float((err > 2e-3).mean())
-    p98 = float(np.percentile(err, 98))
-    log(f"[cross] pixels off by > 2e-3: {frac:.4%}, p98 {p98:.3g}, max {err.max():.3g}")
-    if not (frac < 0.015 and p98 < 2e-3):
-        raise SystemExit("card and CPU frames disagree beyond the golden gate")
+    golden_gate(card, cpu, f"{cfg.scene} {devs[0]} vs {devs[1]}")
+    return card, cpu
 
 
 def phase_timing(smi: str, preset: str, iters: int, warmup: int, **overrides):
@@ -406,6 +864,21 @@ def busy_ms(events) -> float:
     return busy / 1e3
 
 
+def device_ms_by_kernel(events) -> dict:
+    """Device ms of each kernel of the port in a profile, by the name of its
+    __global__ function."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for fn in re.findall(r"\w+_kernel", e.name):
+            if fn in KERNEL_FUNCTIONS:
+                out[fn] = out.get(fn, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
+    return out
+
+
 def phase_profile(cfg, scene=None, camera=None, accel=None):
     """Device time by kernel over one warm frame, and the device's idle
     share in that same frame: 1 - (union of its device activity) / (its own
@@ -465,6 +938,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("pod cross-device", phase_cross_device, pod.replace(height=144, width=256))
     timed("pod timing", phase_timing, smi, "pod-1m", iters=3, warmup=1, max_bounces=1)
+
+    scene, camera, accel = timed("bench scene", phase_bench_scene, bench)
+    timed("wavefront kernels", phase_wavefront_kernels, results, bench, scene, camera, accel)
+    launches.update(timed("wavefront frames", phase_wavefront_frames, smi, bench, scene, camera,
+                          accel))
+    del scene, camera, accel
+    for preset in ("cornell256", "bunny-grad"):
+        timed(f"routing {preset}", phase_routing, preset)
     log(f"[phase] all: {time.perf_counter() - t0:.1f} s")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -1,0 +1,244 @@
+"""tracer_torch's pair-stream tier (kernels/traversal3.py) and its sorted
+twin (traversal2.make_sorted_tracers) vs the JAX package on the CPU: the
+pair-grid Pallas kernels in interpret mode, with the reference's PAIR_CHUNK
+cut to 512 grid steps a launch to keep the interpreter quick.
+
+One accel (cluster_size=32), built by the JAX package, feeds both sides,
+and one cull's words feed both tile passes. The pair stream, the selected slot
+`gid` and the occlusion mask are held exact; the best t to rtol 1e-6 and
+the slab test's entry distance to rtol 1e-6 (XLA contracts products into
+FMAs, the port rounds each)."""
+import functools
+import warnings
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tracer.bvh.cluster import build_clusters
+from tracer.bvh.cull import cull_clusters_sorted as j_cull_sorted
+from tracer.core.types import T_FAR
+from tracer.kernels import traversal2 as jt2
+from tracer.kernels import traversal3 as jt3
+from tracer_torch.bridge import accel_from_arrays, scene_from_arrays
+from tracer_torch.bvh.cull import WORD_INVALID
+from tracer_torch.core.intersect import any_hit_brute, intersect_brute
+from tracer_torch.core.types import Ray
+from tracer_torch.kernels import traversal2 as tt2
+from tracer_torch.kernels import traversal3 as tt3
+from tracer_torch.kernels._launch import LAUNCHES
+
+from parity_util import bunny_rays, leaves, soup_rays
+
+FIXTURES = {"bunny3": functools.partial(bunny_rays, 64), "soup400": soup_rays}
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _round8(n):
+    return max(8, -(-n // 8) * 8)
+
+
+@pytest.fixture(scope="module", params=sorted(FIXTURES))
+def case(request):
+    scene, o_t, d_t = FIXTURES[request.param]()
+    accel = jax.jit(build_clusters, static_argnums=2)(scene.verts, scene.tris, 32)
+    return {"scene": scene, "j_accel": accel, "accel": accel_from_arrays(leaves(accel), "cpu"),
+            "o_t": o_t, "d_t": d_t}
+
+
+def _cull(case, o_t, d_t, t_max):
+    """The reference's single-stage sorted cull at a cap that drops nothing."""
+    k = _round8(case["accel"].num_clusters)
+    words, counts, excess = j_cull_sorted(case["j_accel"], jnp.asarray(o_t), jnp.asarray(d_t),
+                                          t_max, k)
+    assert int(excess) == 0
+    return words, counts
+
+
+def test_pair_stream_expansion():
+    """3 tiles with counts 2, 0, 3: the empty tile emits its sentinel, and
+    padding pairs sit on tile 3 (the case of tests/unit/test_traversal3.py)."""
+    words = torch.full((3, 4), WORD_INVALID, dtype=torch.int32)
+    words[0, :2] = torch.tensor([5, 9])
+    words[2, :3] = torch.tensor([1, 2, 3])
+    counts = torch.tensor([2, 0, 3], dtype=torch.int32)
+    tiles, pwords, total, overflow = tt3.build_pair_stream(words, counts, 8)
+    assert total == 6 and overflow is False
+    assert tiles.tolist() == [0, 0, 1, 2, 2, 2, 3, 3]
+    assert pwords.tolist() == [5, 9, WORD_INVALID, 1, 2, 3, WORD_INVALID, WORD_INVALID]
+    # p_cap None: the exact total, no padding pair.
+    tiles, pwords, total, overflow = tt3.build_pair_stream(words, counts)
+    assert total == 6 and overflow is False
+    assert tiles.tolist() == [0, 0, 1, 2, 2, 2]
+    # As runs: the same pairs without the empty tile's sentinel.
+    offs, run_words, overflow = tt3._tile_stream(words, counts, None)
+    assert offs.tolist() == [0, 2, 2, 5] and overflow is False
+    assert run_words.tolist() == pwords[pwords != WORD_INVALID].tolist()
+    # Under a short p_cap the runs are the clamped stream's pairs.
+    offs, run_words, overflow = tt3._tile_stream(words, counts, 3)
+    assert overflow is True and offs.tolist() == [0, 1, 1, 2]
+    assert run_words.tolist() == [5, 1]
+
+
+def test_pair_stream_overflow_clamps_far():
+    """Under a short p_cap every tile keeps its p_cap // Nt nearest words."""
+    words = torch.arange(12, dtype=torch.int32).reshape(3, 4)
+    counts = torch.tensor([4, 4, 4], dtype=torch.int32)
+    tiles, pwords, total, overflow = tt3.build_pair_stream(words, counts, 6)
+    assert overflow is True and total == 6
+    assert tiles.tolist() == [0, 0, 1, 1, 2, 2]
+    assert pwords.tolist() == [0, 1, 4, 5, 8, 9]
+
+
+def test_pair_stream_matches_reference(case):
+    words, counts = _cull(case, case["o_t"], case["d_t"], T_FAR)
+    p_cap = int(np.maximum(np.asarray(counts), 1).sum()) + 7
+    want = jt3.build_pair_stream(words, counts, p_cap)
+    got = tt3.build_pair_stream(_t(words), _t(counts), p_cap)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert got[2] == int(want[2]) and got[3] == bool(want[3])
+
+
+def test_slab_enter_matches_reference(case):
+    """Ray rows exact (1/d is one IEEE divide on both sides); entry distance
+    of every ray into every 5th cluster's box to rtol 1e-6, and the same
+    rays miss (enter == T_FAR) on both sides."""
+    o_t, d_t = case["o_t"].copy(), case["d_t"].copy()
+    d_t[:, ::9] = 0.0          # padding rays
+    d_t[:, 1::9, 1] = 0.0      # a degenerate axis
+    rt = tt3._ray_rows(_t(o_t), _t(d_t))
+    j_rt = jt2._ray_rows(jnp.asarray(o_t), jnp.asarray(d_t))
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(j_rt))
+    accel, differ = case["accel"], 0
+    for cl in range(0, accel.num_clusters, 5):
+        lo, hi = accel.cluster_lo[cl], accel.cluster_hi[cl]
+        got = tt3._slab_enter(rt, lo[None], hi[None]).numpy()
+        box = [float(x) for x in (*lo, *hi)]
+        want = np.stack([np.asarray(jt2._slab_enter(j_rt[t], *box))[0]
+                         for t in range(rt.shape[0])])
+        differ += int(((got >= 1e29) != (want >= 1e29)).sum())
+        both = (got < 1e29) & (want < 1e29)
+        np.testing.assert_allclose(got[both], want[both], rtol=1e-6, atol=1e-7)
+    assert differ == 0
+
+
+def test_trace_tiles_pairs_matches_pallas(case, monkeypatch):
+    monkeypatch.setattr(jt3, "PAIR_CHUNK", 512)
+    o_t, d_t = case["o_t"], case["d_t"]
+    words, counts = _cull(case, o_t, d_t, T_FAR)
+    bt, gid, overflow = jt3.trace_tiles_pairs(
+        jnp.asarray(o_t), jnp.asarray(d_t), case["j_accel"], words, counts,
+        pairs_per_tile=case["accel"].num_clusters + 1, interpret=True)
+    assert not bool(overflow)
+    before = dict(LAUNCHES)
+    t_bt, t_gid, t_overflow = tt3.trace_tiles_pairs(_t(o_t), _t(d_t), case["accel"], _t(words),
+                                                    _t(counts))
+    assert t_overflow is False and LAUNCHES == before
+    np.testing.assert_array_equal(t_gid.numpy(), np.asarray(gid))
+    np.testing.assert_allclose(t_bt.numpy(), np.asarray(bt), rtol=1e-6)
+    assert (t_gid.numpy() >= 0).mean() > 0.05, "fixture must hit something"
+    # The walk's stops and skips change no result: the exhaustive sorted
+    # plain version selects the same slots.
+    o4, d4 = tt3._homog(_t(o_t), _t(d_t))
+    ex_bt, ex_gid = tt2.closest_hit_plain(o4, d4, case["accel"].tri_w, _t(words), _t(counts),
+                                          batch=1)
+    np.testing.assert_array_equal(t_gid.numpy(), ex_gid.numpy())
+    np.testing.assert_array_equal(t_bt.numpy(), ex_bt.numpy())
+
+
+def test_any_hit_tiles_pairs_matches_pallas(case, monkeypatch):
+    """Surface-like shadow rays: origins 2.5 along the primary rays, directions
+    toward a light, some dead (d == 0)."""
+    monkeypatch.setattr(jt3, "PAIR_CHUNK", 512)
+    o_t, d_t = case["o_t"], case["d_t"]
+    light = np.array([0.3, 1.4, 0.2], np.float32)
+    so = (o_t + 2.5 * d_t).astype(np.float32)
+    sd = light - so
+    dist = np.linalg.norm(sd, axis=-1, keepdims=True)
+    sd = (sd / dist).astype(np.float32)
+    sd[:, ::7] = 0.0
+    tm = (dist[..., 0] - 1e-3).astype(np.float32)
+    words, counts = _cull(case, so, sd, jnp.asarray(tm))
+    occ, overflow = jt3.any_hit_tiles_pairs(
+        jnp.asarray(so), jnp.asarray(sd), jnp.asarray(tm), case["j_accel"], words, counts,
+        pairs_per_tile=case["accel"].num_clusters + 1, interpret=True)
+    assert not bool(overflow)
+    t_occ, t_overflow = tt3.any_hit_tiles_pairs(_t(so), _t(sd), _t(tm), case["accel"],
+                                                _t(words), _t(counts))
+    assert t_overflow is False
+    np.testing.assert_array_equal(t_occ.numpy(), np.asarray(occ))
+    assert 0.0 < t_occ.numpy().mean() < 1.0, "fixture must occlude some rays, not all"
+    o4, d4 = tt3._homog(_t(so), _t(sd))
+    tmz = torch.where((_t(sd) != 0).any(-1), _t(tm), 0.0)
+    np.testing.assert_array_equal(
+        t_occ.numpy(),
+        tt2.anyhit_plain(o4, d4, tmz, case["accel"].tri_w, _t(words), _t(counts)).numpy())
+
+
+def test_pair_and_sorted_tracers_match_brute_force(case):
+    """make_pair_tracers and make_sorted_tracers on the fixture's rays as one
+    (Nt*64,) batch: Hit.tri equal to each other and to brute force, t to
+    rtol 1e-5, occlusion exact."""
+    scene = scene_from_arrays(leaves(case["scene"]), "cpu")
+    ray = Ray(o=_t(case["o_t"]).reshape(-1, 3), d=_t(case["d_t"]).reshape(-1, 3))
+    t_max = torch.full(ray.batch_shape, 3.0)
+    ref = intersect_brute(ray, scene.verts, scene.tris)
+    occ_ref = any_hit_brute(ray, scene.verts, scene.tris, t_max=t_max)
+    hits = {}
+    for name, factory in (("pair", tt3.make_pair_tracers), ("sorted", tt2.make_sorted_tracers)):
+        trace_fn, occlude_fn = factory(scene, case["accel"])
+        hits[name] = trace_fn(ray)
+        np.testing.assert_array_equal(hits[name].tri.numpy(), ref.tri.numpy())
+        np.testing.assert_allclose(hits[name].t.numpy(), ref.t.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(occlude_fn(ray, t_max).numpy(), occ_ref.numpy())
+    np.testing.assert_array_equal(hits["pair"].tri.numpy(), hits["sorted"].tri.numpy())
+    np.testing.assert_array_equal(hits["pair"].t.numpy(), hits["sorted"].t.numpy())
+    assert ref.valid.numpy().mean() > 0.05
+
+
+def test_tile_passes_report_a_cut_stream(case):
+    """An explicit p_cap under the total cuts each tile to its nearest
+    candidates and says so; the result still holds the nearest clusters'
+    hits (no slot the exact walk did not also consider). The tracers warn
+    of a cut stream, and of no other."""
+    o_t, d_t = _t(case["o_t"]), _t(case["d_t"])
+    words, counts = (_t(x) for x in _cull(case, case["o_t"], case["d_t"], T_FAR))
+    _, gid, overflow = tt3.trace_tiles_pairs(o_t, d_t, case["accel"], words, counts,
+                                             p_cap=o_t.shape[0])
+    assert overflow is True
+    _, first, _ = tt3.trace_tiles_pairs(o_t, d_t, case["accel"], words[:, :1],
+                                        counts.clamp_max(1))
+    np.testing.assert_array_equal(gid.numpy(), first.numpy())
+    scene = scene_from_arrays(leaves(case["scene"]), "cpu")
+    ray = Ray(o=o_t.reshape(-1, 3), d=d_t.reshape(-1, 3))
+    for fn, arg in zip(tt3.make_pair_tracers(scene, case["accel"], p_cap=o_t.shape[0]),
+                       ((ray,), (ray, 3.0))):
+        with pytest.warns(RuntimeWarning, match="pair-stream overflow"):
+            fn(*arg)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tt3.make_pair_tracers(scene, case["accel"])[0](ray)
+
+
+@pytest.mark.parametrize("kernel", ["pair_closest", "pair_anyhit"])
+def test_pair_wrappers_dispatch_by_device(case, kernel):
+    """CPU tensors run the plain version and launch nothing; a tensor on any
+    other non-CUDA device raises instead of falling back."""
+    accel = case["accel"]
+    o4, d4 = tt3._homog(_t(case["o_t"]), _t(case["d_t"]))
+    words, counts = _cull(case, case["o_t"], case["d_t"], T_FAR)
+    offs, pwords, _ = tt3._tile_stream(_t(words), _t(counts), None)
+    args = [o4, d4, accel.tri_w, accel.cluster_lo, accel.cluster_hi, offs, pwords]
+    if kernel == "pair_anyhit":
+        args.insert(2, torch.ones(o4.shape[:2]))
+    before = dict(LAUNCHES)
+    getattr(tt3, kernel)(*args)
+    assert LAUNCHES == before
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        getattr(tt3, kernel)(*(x.to("meta") for x in args))

@@ -1,7 +1,7 @@
 """tracer_torch's wavefront Whitted integrator (render/whitted.py) and the
-streamed tier's routing in api.make_render_fn, vs the JAX package on the
-CPU (interpret-mode Pallas kernels), through the golden image gate; and the
-API's ensure_exact / live_rays_per_s contracts."""
+routing of api.make_render_fn and api.build_tracers, vs the JAX package on
+the CPU (interpret-mode Pallas kernels), through the golden image gate; and
+the API's ensure_exact / live_rays_per_s contracts."""
 
 import jax
 import numpy as np
@@ -104,15 +104,67 @@ def test_make_render_fn_routes_to_streamed_tier(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("override", [{}, {"use_pallas": False}, {"use_bvh": False}])
 def test_make_render_fn_keeps_tiled_tier(monkeypatch, override):
-    """At or under the threshold, or without use_bvh + use_pallas, a config
-    renders through the tiled tier (its aux counts live rays)."""
+    """A use_bvh + use_pallas config at or under the threshold keeps the
+    tiled tier (its aux counts live rays). Without use_pallas, or without
+    use_bvh, a config renders through the wavefront integrator over
+    build_tracers, whatever the threshold: aux is {"overflow": 0}."""
     if override:
         monkeypatch.setattr(api, "TILED_MAX_CLUSTERS", 2)
     cfg = load_config("bunny-grad", **{**_bunny_cfg(), **override})
     scene, camera = api.get_scene(cfg, "cpu")
     assert not api.use_streamed_tier(scene, cfg)
-    _, aux = api.make_render_fn(scene, cfg, "cpu")(scene, camera, with_aux=True)
-    assert {"overflow", "live_rays", "need_split"} <= set(aux) and aux["overflow"] == 0
+    img, aux = api.make_render_fn(scene, cfg, "cpu")(scene, camera, with_aux=True)
+    assert img.shape == (32, 32, 3) and float(img.max()) > 0.05
+    if override:
+        assert aux == {"overflow": 0}
+    else:
+        assert {"overflow", "live_rays", "need_split"} <= set(aux) and aux["overflow"] == 0
+
+
+@pytest.mark.parametrize("preset", ["cornell256", "bunny-grad"])
+def test_make_render_fn_wavefront_matches_reference(preset):
+    """The presets that are not use_bvh + use_pallas (brute force for
+    cornell256, the plain cluster tier for bunny-grad) at 32x32 against the
+    JAX package's make_render_fn, which takes the same path off the TPU:
+    the golden gate (edge ties on the Cornell box's axis-aligned walls flip
+    11 of its 1,024 pixels, none on the bunny), and a median error under
+    1e-6 (it was 3e-8 and 0 when this was written)."""
+    cfg = load_config(preset, height=32, width=32)
+    scene, camera = api.get_scene(cfg, "cpu")
+    before = dict(tt2.LAUNCHES)
+    img, aux = api.make_render_fn(scene, cfg, "cpu")(scene, camera, with_aux=True)
+    assert aux == {"overflow": 0} and tt2.LAUNCHES == before
+    j_cfg = j_load_config(preset, height=32, width=32)
+    j_scene, j_cam = japi.get_scene(j_cfg)
+    j_img, j_aux = japi.make_render_fn(j_scene, j_cfg)(j_scene, j_cam, with_aux=True)
+    assert int(j_aux["overflow"]) == 0
+    img = img.numpy()
+    assert img.max() > 0.05, "the frame must be lit"
+    golden_check(img, np.asarray(j_img))
+    err = np.abs(img - np.asarray(j_img)).max(-1)
+    assert np.median(err) < 1e-6
+
+
+@pytest.mark.parametrize("override, threshold, factory", [
+    ({"use_bvh": False, "use_pallas": False}, 2048, "make_brute_tracers"),
+    ({"use_bvh": True, "use_pallas": False}, 2, "make_accel_tracers"),
+    ({"use_bvh": True, "use_pallas": True}, 2048, "make_sorted_tracers"),
+    ({"use_bvh": True, "use_pallas": True}, 2, "make_streamed_tracers"),
+], ids=["brute", "accel", "sorted", "streamed"])
+def test_build_tracers_picks_the_factory(monkeypatch, override, threshold, factory):
+    """The four config classes of tracer/api.py:build_tracers, told apart by
+    the factory whose closures come back; each pair traces the scene."""
+    monkeypatch.setattr(api, "TILED_MAX_CLUSTERS", threshold)
+    cfg = load_config("bunny-grad", height=16, width=16, **override)
+    scene, camera = api.get_scene(cfg, "cpu")
+    trace_fn, occlude_fn = api.build_tracers(scene, cfg)
+    assert trace_fn.__qualname__.startswith(factory + ".")
+    assert occlude_fn.__qualname__.startswith(factory + ".")
+    rays = generate_rays(camera, 16, 16)
+    hit = trace_fn(rays)
+    want = tw.make_brute_tracers(scene)[0](rays)
+    np.testing.assert_array_equal(hit.tri.numpy(), want.tri.numpy())
+    assert hit.valid.any()
 
 
 @pytest.mark.parametrize("threshold", [2, api.TILED_MAX_CLUSTERS], ids=["streamed", "tiled"])
@@ -140,4 +192,7 @@ def test_benchmark_streamed_has_no_live_rays(monkeypatch):
 
 def test_docstrings_state_the_routing():
     for doc in (RenderConfig.__doc__, api.make_render_fn.__doc__):
+        doc = " ".join(doc.split())
         assert "TILED_MAX_CLUSTERS" in doc and "streamed tier" in doc
+        assert "tiled tier" in doc and "wavefront integrator" in doc
+        assert "build_tracers" in doc and "brute force" in doc

@@ -1,13 +1,14 @@
-"""User-facing API: get_scene / make_render_fn / render / benchmark (torch
-counterpart of tracer/api.py, forward frames).
+"""User-facing API: get_scene / build_tracers / make_render_fn / render /
+benchmark (torch counterpart of tracer/api.py, forward frames).
 
-make_render_fn picks one of two tiers, as the reference does for its
-Pallas configs:
-  * the tiled tier (render/tiled.py over kernels/traversal2.py), the
-    default;
-  * the streamed tier (render/whitted.py's wavefront integrator over
-    kernels/stream.py), for a use_bvh + use_pallas config whose scene has
-    more than TILED_MAX_CLUSTERS clusters.
+make_render_fn picks a tier from the config, as the reference does:
+  * use_bvh + use_pallas, at most TILED_MAX_CLUSTERS clusters: the tiled
+    tier (render/tiled.py over kernels/traversal2.py);
+  * use_bvh + use_pallas, more clusters: the streamed tier
+    (render/whitted.py's wavefront integrator over kernels/stream.py);
+  * every other config: the wavefront integrator over build_tracers: brute
+    force without use_bvh, the plain cluster tier (kernels/traversal.py)
+    with use_bvh alone.
 
 The reference recompiles its frames until static candidate caps are wide
 enough (a sizing loop with a persisted caps cache), because XLA needs
@@ -23,9 +24,12 @@ import torch
 
 from tracer_torch.bvh.cluster import CLUSTER_SIZE, build_scene_accel
 from tracer_torch.core.camera import Camera, generate_rays
-from tracer_torch.kernels.stream import make_streamed_tracers_aux
+from tracer_torch.kernels.stream import make_streamed_tracers, make_streamed_tracers_aux
+from tracer_torch.kernels.traversal import make_accel_tracers
+from tracer_torch.kernels.traversal2 import make_sorted_tracers
 from tracer_torch.render.tiled import render_tiled
-from tracer_torch.render.whitted import WhittedConfig, render_wavefront_aux
+from tracer_torch.render.whitted import (
+    WhittedConfig, make_brute_tracers, render_wavefront, render_wavefront_aux)
 from tracer_torch.scene import procedural
 from tracer_torch.scene.types import Scene
 from tracer_torch.utils.config import RenderConfig, load_config
@@ -63,19 +67,40 @@ def use_streamed_tier(scene: Scene, cfg: RenderConfig) -> bool:
     return cfg.use_bvh and cfg.use_pallas and n_clusters > TILED_MAX_CLUSTERS
 
 
+def build_tracers(scene: Scene, cfg: RenderConfig, accel=None):
+    """The (trace_fn, occlude_fn) pair of a config: brute force without
+    use_bvh; with use_bvh + use_pallas the sorted tracers up to
+    TILED_MAX_CLUSTERS clusters and the streamed ones past it; with use_bvh
+    alone the plain cluster tier. `accel` is the scene's cluster accel
+    where the caller has one already; it is built here otherwise. Which of
+    a kernel and its plain version runs follows from the tensors' device."""
+    if not cfg.use_bvh:
+        return make_brute_tracers(scene)
+    if accel is None:
+        accel = build_scene_accel(scene)
+    if not cfg.use_pallas:
+        return make_accel_tracers(scene, accel, use_pallas=False)
+    if accel.num_clusters <= TILED_MAX_CLUSTERS:
+        return make_sorted_tracers(scene, accel)
+    return make_streamed_tracers(scene, accel)
+
+
 def make_render_fn(scene: Scene, cfg: RenderConfig, device):
     """(scene, camera, with_aux=False, ensure_exact=False) -> image (H, W, 3)
     [, aux] on `device`.
 
-    Routing: a use_bvh + use_pallas config whose scene has more than
-    TILED_MAX_CLUSTERS clusters renders through the streamed tier (aux keys
-    overflow, need_trace_k, need_occ_k, need_s); every other config through
-    the tiled tier (aux keys overflow, live_rays and its need_* sizes). The
-    cluster accel is built when a new scene object arrives and reused
-    across frames. Every frame is exact by construction (overflow 0), so
-    ensure_exact, the reference's re-sizing request, changes nothing.
-    Raises on a config the port cannot honour: a dtype other than float32,
-    or profile=True."""
+    Routing: a use_bvh + use_pallas config renders through the tiled tier
+    when its scene has at most TILED_MAX_CLUSTERS clusters (aux keys
+    overflow, live_rays and its need_* sizes) and through the streamed tier
+    when it has more (aux keys overflow, need_trace_k, need_occ_k, need_s).
+    Every other config renders through the wavefront integrator over
+    build_tracers(scene, cfg): brute force without use_bvh, the plain
+    cluster tier with use_bvh alone (aux {"overflow": 0}: these tracers
+    have no caps). The cluster accel is built when a new scene object
+    arrives and reused across frames. Every frame is exact by construction
+    (overflow 0), so ensure_exact, the reference's re-sizing request,
+    changes nothing. Raises on a config the port cannot honour: a dtype
+    other than float32, or profile=True."""
     if cfg.dtype != "float32" or cfg.profile:
         raise ValueError(f"the port renders in float32 with no profile option, got "
                          f"dtype={cfg.dtype!r}, profile={cfg.profile}")
@@ -91,7 +116,17 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, device):
         rays = generate_rays(camera, cfg.height, cfg.width)
         return render_wavefront_aux(scene, rays, wcfg, trace_fn, occlude_fn)
 
-    frame = streamed_frame if use_streamed_tier(scene, cfg) else tiled_frame
+    def wavefront_frame(scene, accel, camera):
+        trace_fn, occlude_fn = build_tracers(scene, cfg, accel)
+        rays = generate_rays(camera, cfg.height, cfg.width)
+        return render_wavefront(scene, rays, wcfg, trace_fn, occlude_fn), {"overflow": 0}
+
+    if not (cfg.use_bvh and cfg.use_pallas):
+        frame = wavefront_frame
+    elif use_streamed_tier(scene, cfg):
+        frame = streamed_frame
+    else:
+        frame = tiled_frame
 
     def run(scene: Scene, camera: Camera, with_aux: bool = False, ensure_exact: bool = False):
         for name, x in (("scene", scene.verts), ("camera", camera.position)):
@@ -99,7 +134,7 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, device):
                 raise ValueError(f"{name} lives on {x.device}, the render fn on {device}")
         with torch.inference_mode():
             if state["scene"] is not scene:
-                state["accel"] = build_scene_accel(scene)
+                state["accel"] = build_scene_accel(scene) if cfg.use_bvh else None
                 state["scene"] = scene
             img, aux = frame(scene, state["accel"], camera)
         return (img, aux) if with_aux else img
@@ -141,7 +176,7 @@ def benchmark(config: str | RenderConfig | None = None, iters: int = 10,
     # Every traced wavefront: per bounce one closest-hit pass plus one
     # shadow pass per light. primary_rays_per_s counts the closest-hit
     # passes only; live_rays_per_s only rays actually traced (d != 0), and
-    # is None for a tier that does not count them (the streamed one).
+    # is None for a tier that does not count them (all but the tiled one).
     rays_per_frame = primary_rays * cfg.max_bounces * (1 + scene.lights.count)
     live_rays = aux.get("live_rays")
     return {

@@ -71,6 +71,11 @@ def frustum_aabb_entry(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi, t_max):
     return ok & (t_lo <= t_hi), t_lo
 
 
+def frustum_aabb_feasible(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi, t_max) -> torch.Tensor:
+    """frustum_aabb_entry without the entry distance -> (...) bool."""
+    return frustum_aabb_entry(o_lo, o_hi, d_lo, d_hi, box_lo, box_hi, t_max)[0]
+
+
 def tile_bounds(o: torch.Tensor, d: torch.Tensor):
     """(Ntiles, TR, 3) rays -> per-tile interval bounds (Ntiles, 3) x4.
     Rays with d == 0 (padding, dead) are ignored; a tile with no live ray
@@ -111,6 +116,37 @@ def _cut_words(words: torch.Tensor, k: int) -> torch.Tensor:
         return words[:, :k].contiguous()
     pad = words.new_full((words.shape[0], k - words.shape[1]), WORD_INVALID)
     return torch.cat([words, pad], dim=1)
+
+
+def cull_clusters(accel, o: torch.Tensor, d: torch.Tensor, t_max, k_cap: int | None = None):
+    """Unsorted two-level cull: tiles vs superclusters, then vs clusters.
+
+    o, d: (Ntiles, TR, 3); t_max: scalar or (Ntiles, TR). Returns (cand
+    (Ntiles, k) int32 candidate cluster ids in ascending order, padded past
+    each tile's count by repeating its last valid id; counts (Ntiles,)
+    int32, not clipped to k; excess () candidates dropped). k is the max
+    count (at least 1), so nothing is dropped; an explicit k_cap cuts the
+    lists at min(k_cap, Ncl) columns as the reference's static cap does."""
+    n_cl = accel.num_clusters
+    o_lo, o_hi, d_lo, d_hi = tile_bounds(o, d)
+    t_max_tile = _tile_tmax(t_max, o_lo.shape[0], o.device)
+    bounds = (o_lo[:, None], o_hi[:, None], d_lo[:, None], d_hi[:, None])
+    sup = frustum_aabb_feasible(*bounds, accel.super_lo[None], accel.super_hi[None], t_max_tile)
+    sup_mask = sup.repeat_interleave(SUPER_FACTOR, dim=1)[:, :n_cl]
+    mask = sup_mask & frustum_aabb_feasible(*bounds, accel.cluster_lo[None],
+                                            accel.cluster_hi[None], t_max_tile)
+    counts = mask.sum(1, dtype=torch.int32)
+    if k_cap is None:
+        k = max(1, int(counts.max())) if counts.numel() else 1
+    else:
+        k = min(k_cap, n_cl)
+    # Candidates first, in ascending cluster id (stable sort of not-candidate).
+    cand = torch.argsort(~mask, dim=1, stable=True)[:, :k].to(torch.int32)
+    slot = torch.arange(k, dtype=torch.int32, device=o.device)[None]
+    last_valid = (counts - 1).clamp(0, k - 1)[:, None].long()
+    cand = torch.where(slot < counts.clamp_min(1)[:, None], cand, cand.gather(1, last_valid))
+    excess = torch.clamp_min(counts - k, 0).sum()
+    return cand, counts, excess
 
 
 def cull_clusters_sorted(accel, o: torch.Tensor, d: torch.Tensor, t_max):

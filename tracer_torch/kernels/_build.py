@@ -20,7 +20,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("traversal2.cu", "stream.cu")
+SOURCES = ("traversal2.cu", "stream.cu", "traversal.cu", "traversal3.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -36,6 +36,10 @@ _SIGNATURES = {
     "tt_anyhit": _ANYHIT,
     "st_closest": _CLOSEST,      # stream.cu
     "st_anyhit": _ANYHIT,
+    "wl_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],   # traversal.cu
+    "wl_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    "pr_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],   # traversal3.cu
+    "pr_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 

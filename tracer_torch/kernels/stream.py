@@ -23,7 +23,7 @@ import torch
 
 from tracer_torch.bvh.cull import cull_clusters_sorted2
 from tracer_torch.core.types import T_FAR, Hit, Ray
-from tracer_torch.kernels.traversal import _homog, tile_rays, untile
+from tracer_torch.kernels.traversal import _homog, tile_rays, tiled_tmax, untile
 from tracer_torch.kernels.traversal2 import (
     _check_cuda, _closest_out, _count_sort, _launch, anyhit_plain, closest_hit_plain,
     recover_hit)
@@ -98,14 +98,6 @@ def any_hit_tiles_streamed(o_t, d_t, t_max_t, accel, words, counts):
     return occ[inv]
 
 
-def _tiled_tmax(t_max, ray: Ray, o_t, tr: int):
-    """Scalar or per-ray t_max -> (Nt, TR) in the rays' tiling (padding 0)."""
-    if not isinstance(t_max, torch.Tensor) or t_max.ndim == 0:
-        return torch.full(o_t.shape[:2], float(t_max), dtype=torch.float32, device=o_t.device)
-    tm3 = t_max[..., None].expand(ray.batch_shape + (3,))
-    return tile_rays(tm3, tm3, tr)[0][..., 0]
-
-
 def make_streamed_tracers_aux(scene, accel, tr: int = 64):
     """(trace_fn, occlude_fn) over the streamed kernels, each also returning
     its cull's aux {"excess", "need_k", "need_s"}:
@@ -120,7 +112,7 @@ def make_streamed_tracers_aux(scene, accel, tr: int = 64):
 
     def occlude_fn(ray: Ray, t_max):
         o_t, d_t, tiling = tile_rays(ray.o, ray.d, tr)
-        t_max_t = _tiled_tmax(t_max, ray, o_t, tr)
+        t_max_t = tiled_tmax(t_max, ray, o_t, tr)
         words, counts, excess, need = cull_clusters_sorted2(accel, o_t, d_t, t_max_t)
         occ = any_hit_tiles_streamed(o_t, d_t, t_max_t, accel, words, counts)
         return untile(occ, tiling), {"excess": excess, "need_k": need[0], "need_s": need[1]}

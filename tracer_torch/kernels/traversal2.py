@@ -11,7 +11,8 @@ Each of the three kernels of the pass has three pieces here:
   * a wrapper (closest_hit, closest_fast, anyhit) that runs the plain
     version for CPU tensors and launches the CUDA kernel of
     csrc/traversal2.cu for CUDA tensors, or raises;
-  * a launch counter, LAUNCHES[name], raised by one per kernel launch.
+  * a launch counter, LAUNCHES[name] (kernels/_launch.py), raised by one per
+    kernel launch.
 
 The drivers trace_tiles_split and any_hit_tiles_graded sort tiles by
 candidate count and set the partition points at run time from the counts
@@ -24,10 +25,12 @@ from __future__ import annotations
 
 import torch
 
-from tracer_torch.bvh.cull import CLUSTER_BITS
+from tracer_torch.bvh.cull import CLUSTER_BITS, cull_clusters_sorted2
 from tracer_torch.core.intersect import moller_trumbore
 from tracer_torch.core.types import T_FAR, Hit, Ray
-from tracer_torch.kernels.traversal import _homog, T_MIN
+from tracer_torch.kernels._launch import (  # noqa: F401 (LAUNCHES is read through this module)
+    LAUNCHES, check_dense, check_rays, launch as _launch)
+from tracer_torch.kernels.traversal import _homog, T_MIN, tile_rays, tiled_tmax, untile
 
 _CL_MASK = (1 << CLUSTER_BITS) - 1
 _INT_MAX = 2147483647
@@ -37,11 +40,6 @@ _INT_MAX = 2147483647
 # which builds the kernels for this B only), and of the fast tier.
 BATCH = 4
 FAST_BATCH = 1
-
-# Kernel launches per wrapper (reset by callers that count a run), those of
-# kernels/stream.py included.
-LAUNCHES = {"closest": 0, "closest_fast": 0, "anyhit": 0, "closest_stream": 0,
-            "anyhit_stream": 0}
 
 # Bytes of (tiles, B, TR, 3C) temporaries a plain version holds at once.
 _PLAIN_BYTES = 1 << 30
@@ -155,37 +153,14 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
 
 def _check_cuda(o4, d4, w, words, counts, *extra):
     """Raise unless the arguments are what the CUDA kernels take."""
-    dev = o4.device
-    if dev.type != "cuda":
-        raise RuntimeError(f"traversal kernels run on CUDA or CPU tensors, got {dev}")
-    n_tiles, tr, four = o4.shape
-    if four != 4 or d4.shape != o4.shape:
-        raise ValueError(f"o4/d4 must be (Nt, TR, 4), got {tuple(o4.shape)}, {tuple(d4.shape)}")
-    if tr % 32 or not 0 < tr <= 1024:
-        raise ValueError(f"tile of {tr} rays: the kernels take a multiple of 32 up to 1024")
-    if w.ndim != 3 or w.shape[1] != 4 or w.shape[2] % 3:
-        raise ValueError(f"w must be (Ncl, 4, 3C), got {tuple(w.shape)}")
+    check_dense(o4.device, (o4, torch.float32), (d4, torch.float32), (w, torch.float32),
+                (words, torch.int32), (counts, torch.int32), *extra)
+    check_rays(o4, d4, w)
+    n_tiles = o4.shape[0]
     if words.ndim != 2 or words.shape[0] != n_tiles or words.shape[1] < 1:
         raise ValueError(f"words must be (Nt, K>=1), got {tuple(words.shape)}")
     if counts.shape != (n_tiles,):
         raise ValueError(f"counts must be (Nt,), got {tuple(counts.shape)}")
-    for x, dt in ((o4, torch.float32), (d4, torch.float32), (w, torch.float32),
-                  (words, torch.int32), (counts, torch.int32), *extra):
-        if x.device != dev or x.dtype != dt or not x.is_contiguous():
-            raise ValueError(f"expected a contiguous {dt} tensor on {dev}, got "
-                             f"{x.dtype} on {x.device} (contiguous={x.is_contiguous()})")
-
-
-def _launch(name: str, entry: str, dev, *args):
-    """One launch of the C entry point `entry` (tensors passed by pointer)
-    on the device's current stream; raises on a launch error."""
-    from tracer_torch.kernels import _build
-
-    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    rc = getattr(_build.load(), entry)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel {entry} failed to launch: cudaError {rc}")
-    LAUNCHES[name] += 1
 
 
 def _closest_out(o4):
@@ -324,3 +299,25 @@ def recover_hit(scene, ray: Ray, bt, gid, accel, t_min=T_MIN) -> Hit:
     valid = valid & hitm
     return Hit(t=torch.where(valid, t, T_FAR), tri=torch.where(valid, tri, -1),
                uv=torch.where(valid[..., None], torch.stack([u, v], dim=-1), 0.0))
+
+
+def make_sorted_tracers(scene, accel, tr: int = 64):
+    """(trace_fn, occlude_fn) over the sorted front-to-back kernels: tiles
+    of tr rays -> cull_clusters_sorted2 -> trace_tiles_split /
+    any_hit_tiles_graded -> recover_hit. The cull runs at its exact widths
+    (no k_cap), so no candidate is dropped."""
+
+    def trace_fn(ray: Ray) -> Hit:
+        o_t, d_t, tiling = tile_rays(ray.o, ray.d, tr)
+        words, counts, _excess, _need = cull_clusters_sorted2(accel, o_t, d_t, T_FAR)
+        bt, gid, _excess, _need = trace_tiles_split(o_t, d_t, accel, words, counts)
+        return recover_hit(scene, ray, untile(bt, tiling), untile(gid, tiling), accel)
+
+    def occlude_fn(ray: Ray, t_max) -> torch.Tensor:
+        o_t, d_t, tiling = tile_rays(ray.o, ray.d, tr)
+        t_max_t = tiled_tmax(t_max, ray, o_t, tr)
+        words, counts, _excess, _need = cull_clusters_sorted2(accel, o_t, d_t, t_max_t)
+        occ, _excess, _need = any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts)
+        return untile(occ, tiling)
+
+    return trace_fn, occlude_fn

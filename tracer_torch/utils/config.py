@@ -11,12 +11,14 @@ from typing import Any
 class RenderConfig:
     """One fully-specified render/benchmark configuration.
 
-    `use_bvh` and `use_pallas` name tracer tiers of the JAX package. The
-    port has two tiers: a config with both set whose scene has more than
-    api.TILED_MAX_CLUSTERS clusters renders through the streamed tier
-    (kernels/stream.py, as the reference's >VMEM scenes do); every other
-    config, whatever these two say, through the tiled tier
-    (render/tiled.py). The port renders in float32 and has no profile
+    `use_bvh` and `use_pallas` pick the tracer tier, as in the JAX
+    package. With both set, api.make_render_fn renders through the tiled
+    tier (render/tiled.py) when the scene has at most
+    api.TILED_MAX_CLUSTERS clusters and through the streamed tier
+    (kernels/stream.py) when it has more. Every other config renders
+    through the wavefront integrator over api.build_tracers: brute force
+    without `use_bvh`, the plain cluster tier (kernels/traversal.py) with
+    `use_bvh` alone. The port renders in float32 and has no profile
     option: api.make_render_fn raises on any other `dtype` and on
     `profile=True`."""
 
