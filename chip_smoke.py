@@ -12,7 +12,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   3. kernels: at the frame's own shapes (its primary-ray cull and its
      shadow-segment cull; the 256 heaviest tiles plus every 16th tile), each
      traversal2.cu kernel against its plain PyTorch version on the card: slot
-     ids and occlusion equal, best t bit-equal; times by CUDA events;
+     ids and occlusion equal, best t bit-equal; times by CUDA events; for the
+     any-hit kernel also the number of segments its work is cut into, the
+     kernel's own time beside its segment table's, and its time on the
+     heaviest tile alone and on the selection without its 256 heaviest tiles
+     (what is left of the tail of long candidate lists);
   4. frame: the frame through tracer_torch.api.make_render_fn on the card:
      overflow 0, a finite, lit image, every kernel of the tier launched and
      no kernel of the streamed tier;
@@ -30,7 +34,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   10. stream kernels: at the frame's own shapes (its primary-ray cull, and
      the first light's surface-origin shadow rays from the wavefront's own
      arithmetic; the 256 heaviest tiles plus every 16th), each stream.cu
-     kernel against its plain version at B = 2, as in phase 3;
+     kernel against its plain version at B = 2, as in phase 3; the any-hit
+     kernel through both of its entry points (its ring filled by bulk copies
+     or by cp.async copies), timed in turns;
   11. frame: the frame through make_render_fn: overflow 0, a finite, lit
      image, both stream kernels launched and no traversal2.cu kernel; then
      the profile of phase 8 over one warm pod-1m frame;
@@ -45,7 +51,10 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      rays in order, the pair kernels (traversal3.cu) at 8x8 tiles, each at
      the frame's primary rays and its first light's surface-origin shadow
      rays (the heaviest tiles plus a stride), against its plain version:
-     ids, slots and occlusion equal, t, u, v bit-equal;
+     ids, slots and occlusion equal, t, u, v bit-equal; then, on the pair
+     tier's shadow rays, anyhit_kernel over the two-stage cull's lists
+     against pair_anyhit_kernel over the single-stage cull's, on the same
+     tiles;
   15. wavefront frames: render_wavefront over make_accel_tracers(
      use_pallas=True), make_sorted_tracers, make_pair_tracers and
      make_streamed_tracers: a finite, lit image each, its own kernels
@@ -314,6 +323,36 @@ def compare_anyhit(name, kernel, plain, args, results):
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
 
 
+def kernel_alone_ms(name, entry, args, reps=20):
+    """(ms, segments) of a segmented any-hit kernel alone: one launch through
+    `entry` over a segment table built beforehand (the wrapper builds it at
+    every call, in eager PyTorch)."""
+    table = t2.anyhit_segments(args[5], t2.SEG, args[4].shape[1])
+    return (cuda_ms(lambda: t2._launch_anyhit(name, entry, *args, table=table), reps),
+            int(table[2]))
+
+
+def tail_report(name, entry, args, results):
+    """What is left of the tail of long candidate lists in a segmented
+    any-hit kernel: args (tiles by descending count) cut into how many
+    segments, the kernel's own time beside its segment table's, and the
+    kernel's time on the heaviest tile alone and on the selection without
+    its 256 heaviest tiles."""
+    counts = args[5]
+    cut = lambda a, b: tuple(x if x is args[3] else x[a:b].contiguous() for x in args)
+    heavy, rest = cut(0, 1), cut(256, None)
+    check(rest[0].shape[0] > 0, f"{name}: the selection holds no tile past the 256 heaviest")
+    table_ms = cuda_ms(lambda: t2.anyhit_segments(counts, t2.SEG, args[4].shape[1]), 20)
+    (ms_all, n_seg), (ms_heavy, seg_heavy), (ms_rest, seg_rest) = (
+        kernel_alone_ms(name, entry, a) for a in (args, heavy, rest))
+    log(f"[kernels] {name}: {n_seg} segments of {t2.SEG} words, {t2.SLICES} threads a ray, "
+        f"{t2.BLOCKS_PER_SM} blocks an SM; of the wrapper's {results[name]['ms']:.4f} ms the "
+        f"segment table takes {table_ms:.4f} ms, the kernel alone {ms_all:.4f} ms; kernel "
+        f"alone on the heaviest tile (count {int(counts[0])}, {seg_heavy} segments) "
+        f"{ms_heavy:.4f} ms; without the 256 heaviest tiles ({rest[0].shape[0]} tiles, count "
+        f"max {int(rest[5].max())}, {seg_rest} segments) {ms_rest:.4f} ms")
+
+
 def anyhit_args(accel, so, sd, tmax, words, counts):
     """The selected tiles with count > 0 of a shadow pass, as the any-hit
     kernels take them (t_max 0 for rays with d == 0, as the drivers set)."""
@@ -353,8 +392,9 @@ def phase_kernels(results: dict, cfg, dev):
         so, sd, tmax = tiled._segment_rays(scene.lights.position[0], target)
         words2, counts2, excess2, _ = cull_clusters_sorted2(accel, so, sd, tmax)
         check(int(excess2) == 0, "shadow cull dropped candidates")
-        compare_anyhit("anyhit", t2.anyhit, t2.anyhit_plain,
-                       anyhit_args(accel, so, sd, tmax, words2, counts2), results)
+        args = anyhit_args(accel, so, sd, tmax, words2, counts2)
+        compare_anyhit("anyhit", t2.anyhit, t2.anyhit_plain, args, results)
+        tail_report("anyhit", "tt_anyhit", args, results)
 
 
 def phase_pod_scene(cfg, dev="cuda"):
@@ -403,8 +443,27 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
         far = int((tm.amax(1) > 1e29).sum())
         log(f"[stream] shadow cull (light 0): {so.shape[0]} tiles, {count_stats(counts2)}, "
             f"S {need2[1]}; {far} tiles hold a ray with t_max > 1e29 (a missed receiver)")
-        compare_anyhit("anyhit_stream", st.anyhit_stream, st.anyhit_stream_plain,
-                       anyhit_args(accel, so, sd, tm, words2, counts2), results)
+        args = anyhit_args(accel, so, sd, tm, words2, counts2)
+        compare_anyhit("anyhit_stream", st.anyhit_stream, st.anyhit_stream_plain, args, results)
+        tail_report("anyhit_stream", st.ANYHIT_ENTRY, args, results)
+        compare_ring_copies(args)
+
+
+def compare_ring_copies(args):
+    """anyhit_stream_kernel through each of its entry points (its ring filled
+    by bulk copies or by cp.async copies): both equal to the plain version;
+    the kernel alone timed in turns (first, second, second, first)."""
+    want = st.anyhit_stream_plain(*args)
+    for entry in st.ANYHIT_ENTRIES:
+        check(bool((st._anyhit_stream_cuda(entry, *args) == want).all()),
+              f"{entry} disagrees with the plain version")
+    first, second = st.ANYHIT_ENTRIES
+    ms = {first: [], second: []}
+    for entry in (first, second, second, first):
+        ms[entry].append(kernel_alone_ms("anyhit_stream", entry, args)[0])
+    log(f"[stream] anyhit_stream_kernel alone, ring copies on {args[0].shape[0]} tiles: "
+        + ", ".join(f"{e} {np.mean(v):.4f} ms {[round(x, 4) for x in v]}" for e, v in ms.items())
+        + f"; the tier runs {st.ANYHIT_ENTRY}")
 
 
 def first_shadow_rays(scene, cfg, rays, trace_fn, tr):
@@ -589,6 +648,40 @@ def phase_wavefront_kernels(results: dict, cfg, scene, camera, accel):
         log(f"[wavefront] pair shadow cull (light 0): {so.shape[0]} tiles, "
             f"{count_stats(counts)}, total {int(counts.sum())}")
         compare_pairs(results, accel, so, sd, tm, words, counts)
+        compare_shadow_lists(accel, so, sd, tm, words, counts)
+
+
+def compare_shadow_lists(accel, so, sd, tm, words, counts):
+    """On the pair tier's surface-origin shadow rays: anyhit_kernel over the
+    two-stage cull's lists against pair_anyhit_kernel over the single-stage
+    cull's (words, counts), on the pair comparison's tiles and on all tiles;
+    timed in turns. Both are exact, so their occlusion is compared."""
+    words2, counts2, excess, _ = cull_clusters_sorted2(accel, so, sd, tm)
+    check(int(excess) == 0, "shadow cull dropped candidates")
+    tmz = torch.where((sd != 0.0).any(-1), tm, 0.0)
+    lo, hi = accel.cluster_lo.contiguous(), accel.cluster_hi.contiguous()
+    sel = select_tiles(counts)
+    sel = sel[counts[sel] > 0]
+    every = torch.arange(counts.shape[0], device=counts.device)
+    for what, idx in (("the pair comparison's tiles", sel), ("all tiles", every)):
+        o4, d4 = _homog(so[idx], sd[idx])
+        t_m = tmz[idx].contiguous()
+        w2, c2 = words2[idx].contiguous(), counts2[idx].contiguous()
+        offs, pwords, overflow = t3._tile_stream(words[idx].contiguous(),
+                                                 counts[idx].contiguous(), None)
+        check(not overflow, "an exact pair stream overflowed")
+        run_a = lambda: t2.anyhit(o4, d4, t_m, accel.tri_w, w2, c2)
+        run_p = lambda: t3.pair_anyhit(o4, d4, t_m, accel.tri_w, lo, hi, offs, pwords)
+        differ = int((run_a() != run_p()).sum())
+        ms_a, ms_p = [], []
+        for run, ms in ((run_a, ms_a), (run_p, ms_p), (run_p, ms_p), (run_a, ms_a)):
+            ms.append(cuda_ms(run, 10))
+        log(f"[wavefront] surface-origin shadow rays, {what} ({idx.numel()}): anyhit_kernel "
+            f"over the two-stage cull's lists ({count_stats(c2)}, total {int(c2.sum())}) "
+            f"{np.mean(ms_a):.4f} ms {[round(x, 4) for x in ms_a]}; pair_anyhit_kernel over "
+            f"the single-stage cull's ({count_stats(counts[idx])}, total "
+            f"{int(counts[idx].sum())}) {np.mean(ms_p):.4f} ms {[round(x, 4) for x in ms_p]}; "
+            f"rays on which their occlusion differs: {differ}")
 
 
 def golden_gate(a, b, what: str):

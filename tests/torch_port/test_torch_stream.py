@@ -213,3 +213,42 @@ def test_stream_wrappers_dispatch_by_device(case):
         ts.closest_stream(*map(meta, (o4, d4, t_accel.tri_w, words, counts)))
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         ts.anyhit_stream(*map(meta, (o4, d4, tm, t_accel.tri_w, words, counts)))
+
+
+def test_anyhit_stream_plain_by_segments_equals_whole(case):
+    """The streamed any-hit kernel walks the same segments as traversal2's
+    (traversal2.anyhit_segments) at B = STREAM_BATCH: anyhit_plain at that B
+    applied segment by segment and OR-ed equals it over the whole lists,
+    and a segment is a whole number of steps."""
+    assert tt2.SEG % ts.STREAM_BATCH == 0
+    so, sd, tm = _occlusion_rays(case["o_t"], case["d_t"])
+    words, counts = exact_cull(case["accel"], so, sd, jnp.asarray(tm))
+    words, counts = _t(words), _t(counts)
+    o4 = _t(np.concatenate([so, np.ones_like(so[..., :1])], -1))
+    d4 = _t(np.concatenate([sd, np.zeros_like(sd[..., :1])], -1))
+    tm = torch.where((d4 != 0).any(-1), _t(tm), 0.0)
+    w = case["t_accel"].tri_w
+    whole = ts.anyhit_stream_plain(o4, d4, tm, w, words, counts)
+    seg_tile, seg_k0, n_seg = tt2.anyhit_segments(counts, tt2.SEG, words.shape[1])
+    n = int(n_seg)
+    assert n > o4.shape[0], "some tile must hold more than one segment"
+    tile, k0 = seg_tile[:n], seg_k0[:n].long()
+    pad = torch.nn.functional.pad(words, (0, tt2.SEG))
+    seg_words = pad[tile[:, None], k0[:, None] + torch.arange(tt2.SEG)]
+    seg_counts = (counts[tile] - k0).clamp_max(tt2.SEG).int()
+    occ_seg = ts.anyhit_stream_plain(o4[tile], d4[tile], tm[tile], w, seg_words, seg_counts)
+    ored = torch.zeros(whole.shape, dtype=torch.int32).index_put_(
+        (tile,), occ_seg.int(), accumulate=True) > 0
+    np.testing.assert_array_equal(ored.numpy(), whole.numpy())
+    assert 0.0 < whole.float().mean() < 1.0
+
+
+def test_anyhit_stream_entry_points():
+    """The tier runs one of the two entry points of anyhit_stream_kernel
+    that csrc/stream.cu exports and kernels/_build.py declares."""
+    from tracer_torch.kernels import _build
+
+    src = (Path(ts.__file__).parent / "csrc" / "stream.cu").read_text()
+    exported = re.findall(r"^int (st_anyhit\w*)\(", src, flags=re.M)
+    assert tuple(exported) == ts.ANYHIT_ENTRIES and ts.ANYHIT_ENTRY in ts.ANYHIT_ENTRIES
+    assert all(e in _build._SIGNATURES for e in ts.ANYHIT_ENTRIES)

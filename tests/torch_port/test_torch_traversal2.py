@@ -8,6 +8,8 @@ and the occlusion mask are held exact. The best t is held to rtol 1e-6:
 XLA contracts the reference's products into FMAs, the port rounds each
 product (as its CUDA kernels do, built with -fmad=false)."""
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -122,3 +124,86 @@ def test_wrappers_dispatch_by_device(case):
         tt2.closest_hit(*map(meta, (o4, d4, t_accel.tri_w, words, counts)))
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         tt2.anyhit(*map(meta, (o4, d4, tm, t_accel.tri_w, words, counts)))
+
+
+def _segment_pairs(counts, seg, k_cap=None):
+    """anyhit_segments -> [(tile, k0)] of its first n_seg entries."""
+    seg_tile, seg_k0, n_seg = tt2.anyhit_segments(torch.from_numpy(counts), seg, k_cap)
+    assert seg_tile.shape == seg_k0.shape and n_seg.shape == (1,)
+    n = int(n_seg)
+    assert n <= seg_tile.shape[0]
+    return list(zip(seg_tile[:n].tolist(), seg_k0[:n].tolist()))
+
+
+@pytest.mark.parametrize("seg", [1, 3, tt2.SEG])
+def test_anyhit_segments_cover_every_word_once_in_order(seg):
+    """Random counts, zeros and counts not divisible by seg among them: the
+    segments cover every (tile, k < count) exactly once; every tile's first
+    segment comes before any second one, and so on; within a rank the
+    heaviest tile comes first (ties by tile index). With the host-side
+    bound k_cap (no read-back) the table is the same."""
+    rng = np.random.default_rng(11)
+    for trial in range(40):
+        n_tiles = int(rng.integers(0, 50))
+        k_max = int(rng.integers(0, 45))
+        counts = rng.integers(0, k_max + 1, size=n_tiles).astype(np.int32)
+        counts[rng.random(n_tiles) < 0.2] = 0
+        pairs = _segment_pairs(counts, seg)
+        covered = [(t, k) for t, k0 in pairs for k in range(k0, min(k0 + seg, counts[t]))]
+        want = [(t, k) for t in range(n_tiles) for k in range(counts[t])]
+        assert sorted(covered) == want and len(covered) == len(want)
+        assert all(k0 % seg == 0 and k0 < counts[t] for t, k0 in pairs)
+        keys = [(k0 // seg, -int(counts[t]), t) for t, k0 in pairs]
+        assert keys == sorted(keys)
+        assert _segment_pairs(counts, seg, k_cap=k_max + int(rng.integers(0, 9))) == pairs
+
+
+def _anyhit_by_segments(case, batch):
+    """anyhit_plain over the whole word lists, and OR-ed over the segments
+    of anyhit_segments, one call a segment rank (a segment's words as a list
+    of its own, as a block of the kernel walks them)."""
+    _, t_accel, o_t, d_t, _, words, counts = case
+    words, counts = torch.from_numpy(np.array(words)), torch.from_numpy(np.array(counts))
+    o4 = torch.from_numpy(np.concatenate([o_t, np.ones_like(o_t[..., :1])], -1))
+    d4 = torch.from_numpy(np.concatenate([d_t, np.zeros_like(d_t[..., :1])], -1))
+    tm = torch.from_numpy(np.random.default_rng(5).uniform(0.8, 3.5, o4.shape[:2])
+                          .astype(np.float32))
+    whole = tt2.anyhit_plain(o4, d4, tm, t_accel.tri_w, words, counts, batch=batch)
+    seg_tile, seg_k0, n_seg = tt2.anyhit_segments(counts, tt2.SEG, words.shape[1])
+    n = int(n_seg)
+    assert n > o4.shape[0], "some tile must hold more than one segment"
+    tile, k0 = seg_tile[:n], seg_k0[:n].long()
+    pad = torch.nn.functional.pad(words, (0, tt2.SEG))
+    seg_words = pad[tile[:, None], k0[:, None] + torch.arange(tt2.SEG)]
+    seg_counts = (counts[tile] - k0).clamp_max(tt2.SEG).int()
+    occ_seg = tt2.anyhit_plain(o4[tile], d4[tile], tm[tile], t_accel.tri_w, seg_words,
+                               seg_counts, batch=batch)
+    ored = torch.zeros(whole.shape, dtype=torch.int32).index_put_(
+        (tile,), occ_seg.int(), accumulate=True) > 0
+    return whole, ored
+
+
+def test_anyhit_plain_by_segments_equals_whole(case):
+    """Occlusion is an OR over a tile's candidates: anyhit_plain applied
+    segment by segment and OR-ed equals anyhit_plain over the whole lists."""
+    whole, ored = _anyhit_by_segments(case, tt2.BATCH)
+    np.testing.assert_array_equal(ored.numpy(), whole.numpy())
+    assert 0.0 < whole.float().mean() < 1.0
+
+
+def test_segment_constants_pinned_to_the_kernels():
+    """SEG and SLICES are csrc/common.cuh's kSeg and kSlices, a block of the
+    any-hit kernels is SLICES * 64 = 256 threads for a tile of 64 rays, and
+    both sources take the header's constants and launch that block (the
+    kernels cannot run here: their constants are read from the sources)."""
+    csrc = Path(tt2.__file__).parent / "csrc"
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", (csrc / "common.cuh").read_text()))
+    assert (int(consts["kSeg"]), int(consts["kSlices"])) == (tt2.SEG, tt2.SLICES) == (8, 4)
+    assert tt2.SLICES * 64 == 256
+    for name in ("traversal2.cu", "stream.cu"):
+        src = (csrc / name).read_text()
+        assert '#include "common.cuh"' in src
+        assert not re.search(r"constexpr int (kSeg|kSlices) =", src)
+        assert re.search(r"anyhit\w*kernel(<kBulk>)?<<<grid, kSlices \* tr,", src)
+    batch = re.search(r"constexpr int kBatch = (\d+);", (csrc / "traversal2.cu").read_text())
+    assert int(batch.group(1)) == tt2.BATCH and tt2.SEG % tt2.BATCH == 0

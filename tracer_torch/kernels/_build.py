@@ -5,7 +5,8 @@ The library is compiled for sm_90a at first use, into build/tracer_torch/
 at the repository root, under a name keyed by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 Each source compiles to an object in its own nvcc process, all started
-together, and one more nvcc links the objects into the library.
+together, and one more nvcc links the objects into the library. The
+sources share the header csrc/common.cuh.
 -fmad=false and the absence of fast math keep every product and the IEEE
 divide rounded as the plain PyTorch versions round them.
 """
@@ -21,21 +22,25 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("traversal2.cu", "stream.cu", "traversal.cu", "traversal3.cu")
+HEADERS = ("common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _CLOSEST = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
-_ANYHIT = [_P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P]
+# words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c, seg_tile, seg_k0, n_seg,
+# next_seg, grid, occ, stream
+_ANYHIT = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P]
 # Entry points (see the extern "C" block of each source): name -> argtypes.
 _SIGNATURES = {
     "tt_closest": _CLOSEST,      # traversal2.cu
     "tt_closest_fast": _CLOSEST,
     "tt_anyhit": _ANYHIT,
     "st_closest": _CLOSEST,      # stream.cu
-    "st_anyhit": _ANYHIT,
+    "st_anyhit_bulk": _ANYHIT,
+    "st_anyhit_cp_async": _ANYHIT,
     "wl_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],   # traversal.cu
     "wl_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "pr_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],   # traversal3.cu
@@ -53,7 +58,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libtracer_torch_{h.hexdigest()[:16]}.so"
 

@@ -8,12 +8,11 @@
 // What they compute: what closest_hit_kernel and anyhit_kernel of
 // traversal2.cu compute, at kBatch = 2 candidate clusters a step (STREAM_BATCH
 // of kernels/stream.py), with the same arithmetic in the same operation
-// order (tri_t below), built with -fmad=false and without fast math, so that
-// they agree bit for bit with the plain PyTorch versions
-// (kernels/traversal2.py closest_hit_plain / anyhit_plain at batch=2). A tile
-// is one block, one thread per ray; each block stops on its own early-out
-// bound. The TPU kernels' lockstep group of 8 tiles, packed cluster pairs
-// (_pad_w) and SMEM word chunks are not carried over.
+// order (tri_t, common.cuh), built with -fmad=false and without fast math, so
+// that they agree bit for bit with the plain PyTorch versions
+// (kernels/traversal2.py closest_hit_plain / anyhit_plain at batch=2). The TPU
+// kernels' lockstep group of 8 tiles, packed cluster pairs (_pad_w) and SMEM
+// word chunks are not carried over.
 //
 // What bounds them on the card. At pod-1m (3.94M triangles, 30,757 clusters)
 // the accel's tri_w is 189 MB, almost four times the 50 MB L2, so a
@@ -22,32 +21,49 @@
 // candidate. Once that latency is hidden, the work per candidate is fp32
 // issue: 64 rays x 128 triangles x (~45 flops and an IEEE divide) against
 // 6 KB of coefficients, an order of magnitude more issue time than the
-// bandwidth time of the 6 KB.
+// bandwidth time of the 6 KB. A test is a chain of some 60 dependent
+// instructions, so what a kernel reaches of that bound is set by how many
+// tests it keeps in flight on every SM. The tensor cores do not serve these
+// kernels: the products have depth 4 (a homogeneous ray times a (4, 3C)
+// matrix), the frame's exactness rests on fp32 products rounded one at a
+// time, and TF32 keeps 10 mantissa bits and would flip hits.
 //
 // What the design does about it. Each block keeps a ring of kNBuf = 4
-// cluster stages in shared memory (4 x 6 KB at C = 128), filled with
-// cp.async 16-byte copies, one commit group per candidate. A cluster's
-// (4, 3C) matrix is contiguous in tri_w and copies as it is. The copies of
-// candidates k+2 and k+3 are in flight while the block intersects k and
-// k+1; once a step's fold is done, its two stages are refilled with k+4 and
-// k+5 (the reference's ring: the fetch of candidate k+NBUF overlaps the
-// intersections in between). Slots past the tile's count replay its last
-// word, a harmless re-fetch of a line just read, and every copy issued is
-// waited for before the block exits (the drain of stream.py:109-113).
-// Layout: the block reads the (4, 3C) stage as it landed, as 16-byte
-// broadcast loads that each cover one coefficient of 4 consecutive
-// triangles, so 4 triangles cost 12 loads, 3 a triangle (as traversal2.cu's
-// transposed stage), with no triangle-major copy of the accel.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// cluster stages in shared memory (4 x 6 KB at C = 128). A cluster's (4, 3C)
+// matrix is contiguous in tri_w and copies as it is; the block reads the
+// stage as it landed, as 16-byte broadcast loads that each cover one
+// coefficient of 4 consecutive triangles, so 4 triangles cost 12 loads, 3 a
+// triangle (as traversal2.cu's transposed stage), with no triangle-major
+// copy of the accel.
+//
+// closest_stream_kernel runs one block a tile, one thread a ray (its tie rule
+// depends on the order of the walk), and fills its ring with cp.async
+// 16-byte copies, one commit group per candidate: the copies of candidates
+// k+2 and k+3 are in flight while the block intersects k and k+1, and a
+// step's two stages are refilled with k+4 and k+5 once its fold is done.
+//
+// anyhit_stream_kernel does not: occlusion is an OR over a tile's candidates,
+// whatever the order and whoever visits them, and the lists have a long tail
+// (a mean of 3 words a tile, a maximum of some 400), which one block a tile
+// would walk alone while the card has drained. Its unit of work is a segment,
+// kSeg consecutive words of one tile (the table of kernels/traversal2.py
+// anyhit_segments), pulled from a device counter by a fixed grid of
+// persistent blocks of kSlices * TR threads: kSlices threads serve one ray,
+// each testing every kSlices-th quad of 4 triangles of a cluster, the 4 tests
+// without a branch between them. A segment starts from the tile's occlusion
+// flags as they stand in device memory (possibly stale; flags are only ever
+// set, so a stale read costs work, never a result). The ring runs on across
+// the segments a block walks: a block holds the segment it works on and the
+// next one it will, and copies the next one's first clusters while this one
+// finishes; a word whose entry bits already reach the tile's bound is not
+// copied at all. One thread issues one cp.async.bulk (TMA's 1-D bulk copy) a
+// cluster, which completes on the stage's mbarrier; the same ring filled by
+// every thread's cp.async copies is kept as a second instantiation, for the
+// comparison of the two (chip_smoke.py times both).
+#include "common.cuh"
 
 namespace {
 
-constexpr int kClusterBits = 17;
-constexpr int kClMask = (1 << kClusterBits) - 1;
-constexpr float kTFar = 1e30f;
-constexpr int kIntMax = 2147483647;
-constexpr float kTMin = 1e-4f;  // T_MIN of kernels/traversal.py
 constexpr int kNBuf = 4;        // NBUF of kernels/stream.py
 constexpr int kBatch = 2;       // STREAM_BATCH of kernels/stream.py
 constexpr int kLanes = 4;       // triangles per 16-byte coefficient load
@@ -105,39 +121,8 @@ __device__ __forceinline__ float4 field(const Quad& a, int f, int i) {
                      comp(a.q[3][f], i));
 }
 
-// t of one (ray, triangle) pair, or kTFar when the pair does not hit:
-// traversal2.cu's tri_t, operation for operation.
-__device__ __forceinline__ float tri_t(float4 n, float4 a, float4 b, float4 o, float4 d,
-                                       float t_max) {
-  const float so_n = ((n.w + o.x * n.x) + o.y * n.y) + o.z * n.z;
-  const float so_u = ((a.w + o.x * a.x) + o.y * a.y) + o.z * a.z;
-  const float so_v = ((b.w + o.x * b.x) + o.y * b.y) + o.z * b.z;
-  const float sd_n = (d.x * n.x + d.y * n.y) + d.z * n.z;
-  const float sd_u = (d.x * a.x + d.y * a.y) + d.z * a.z;
-  const float sd_v = (d.x * b.x + d.y * b.y) + d.z * b.z;
-  const float t = -so_n / sd_n;
-  const float u = so_u + t * sd_u;
-  const float v = so_v + t * sd_v;
-  const bool ok = (u >= 0.0f) && (v >= 0.0f) && ((1.0f - u - v) >= 0.0f) &&
-                  (t > kTMin) && (t < t_max) && (fabsf(sd_n) > 1e-12f);
-  return ok ? t : kTFar;
-}
-
 __device__ __forceinline__ float quad_t(const Quad& a, int i, float4 o, float4 d, float t_max) {
   return tri_t(field(a, 0, i), field(a, 1, i), field(a, 2, i), o, d, t_max);
-}
-
-// Max of v over the block (blockDim.x a multiple of 32); every thread gets it.
-// Its first __syncthreads also orders every earlier shared-memory read of
-// the block before what follows the call.
-__device__ __forceinline__ int block_max(int v, int* s_red) {
-  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = s_red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) v = max(v, s_red[i]);
-  return v;
 }
 
 // Closest hit over a tile's sorted candidates, kBatch clusters a step. Per
@@ -212,58 +197,283 @@ __global__ void closest_stream_kernel(const int* __restrict__ words,
   bid_out[ray] = bid;
 }
 
+// ---------------------------------------------------------------------------
+// The ring of anyhit_stream_kernel: a block's copies, numbered in the order
+// of issue; copy i lands in stage i % kNBuf. Every thread calls issue() and
+// wait() with the same arguments, and waits for every copy once, in order,
+// before the stage is issued to again.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// A barrier that one arrival and the bytes it announces complete.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// The phase's one arrival, which announces `bytes` of copies to come.
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA's 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Wait until the barrier's phase of this parity is complete. A copy lands in
+// microseconds: a wait of many thousand times that is a fault of the kernel,
+// and traps instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned addr = smem_u32(bar);
+  for (int spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2, %3;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity), "r"(1000)  // a try may sleep for about a microsecond
+        : "memory");
+    if (done) return;
+    if (spins > (1 << 20)) __trap();
+  }
+}
+
+// Wait until at most n (0 .. kNBuf-1) of this thread's commit groups are
+// still in flight.
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  static_assert(kNBuf == 4, "one case per ring stage");
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    default: cp_async_wait<3>(); break;
+  }
+}
+
+// kBulk: thread 0 issues one bulk copy a cluster, which completes on the
+// stage's mbarrier; a thread that has waited may read the stage. Else every
+// thread copies its 16-byte chunks of the cluster as one commit group, and
+// waits for its own: the block needs a __syncthreads before it reads.
+template <bool kBulk>
+struct Ring {
+  float4* stages;
+  uint64_t* bars;
+  int per4;    // 16-byte chunks of one (4, 3C) cluster
+  int issued;  // copies issued so far
+
+  __device__ __forceinline__ void init() {
+    if (kBulk && threadIdx.x == 0) {
+      for (int b = 0; b < kNBuf; ++b) mbar_init(bars + b);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    }
+  }
+
+  __device__ __forceinline__ void issue(const float4* src) {
+    float4* dst = stages + (issued % kNBuf) * per4;
+    if (kBulk) {
+      if (threadIdx.x == 0) {
+        uint64_t* bar = bars + issued % kNBuf;
+        mbar_expect(bar, per4 * sizeof(float4));
+        bulk_copy(dst, src, per4 * sizeof(float4), bar);
+      }
+    } else {
+      for (int i = threadIdx.x; i < per4; i += blockDim.x) cp_async16(dst + i, src + i);
+      cp_async_commit();
+    }
+    ++issued;
+  }
+
+  __device__ __forceinline__ void wait(int item) {
+    if (kBulk) {
+      mbar_wait(bars + item % kNBuf, (item / kNBuf) & 1);
+    } else {
+      cp_async_wait_upto(issued - 1 - item);
+    }
+  }
+
+  __device__ __forceinline__ const float4* stage(int item) const {
+    return stages + (item % kNBuf) * per4;
+  }
+};
+
+// Words k0 .. k1-1 of tile `tile`; tile < 0 when no segment is left.
+struct Segment {
+  int tile, k0, k1;
+};
+
+// Thread 0's claim of the next segment of the table, into shared memory.
+__device__ __forceinline__ void claim_segment(int* out, int* next_seg, int n_seg,
+                                              const long long* __restrict__ seg_tile,
+                                              const int* __restrict__ seg_k0,
+                                              const int* __restrict__ counts) {
+  const int s = atomicAdd(next_seg, 1);
+  if (s < n_seg) {
+    const int tile = (int)seg_tile[s], k0 = seg_k0[s];
+    out[0] = tile;
+    out[1] = k0;
+    out[2] = min(k0 + kSeg, counts[tile]);
+  } else {
+    out[0] = -1;
+    out[1] = out[2] = 0;
+  }
+}
+
+__device__ __forceinline__ Segment read_segment(const int* s) {
+  return Segment{s[0], s[1], s[2]};
+}
+
 // Occlusion: a ray is occluded iff some candidate triangle has t in
-// (kTMin, tmax[ray]), kBatch clusters a step. Stops once the next word's
-// entry bits reach the block max of tmax over the rays still unoccluded
-// (0 once all are).
+// (kTMin, tmax[ray]); occ_out holds zeros at launch and a ray's flag is set by
+// whichever segment finds it a hit. The block pulls segments (seg_tile,
+// seg_k0) until the counter passes *n_seg_p, kBatch clusters a step. Thread
+// tid serves ray tid % tr with the quads l4 % kSlices == tid / tr of each
+// cluster. A segment stops once the next word's entry bits reach the max
+// tmax of the tile's rays still unoccluded (0 once all are), which it may do
+// at once.
+//
+// The block holds `cur`, the segment it works on (kc: the next word to
+// intersect, kf: the next to copy) and, claimed when it starts on cur, `nxt`,
+// the one it will work on next (kfn: the next word to copy). The copies in
+// flight are cur's words kc .. kf-1, then nxt's words nxt.k0 .. kfn-1: the
+// ring's items `consumed` .. issued-1.
+template <bool kBulk>
 __global__ void anyhit_stream_kernel(const int* __restrict__ words,
-                                     const int* __restrict__ counts, int k_cap,
+                                     const int* __restrict__ counts, int k_cap, int tr,
                                      const float4* __restrict__ o4,
                                      const float4* __restrict__ d4,
                                      const float* __restrict__ tmax,
                                      const float4* __restrict__ w, int n_cl, int c,
-                                     uint8_t* __restrict__ occ_out) {
-  extern __shared__ float4 ring[];
+                                     const long long* __restrict__ seg_tile,
+                                     const int* __restrict__ seg_k0,
+                                     const int* __restrict__ n_seg_p, int* next_seg,
+                                     uint8_t* occ_out) {
+  extern __shared__ __align__(128) float4 ring_mem[];
+  __shared__ __align__(8) uint64_t s_bar[kNBuf];
   __shared__ int s_red[32];
-  const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
-  const int n = counts[tile];
-  const int* wt = words + (size_t)tile * k_cap;
+  __shared__ int s_claim[2][3];
+  __shared__ uint8_t s_occ[kMaxRays];
   const int per4 = 3 * c;
   const int c4 = c / kLanes;
-  const float4 o = o4[ray], d = d4[ray];
-  const float tm = tmax[ray];
-  bool occ = false;
-  if (n > 0) {  // block-uniform
-    for (int b = 0; b < kNBuf; ++b) fetch(ring, w, wt, b, n, n_cl, per4);
-    int bound = block_max(__float_as_int(tm), s_red);
-    for (int k = 0; k < n; k += kBatch) {
-      if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform
-      cp_async_wait<kNBuf - kBatch>();
-      __syncthreads();
-      const int n_live = min(kBatch, n - k);
-      for (int l4 = 0; l4 < c4 && !occ; ++l4) {
-        for (int j = 0; j < n_live && !occ; ++j) {
-          Quad a;
-          load_quad(a, ring + ((k + j) % kNBuf) * per4, c4, l4);
-#pragma unroll
-          for (int i = 0; i < kLanes; ++i) occ = occ || quad_t(a, i, o, d, tm) < kTFar;
+  const int r = threadIdx.x % tr;
+  const int slice = threadIdx.x / tr;
+  const int n_seg = *n_seg_p;
+  Ring<kBulk> ring{ring_mem, s_bar, per4, 0};
+  ring.init();
+  if (threadIdx.x == 0) claim_segment(s_claim[1], next_seg, n_seg, seg_tile, seg_k0, counts);
+  __syncthreads();  // the barriers and the claim are published
+  Segment cur = read_segment(s_claim[1]);
+  int consumed = 0;
+  int kf = cur.k0;
+  for (int it = 0; cur.tile >= 0; ++it) {  // block-uniform
+    // The segment after this one: claimed here, read after the barriers of
+    // block_max, its slot of s_claim claimed into again two segments on.
+    if (threadIdx.x == 0)
+      claim_segment(s_claim[it & 1], next_seg, n_seg, seg_tile, seg_k0, counts);
+    const int* wt = words + (size_t)cur.tile * k_cap;
+    const size_t ray = (size_t)cur.tile * tr + r;
+    const float4 o = o4[ray], d = d4[ray];
+    const float tm = tmax[ray];
+    bool occ = ((const volatile uint8_t*)occ_out)[ray] != 0;
+    if (slice == 0) s_occ[r] = occ ? 1 : 0;
+    const bool dead = !(tm > kTMin);  // an empty interval: padding, or a ray with d == 0
+    bool hit = false;
+    // The barriers of block_max publish s_occ and s_claim, and order the last
+    // segment's reads of the ring before this one's copies into it.
+    int bound = block_max(open_bits(occ, tm), s_red);
+    const Segment nxt = read_segment(s_claim[it & 1]);
+    const int* wtn = words + (size_t)max(nxt.tile, 0) * k_cap;
+    int kc = cur.k0, k1 = cur.k1, kfn = nxt.k0;
+
+    // Fill the ring: cur's words first, as far as the bound lets the walk go
+    // (a word at or past the bound ends the segment there: the bound only
+    // falls), then nxt's.
+    auto top_up = [&]() {
+      while (ring.issued - consumed < kNBuf) {
+        if (kf < k1) {
+          if ((wt[kf] & ~kClMask) >= bound) {
+            k1 = kf;
+            continue;
+          }
+          ring.issue(w + (size_t)min(wt[kf] & kClMask, n_cl - 1) * per4);
+          ++kf;
+        } else if (nxt.tile >= 0 && kfn < nxt.k1) {
+          ring.issue(w + (size_t)min(wtn[kfn] & kClMask, n_cl - 1) * per4);
+          ++kfn;
+        } else {
+          break;
         }
       }
-      bound = block_max(__float_as_int(occ ? 0.0f : tm), s_red);  // the two stages are read
-      for (int j = 0; j < kBatch; ++j) fetch(ring, w, wt, k + j + kNBuf, n, n_cl, per4);
-    }
-    cp_async_wait<0>();
-  }
-  occ_out[ray] = occ ? 1 : 0;
-}
+    };
 
-template <typename K>
-cudaError_t launch_prep(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    top_up();
+    while (kc < k1) {
+      if ((wt[kc] & ~kClMask) >= bound) break;  // block-uniform; all occluded -> bound 0
+      const int n_live = min(kBatch, k1 - kc);  // all copied or in flight: kf >= kc + n_live
+      for (int j = 0; j < n_live; ++j) ring.wait(consumed + j);
+      if (!kBulk) __syncthreads();  // everyone's chunks
+      if (!occ && !dead) {
+        for (int j = 0; j < n_live && !hit; ++j) {
+          const float4* stage = ring.stage(consumed + j);
+          for (int l4 = slice; l4 < c4 && !hit; l4 += kSlices) {
+            Quad a;
+            load_quad(a, stage, c4, l4);
+            bool h = false;
+#pragma unroll
+            for (int i = 0; i < kLanes; ++i) h |= quad_t(a, i, o, d, tm) < kTFar;
+            hit = h;
+          }
+        }
+      }
+      consumed += n_live;
+      kc += n_live;
+      if (hit) s_occ[r] = 1;  // the slices of a ray OR here
+      __syncthreads();
+      occ = s_occ[r] != 0;
+      bound = block_max(open_bits(occ, tm), s_red);  // its barriers free the step's stages
+      top_up();
+    }
+    // The segment stopped early: its copies still in flight are waited for,
+    // unread, so that their stages can be issued to again.
+    for (; kc < kf; ++kc) ring.wait(consumed++);
+    if (hit) occ_out[ray] = 1;
+    cur = nxt;
+    kf = kfn;
+  }
+  if (!kBulk) cp_async_wait<0>();
 }
 
 size_t ring_bytes(int c) { return (size_t)kNBuf * 3 * c * sizeof(float4); }
+
+template <bool kBulk>
+int launch_anyhit_stream(const void* words, const void* counts, int k_cap, int tr, const void* o4,
+                         const void* d4, const void* tmax, const void* w, int n_cl, int c,
+                         const void* seg_tile, const void* seg_k0, const void* n_seg,
+                         void* next_seg, int grid, void* occ, void* stream) {
+  if (tr > kMaxRays) return (int)cudaErrorInvalidValue;
+  const size_t smem = ring_bytes(c);
+  cudaError_t e = launch_prep(anyhit_stream_kernel<kBulk>, smem);
+  if (e != cudaSuccess) return (int)e;
+  anyhit_stream_kernel<kBulk><<<grid, kSlices * tr, smem, (cudaStream_t)stream>>>(
+      (const int*)words, (const int*)counts, k_cap, tr, (const float4*)o4, (const float4*)d4,
+      (const float*)tmax, (const float4*)w, n_cl, c, (const long long*)seg_tile, (const int*)seg_k0,
+      (const int*)n_seg, (int*)next_seg, (uint8_t*)occ);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -284,16 +494,24 @@ int st_closest(const void* words, const void* counts, int n_tiles, int k_cap, in
   return (int)cudaGetLastError();
 }
 
-int st_anyhit(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
-              const void* o4, const void* d4, const void* tmax, const void* w, int n_cl, int c,
-              void* occ, void* stream) {
-  const size_t smem = ring_bytes(c);
-  cudaError_t e = launch_prep(anyhit_stream_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  anyhit_stream_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
-      (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
-      (const float*)tmax, (const float4*)w, n_cl, c, (uint8_t*)occ);
-  return (int)cudaGetLastError();
+// anyhit_stream_kernel with its ring filled by bulk copies (st_anyhit_bulk) or
+// by per-thread cp.async copies (st_anyhit_cp_async): grid persistent blocks of
+// kSlices * tr threads; seg_tile, seg_k0 and *n_seg are the segment table,
+// *next_seg is 0 and occ holds zeros at launch.
+int st_anyhit_bulk(const void* words, const void* counts, int k_cap, int tr, const void* o4,
+                   const void* d4, const void* tmax, const void* w, int n_cl, int c,
+                   const void* seg_tile, const void* seg_k0, const void* n_seg, void* next_seg,
+                   int grid, void* occ, void* stream) {
+  return launch_anyhit_stream<true>(words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c, seg_tile,
+                                    seg_k0, n_seg, next_seg, grid, occ, stream);
+}
+
+int st_anyhit_cp_async(const void* words, const void* counts, int k_cap, int tr, const void* o4,
+                       const void* d4, const void* tmax, const void* w, int n_cl, int c,
+                       const void* seg_tile, const void* seg_k0, const void* n_seg,
+                       void* next_seg, int grid, void* occ, void* stream) {
+  return launch_anyhit_stream<false>(words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c,
+                                     seg_tile, seg_k0, n_seg, next_seg, grid, occ, stream);
 }
 
 }  // extern "C"

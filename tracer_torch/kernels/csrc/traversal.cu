@@ -32,13 +32,9 @@
 // memory, transposed so that a triangle's 12 coefficients are three float4s
 // every thread reads as a broadcast. Nothing else: this is the simple, right
 // version of the tier.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr float kTFar = 1e30f;
-constexpr float kTMin = 1e-4f;  // T_MIN of kernels/traversal.py
 
 // s[lane*3 + f] = column f*C + lane of cluster cl's (4, 3C) matrix.
 __device__ __forceinline__ void stage_cluster(float4* s, const float* __restrict__ w, int cl,
@@ -141,11 +137,6 @@ __global__ void worklist_anyhit_kernel(const int* __restrict__ offs,
     }
   }
   occ_out[ray] = occ ? 1 : 0;
-}
-
-template <typename K>
-cudaError_t launch_prep(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

@@ -5,12 +5,12 @@
 //   closest_fast_kernel  <- _closest_fast_kernel  (tiles with count <= 1)
 //   anyhit_kernel        <- _anyhit_kernel        (light-origin shadow segments)
 //
-// What they compute. A tile is TR rays (one block, one thread per ray) plus
-// the tile's candidate clusters: packed int32 words (entry-t bits | cluster
-// id), sorted front to back by the cull. A cluster is C triangles stored as
-// a (4, 3C) matrix of affine maps (bvh/cluster.py): for a homogeneous ray
-// (o, 1) + t (d, 0), column f*C + lane gives the plane value (f = 0) and the
-// two barycentrics (f = 1, 2) of triangle `lane`. Per ray and triangle:
+// What they compute. A tile is TR rays plus the tile's candidate clusters:
+// packed int32 words (entry-t bits | cluster id), sorted front to back by the
+// cull. A cluster is C triangles stored as a (4, 3C) matrix of affine maps
+// (bvh/cluster.py): for a homogeneous ray (o, 1) + t (d, 0), column f*C +
+// lane gives the plane value (f = 0) and the two barycentrics (f = 1, 2) of
+// triangle `lane`. Per ray and triangle (tri_t, common.cuh):
 //   so = ((w3 + o0*w0) + o1*w1) + o2*w2,  sd = (d0*w0 + d1*w1) + d2*w2
 //   t = -so_n / sd_n,  u = so_u + t*sd_u,  v = so_v + t*sd_v
 //   hit iff u >= 0, v >= 0, 1-u-v >= 0, kTMin < t < t_max, |sd_n| > 1e-12
@@ -23,32 +23,46 @@
 // sequence for 12 floats of coefficients, which every ray of the tile
 // shares. Device-memory traffic is small (a cluster is 6 KB at C = 128 and
 // the whole bench100k accel, 4.9 MB, stays in the 50 MB L2), so the kernels
-// are bound by issue of fp32 instructions, and, at the tails, by tiles with
-// long candidate lists that keep one block busy while the rest of the grid
-// has drained.
+// are bound by issue of fp32 instructions. A test is a chain of some 60
+// dependent instructions, so what a kernel reaches of that bound is set by
+// how many tests it keeps in flight on every SM. The tensor cores do not
+// serve these kernels: the products have depth 4 (a homogeneous ray times a
+// (4, 3C) matrix), the frame's exactness rests on fp32 products rounded one
+// at a time, and TF32 keeps 10 mantissa bits and would flip hits.
 //
-// What the design does about it. The block stages kBatch candidate clusters at a
-// time in shared memory, transposed so that one triangle's 12 coefficients
-// are three float4s: every thread of the block reads the same address, a
-// broadcast, and the loop body is three 16-byte shared loads and the
-// arithmetic above. Candidates past the tile's early-out bound are skipped:
-// the closest-hit bound is the block max of the rays' best t (compared as
-// IEEE bits, order-isomorphic for t >= 0), the any-hit bound the block max
-// of t_max over the rays still unoccluded. The TPU's lockstep group of 8
-// tiles is dropped: blocks are independent here and each stops on its own.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// What the design does about it. Every kernel stages kBatch candidate
+// clusters at a time in shared memory, transposed so that one triangle's 12
+// coefficients are three float4s that every thread of a warp reads from the
+// same address, a broadcast. Candidates past the early-out bound are
+// skipped: the closest-hit bound is the block max of the rays' best t
+// (compared as IEEE bits, order-isomorphic for t >= 0), the any-hit bound the
+// block max of t_max over the rays still unoccluded. The TPU's lockstep
+// group of 8 tiles is dropped: blocks are independent here.
+//
+// The closest-hit kernels run one block a tile, one thread a ray (their tie
+// rule depends on the order of the walk). anyhit_kernel does not: occlusion
+// is an OR over a tile's candidates, whatever the order and whoever visits
+// them, and the candidate lists have a long tail (a mean of 4 words a tile, a
+// maximum of some 300), which one block a tile would walk alone while the
+// card has drained. So its unit of work is a segment, kSeg consecutive words
+// of one tile (the table of kernels/traversal2.py anyhit_segments: every
+// tile's first segment, then every second one, heaviest tile first), and a
+// fixed grid of persistent blocks pulls segments from a device counter. A
+// block is kSlices * TR threads: kSlices threads serve one ray, each testing
+// every kSlices-th triangle of a staged cluster, kGroup tests at a time
+// without a branch between them. A segment starts from the tile's occlusion
+// flags as they stand in device memory (possibly stale; flags are only ever
+// set, so a stale read costs work, never a result) and sets the flags of the
+// rays it occludes.
+#include "common.cuh"
 
 namespace {
 
-constexpr int kClusterBits = 17;
-constexpr int kClMask = (1 << kClusterBits) - 1;
-constexpr float kTFar = 1e30f;
-constexpr int kIntMax = 2147483647;
-constexpr float kTMin = 1e-4f;  // T_MIN of kernels/traversal.py
 // Candidate clusters staged per step of the closest-hit and any-hit loops
 // (kBatch * 6 KB of shared memory at C = 128); BATCH of kernels/traversal2.py.
 constexpr int kBatch = 4;
+// Triangle tests a thread of anyhit_kernel keeps in flight before it folds.
+constexpr int kGroup = 4;
 
 // Stage the clusters of candidate slots k .. k+n_load-1 into shared memory:
 // s[(j*C + lane)*3 + f] = column f*C + lane of cluster j's (4, 3C) matrix.
@@ -67,34 +81,6 @@ __device__ __forceinline__ void stage_clusters(float4* s, const float* __restric
     s[(j * c + lane) * 3 + f] =
         make_float4(wc[col], wc[per + col], wc[2 * per + col], wc[3 * per + col]);
   }
-}
-
-// t of one (ray, triangle) pair, or kTFar when the pair does not hit.
-__device__ __forceinline__ float tri_t(const float4* p, float4 o, float4 d, float t_max) {
-  const float4 n = p[0], a = p[1], b = p[2];
-  const float so_n = ((n.w + o.x * n.x) + o.y * n.y) + o.z * n.z;
-  const float so_u = ((a.w + o.x * a.x) + o.y * a.y) + o.z * a.z;
-  const float so_v = ((b.w + o.x * b.x) + o.y * b.y) + o.z * b.z;
-  const float sd_n = (d.x * n.x + d.y * n.y) + d.z * n.z;
-  const float sd_u = (d.x * a.x + d.y * a.y) + d.z * a.z;
-  const float sd_v = (d.x * b.x + d.y * b.y) + d.z * b.z;
-  const float t = -so_n / sd_n;
-  const float u = so_u + t * sd_u;
-  const float v = so_v + t * sd_v;
-  const bool ok = (u >= 0.0f) && (v >= 0.0f) && ((1.0f - u - v) >= 0.0f) &&
-                  (t > kTMin) && (t < t_max) && (fabsf(sd_n) > 1e-12f);
-  return ok ? t : kTFar;
-}
-
-// Max of v over the block (blockDim.x a multiple of 32); every thread gets it.
-__device__ __forceinline__ int block_max(int v, int* s_red) {
-  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // earlier readers of s_red are done
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = s_red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) v = max(v, s_red[i]);
-  return v;
 }
 
 // Closest hit over a tile's sorted candidates, kBatch clusters per step. Per ray:
@@ -188,47 +174,73 @@ __global__ void closest_fast_kernel(const int* __restrict__ words, const int* __
 }
 
 // Occlusion: a ray is occluded iff some candidate triangle has t in
-// (kTMin, t_max[ray]). Stops once every ray is occluded, or once the next
-// word's entry bits reach the max t_max of the rays still unoccluded.
+// (kTMin, t_max[ray]); occ_out holds zeros at launch and a ray's flag is set
+// by whichever segment finds it a hit. The block pulls segments (seg_tile,
+// seg_k0) until the counter passes *n_seg_p. Thread tid serves ray tid % tr
+// with the triangles lane % kSlices == tid / tr of each staged cluster. A
+// segment stops once the next word's entry bits reach the max t_max of the
+// tile's rays still unoccluded (0 once all are), which it may do at once.
 __global__ void anyhit_kernel(const int* __restrict__ words, const int* __restrict__ counts,
-                              int k_cap, const float4* __restrict__ o4,
+                              int k_cap, int tr, const float4* __restrict__ o4,
                               const float4* __restrict__ d4, const float* __restrict__ tmax,
                               const float* __restrict__ w, int n_cl, int c,
-                              uint8_t* __restrict__ occ_out) {
+                              const long long* __restrict__ seg_tile,
+                              const int* __restrict__ seg_k0, const int* __restrict__ n_seg_p,
+                              int* next_seg, uint8_t* occ_out) {
   extern __shared__ float4 s_w[];
   __shared__ int s_red[32];
-  const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
-  const int n = counts[tile];
-  const int* wt = words + (size_t)tile * k_cap;
-  const float4 o = o4[ray], d = d4[ray];
-  const float tm = tmax[ray];
-  bool occ = false;
-  int bound = block_max(__float_as_int(tm), s_red);
-  for (int k = 0; k < n; k += kBatch) {
-    if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform; all occluded -> bound 0
+  __shared__ int s_seg;
+  __shared__ uint8_t s_occ[kMaxRays];
+  const int r = threadIdx.x % tr;
+  const int slice = threadIdx.x / tr;
+  const int n_seg = *n_seg_p;
+  for (;;) {
+    if (threadIdx.x == 0) s_seg = atomicAdd(next_seg, 1);
     __syncthreads();
-    stage_clusters(s_w, w, wt, k, kBatch, k_cap, n_cl, c);
-    __syncthreads();
-    if (!occ) {
-      int n_live = min(kBatch, n - k);
-      for (int lane = 0; lane < c && !occ; ++lane) {
-        for (int j = 0; j < n_live; ++j) {
-          if (tri_t(s_w + (j * c + lane) * 3, o, d, tm) < kTFar) {
-            occ = true;
-            break;
+    const int seg = s_seg;  // rewritten only after the barriers of block_max below
+    if (seg >= n_seg) break;  // block-uniform
+    const int tile = (int)seg_tile[seg];
+    const int k0 = seg_k0[seg];
+    const int k1 = min(k0 + kSeg, counts[tile]);
+    const int* wt = words + (size_t)tile * k_cap;
+    const size_t ray = (size_t)tile * tr + r;
+    const float4 o = o4[ray], d = d4[ray];
+    const float tm = tmax[ray];
+    bool occ = ((const volatile uint8_t*)occ_out)[ray] != 0;
+    if (slice == 0) s_occ[r] = occ ? 1 : 0;
+    const bool dead = !(tm > kTMin);  // an empty interval: padding, or a ray with d == 0
+    bool hit = false;
+    // The barriers of block_max publish s_occ, and order the last segment's
+    // reads of the stage before this one's writes.
+    int bound = block_max(open_bits(occ, tm), s_red);
+    for (int k = k0; k < k1; k += kBatch) {
+      if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform; all occluded -> bound 0
+      const int n_live = min(kBatch, k1 - k);
+      stage_clusters(s_w, w, wt, k, n_live, k_cap, n_cl, c);
+      __syncthreads();
+      if (!occ && !dead) {
+        for (int j = 0; j < n_live && !hit; ++j) {
+          const float4* sj = s_w + j * c * 3;
+          for (int lane = slice; lane < c && !hit; lane += kSlices * kGroup) {
+            float t[kGroup];
+#pragma unroll
+            for (int g = 0; g < kGroup; ++g) {
+              const int l = lane + g * kSlices;
+              const float tv = tri_t(sj + min(l, c - 1) * 3, o, d, tm);
+              t[g] = l < c ? tv : kTFar;
+            }
+#pragma unroll
+            for (int g = 0; g < kGroup; ++g) hit |= t[g] < kTFar;
           }
         }
       }
+      if (hit) s_occ[r] = 1;  // the slices of a ray OR here
+      __syncthreads();
+      occ = s_occ[r] != 0;
+      bound = block_max(open_bits(occ, tm), s_red);  // its barriers free the stage
     }
-    bound = block_max(__float_as_int(occ ? 0.0f : tm), s_red);
+    if (hit) occ_out[ray] = 1;
   }
-  occ_out[ray] = occ ? 1 : 0;
-}
-
-template <typename K>
-cudaError_t launch_prep(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 size_t stage_bytes(int batch, int c) { return (size_t)batch * c * 3 * sizeof(float4); }
@@ -263,15 +275,20 @@ int tt_closest_fast(const void* words, const void* counts, int n_tiles, int k_ca
   return (int)cudaGetLastError();
 }
 
-int tt_anyhit(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
-              const void* o4, const void* d4, const void* tmax, const void* w, int n_cl, int c,
-              void* occ, void* stream) {
+// grid persistent blocks of kSlices * tr threads; seg_tile (int64), seg_k0 and
+// *n_seg are the segment table, *next_seg is 0 and occ holds zeros at launch.
+int tt_anyhit(const void* words, const void* counts, int k_cap, int tr, const void* o4,
+              const void* d4, const void* tmax, const void* w, int n_cl, int c,
+              const void* seg_tile, const void* seg_k0, const void* n_seg, void* next_seg,
+              int grid, void* occ, void* stream) {
+  if (tr > kMaxRays) return (int)cudaErrorInvalidValue;
   const size_t smem = stage_bytes(kBatch, c);
   cudaError_t e = launch_prep(anyhit_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  anyhit_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
-      (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
-      (const float*)tmax, (const float*)w, n_cl, c, (uint8_t*)occ);
+  anyhit_kernel<<<grid, kSlices * tr, smem, (cudaStream_t)stream>>>(
+      (const int*)words, (const int*)counts, k_cap, tr, (const float4*)o4, (const float4*)d4,
+      (const float*)tmax, (const float*)w, n_cl, c, (const long long*)seg_tile, (const int*)seg_k0,
+      (const int*)n_seg, (int*)next_seg, (uint8_t*)occ);
   return (int)cudaGetLastError();
 }
 

@@ -40,15 +40,9 @@
 // occlusion, bound) lives in registers for the whole run: the stream is a
 // flat list in device memory, so a heavy tile's run could later be split
 // across blocks without changing the list.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-constexpr int kClusterBits = 17;
-constexpr int kClMask = (1 << kClusterBits) - 1;
-constexpr float kTFar = 1e30f;
-constexpr float kTMin = 1e-4f;  // T_MIN of kernels/traversal.py
 
 // s[lane*3 + f] = column f*C + lane of cluster cl's (4, 3C) matrix.
 __device__ __forceinline__ void stage_cluster(float4* s, const float* __restrict__ w, int cl,
@@ -60,24 +54,6 @@ __device__ __forceinline__ void stage_cluster(float4* s, const float* __restrict
     const int lane = col - f * c;
     s[lane * 3 + f] = make_float4(wc[col], wc[per + col], wc[2 * per + col], wc[3 * per + col]);
   }
-}
-
-// t of one (ray, triangle) pair, or kTFar when the pair does not hit
-// (tri_t of traversal2.cu).
-__device__ __forceinline__ float tri_t(const float4* p, float4 o, float4 d, float t_max) {
-  const float4 n = p[0], a = p[1], b = p[2];
-  const float so_n = ((n.w + o.x * n.x) + o.y * n.y) + o.z * n.z;
-  const float so_u = ((a.w + o.x * a.x) + o.y * a.y) + o.z * a.z;
-  const float so_v = ((b.w + o.x * b.x) + o.y * b.y) + o.z * b.z;
-  const float sd_n = (d.x * n.x + d.y * n.y) + d.z * n.z;
-  const float sd_u = (d.x * a.x + d.y * a.y) + d.z * a.z;
-  const float sd_v = (d.x * b.x + d.y * b.y) + d.z * b.z;
-  const float t = -so_n / sd_n;
-  const float u = so_u + t * sd_u;
-  const float v = so_v + t * sd_v;
-  const bool ok = (u >= 0.0f) && (v >= 0.0f) && ((1.0f - u - v) >= 0.0f) &&
-                  (t > kTMin) && (t < t_max) && (fabsf(sd_n) > 1e-12f);
-  return ok ? t : kTFar;
 }
 
 // min and max that hand on a NaN, as torch.minimum and torch.maximum do.
@@ -126,17 +102,6 @@ __device__ __forceinline__ float slab_enter(const SlabRay& r, const float* __res
   }
   const bool ok = r.live && (enter <= exit_) && (exit_ > 0.0f);
   return ok ? enter : kTFar;
-}
-
-// Max of v over the block (blockDim.x a multiple of 32); every thread gets it.
-__device__ __forceinline__ int block_max(int v, int* s_red) {
-  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  __syncthreads();  // earlier readers of s_red are done
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = s_red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) v = max(v, s_red[i]);
-  return v;
 }
 
 __global__ void pair_closest_kernel(const int* __restrict__ offs, const int* __restrict__ pwords,
@@ -213,11 +178,6 @@ __global__ void pair_anyhit_kernel(const int* __restrict__ offs, const int* __re
     bound = block_max(__float_as_int(occ ? 0.0f : tm), s_red);
   }
   occ_out[ray] = occ ? 1 : 0;
-}
-
-template <typename K>
-cudaError_t launch_prep(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace

@@ -4,7 +4,9 @@ not fit in L2 (torch counterpart of tracer/kernels/stream.py).
 The same per-tile sorted front-to-back candidate walk as kernels/traversal2,
 at STREAM_BATCH = 2 candidate clusters a step, with the cluster blocks
 streamed from device memory through an NBUF-deep ring of asynchronous
-copies in shared memory (csrc/stream.cu). Each kernel has:
+copies in shared memory (csrc/stream.cu). The any-hit kernel works, as
+traversal2's does, on segments of a tile's run (traversal2.anyhit_segments),
+and its ring runs on across the segments a block walks. Each kernel has:
   * a plain version, closest_stream_plain / anyhit_stream_plain: the plain
     versions of kernels/traversal2.py at batch=STREAM_BATCH;
   * a wrapper, closest_stream / anyhit_stream: the plain version for CPU
@@ -25,14 +27,20 @@ from tracer_torch.bvh.cull import cull_clusters_sorted2
 from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels.traversal import _homog, tile_rays, tiled_tmax, untile
 from tracer_torch.kernels.traversal2 import (
-    _check_cuda, _closest_out, _count_sort, _launch, anyhit_plain, closest_hit_plain,
-    recover_hit)
+    _check_cuda, _closest_out, _count_sort, _launch, _launch_anyhit, anyhit_plain,
+    closest_hit_plain, recover_hit)
 
 # Ring stages of cluster blocks in flight per tile (kNBuf of csrc/stream.cu).
 NBUF = 4
 # Candidate clusters per step (kBatch of csrc/stream.cu, which builds the
 # kernels for this B only).
 STREAM_BATCH = 2
+
+# The entry points of anyhit_stream_kernel: its ring filled by one bulk copy
+# (TMA) a cluster, or by every thread's cp.async copies. The first is the one
+# the tier runs; the other is kept for the comparison of the two.
+ANYHIT_ENTRIES = ("st_anyhit_bulk", "st_anyhit_cp_async")
+ANYHIT_ENTRY = ANYHIT_ENTRIES[0]
 
 closest_stream_plain = functools.partial(closest_hit_plain, batch=STREAM_BATCH)
 anyhit_stream_plain = functools.partial(anyhit_plain, batch=STREAM_BATCH)
@@ -61,21 +69,20 @@ def closest_stream(o4, d4, w, words, counts):
     return bt, bid
 
 
+def _anyhit_stream_cuda(entry: str, o4, d4, tmax, w, words, counts):
+    """One launch of anyhit_stream_kernel on CUDA tensors through the entry
+    point `entry` of ANYHIT_ENTRIES, or raises."""
+    _check_cuda(o4, d4, w, words, counts, (tmax, torch.float32))
+    _check_stream(w)
+    return _launch_anyhit("anyhit_stream", entry, o4, d4, tmax, w, words, counts)
+
+
 def anyhit_stream(o4, d4, tmax, w, words, counts):
     """anyhit_stream_plain on CPU tensors; the CUDA kernel
     anyhit_stream_kernel on CUDA tensors."""
     if o4.device.type == "cpu":
         return anyhit_stream_plain(o4, d4, tmax, w, words, counts)
-    _check_cuda(o4, d4, w, words, counts, (tmax, torch.float32))
-    _check_stream(w)
-    if tmax.shape != o4.shape[:2]:
-        raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
-    occ = torch.empty(o4.shape[:2], dtype=torch.uint8, device=o4.device)
-    if o4.shape[0]:
-        _launch("anyhit_stream", "st_anyhit", o4.device, words, counts, o4.shape[0],
-                words.shape[1], o4.shape[1], o4, d4, tmax, w, w.shape[0], w.shape[2] // 3,
-                occ)
-    return occ.bool()
+    return _anyhit_stream_cuda(ANYHIT_ENTRY, o4, d4, tmax, w, words, counts)
 
 
 def trace_tiles_streamed(o_t, d_t, accel, words, counts):

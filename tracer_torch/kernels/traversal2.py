@@ -10,7 +10,10 @@ Each of the three kernels of the pass has three pieces here:
     ray's t_max);
   * a wrapper (closest_hit, closest_fast, anyhit) that runs the plain
     version for CPU tensors and launches the CUDA kernel of
-    csrc/traversal2.cu for CUDA tensors, or raises;
+    csrc/traversal2.cu for CUDA tensors, or raises. The any-hit kernel does
+    not walk a tile in one block: its unit of work is a segment of a tile's
+    candidate run (anyhit_segments), which is exact because occlusion is an
+    OR over the candidates, in any order;
   * a launch counter, LAUNCHES[name] (kernels/_launch.py), raised by one per
     kernel launch.
 
@@ -22,6 +25,8 @@ excess they could leave, are computed with the reference's formulas and are
 0 by construction. recover_hit maps a selected slot back to a full Hit.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -40,6 +45,15 @@ _INT_MAX = 2147483647
 # which builds the kernels for this B only), and of the fast tier.
 BATCH = 4
 FAST_BATCH = 1
+
+# The any-hit kernels' unit of work is a segment, SEG consecutive candidate
+# words of one tile, and SLICES threads serve one ray of it, each with its
+# share of a cluster's triangles (kSeg, kSlices of csrc/common.cuh): a block
+# is SLICES * TR threads, 256 for a tile of 64 rays. Their grid is
+# BLOCKS_PER_SM persistent blocks for every SM of the card.
+SEG = 8
+SLICES = 4
+BLOCKS_PER_SM = 4
 
 # Bytes of (tiles, B, TR, 3C) temporaries a plain version holds at once.
 _PLAIN_BYTES = 1 << 30
@@ -147,6 +161,39 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
     return occ
 
 
+def anyhit_segments(counts, seg: int = SEG, k_cap: int | None = None):
+    """The any-hit kernels' work list: every tile's candidate run cut into
+    segments of `seg` words. counts (Nt,) i32 -> (seg_tile (Nt*R,) i64,
+    seg_k0 (Nt*R,) i32, n_seg (1,) i32) with R = ceil(k_cap / seg): entry
+    i < n_seg is the words seg_k0[i] .. min(seg_k0[i] + seg, counts[tile]) - 1
+    of tile seg_tile[i]; the entries from n_seg on are padding. Order: every
+    tile's first segment, then every second one, and so on (the front-most
+    clusters occlude the most rays, so a later segment finds more of its
+    rays already occluded); within a rank the heaviest tile first.
+
+    k_cap is an upper bound of the counts known on the host (the width of
+    the word lists), so that nothing here waits for the device; without it
+    the largest count is read back."""
+    if k_cap is None:
+        k_cap = int(counts.max()) if counts.numel() else 0
+    n_tiles, dev = counts.shape[0], counts.device
+    ranks = -(-k_cap // seg)
+    if not n_tiles * ranks:
+        empty = torch.zeros(0, dtype=torch.int64, device=dev)
+        return empty, empty.int(), torch.zeros(1, dtype=torch.int32, device=dev)
+    order = torch.argsort(counts, descending=True, stable=True)
+    k0 = torch.arange(0, ranks * seg, seg, dtype=torch.int32, device=dev)
+    # A rank's tiles are a prefix of the count-sorted order: rank r holds the
+    # per_rank[r] heaviest tiles, as entries starts[r] .. ends[r]-1.
+    per_rank = (counts[None, :] > k0[:, None]).sum(1, dtype=torch.int32)
+    ends = per_rank.cumsum(0, dtype=torch.int32)
+    starts = ends - per_rank
+    i = torch.arange(n_tiles * ranks, dtype=torch.int32, device=dev)
+    rank = torch.searchsorted(ends[:-1], i, right=True)
+    within = (i - starts[rank]).clamp_max(n_tiles - 1)      # the clamp serves the padding
+    return order[within], k0[rank], ends[-1:]
+
+
 # ---------------------------------------------------------------------------
 # Wrappers: plain version on CPU tensors, CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
@@ -195,19 +242,41 @@ def closest_fast(o4, d4, w, words, counts):
     return bt, bid
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_anyhit(name: str, entry: str, o4, d4, tmax, w, words, counts, table=None):
+    """One launch of a segmented any-hit kernel (anyhit_kernel or
+    anyhit_stream_kernel) over checked CUDA tensors -> occ (Nt, TR) bool.
+    The kernel only ever sets flags, so occ starts as zeros; the segment
+    table (`table`, or anyhit_segments of the counts) and the segment
+    counter are its scratch."""
+    n_tiles, tr = o4.shape[:2]
+    if tmax.shape != (n_tiles, tr):
+        raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
+    if tr * SLICES > 1024:
+        raise ValueError(f"tile of {tr} rays: the any-hit kernels take {SLICES} threads a ray "
+                         f"and at most 1024 a block")
+    dev = o4.device
+    occ = torch.zeros((n_tiles, tr), dtype=torch.uint8, device=dev)
+    if n_tiles:
+        seg_tile, seg_k0, n_seg = table or anyhit_segments(counts, SEG, words.shape[1])
+        next_seg = torch.zeros(1, dtype=torch.int32, device=dev)
+        _launch(name, entry, dev, words, counts, words.shape[1], tr, o4, d4, tmax, w,
+                w.shape[0], w.shape[2] // 3, seg_tile, seg_k0, n_seg, next_seg,
+                _sm_count(dev.index) * BLOCKS_PER_SM, occ)
+    return occ.bool()
+
+
 def anyhit(o4, d4, tmax, w, words, counts):
     """anyhit_plain on CPU tensors; the CUDA kernel anyhit_kernel on CUDA
     tensors."""
     if o4.device.type == "cpu":
         return anyhit_plain(o4, d4, tmax, w, words, counts)
     _check_cuda(o4, d4, w, words, counts, (tmax, torch.float32))
-    if tmax.shape != o4.shape[:2]:
-        raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
-    occ = torch.empty(o4.shape[:2], dtype=torch.uint8, device=o4.device)
-    if o4.shape[0]:
-        _launch("anyhit", "tt_anyhit", o4.device, words, counts, o4.shape[0],
-                words.shape[1], o4.shape[1], o4, d4, tmax, w, w.shape[0], w.shape[2] // 3, occ)
-    return occ.bool()
+    return _launch_anyhit("anyhit", "tt_anyhit", o4, d4, tmax, w, words, counts)
 
 
 # ---------------------------------------------------------------------------
