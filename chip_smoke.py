@@ -14,13 +14,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      traversal2.cu kernel against its plain PyTorch version on the card: slot
      ids and occlusion equal, best t bit-equal; times by CUDA events; for the
      any-hit kernel also the number of segments its work is cut into, the
-     kernel's own time beside its segment table's, and its time on the
-     heaviest tile alone and on the selection without its 256 heaviest tiles
-     (what is left of the tail of long candidate lists);
+     kernel's own device time (from a profile of its wrapper) beside its
+     segment table's, and its time on the heaviest tile alone and on the
+     selection without its 256 heaviest tiles (what is left of the tail of
+     long candidate lists);
   4. frame: the frame through tracer_torch.api.make_render_fn on the card:
      overflow 0, a finite, lit image, every kernel of the tier launched and
      no kernel of the streamed tier;
-  5. cross-device: bench100k at 480x270 on the card and on the CPU (plain
+  5. cross-device: bench100k at 384x216 on the card and on the CPU (plain
      versions), held to the golden image gate;
   6. timing: tracer_torch.api.benchmark("bench100k") with 2 warm-ups and 10
      frames;
@@ -34,9 +35,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   10. stream kernels: at the frame's own shapes (its primary-ray cull, and
      the first light's surface-origin shadow rays from the wavefront's own
      arithmetic; the 256 heaviest tiles plus every 16th), each stream.cu
-     kernel against its plain version at B = 2, as in phase 3; the any-hit
-     kernel through both of its entry points (its ring filled by bulk copies
-     or by cp.async copies), timed in turns;
+     kernel against its plain version at B = 2, as in phase 3;
   11. frame: the frame through make_render_fn: overflow 0, a finite, lit
      image, both stream kernels launched and no traversal2.cu kernel; then
      the profile of phase 8 over one warm pod-1m frame;
@@ -54,7 +53,7 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      ids, slots and occlusion equal, t, u, v bit-equal; then, on the pair
      tier's shadow rays, anyhit_kernel over the two-stage cull's lists
      against pair_anyhit_kernel over the single-stage cull's, on the same
-     tiles;
+     tiles and on all tiles: occlusion equal on every ray;
   15. wavefront frames: render_wavefront over make_accel_tracers(
      use_pallas=True), make_sorted_tracers, make_pair_tracers and
      make_streamed_tracers: a finite, lit image each, its own kernels
@@ -289,7 +288,7 @@ def compare_closest(name, kernel, plain, o4, d4, w, words, counts, results):
     bad_bt = int((float_bits(bt_k) != float_bits(bt_p)).sum())
     err = float((bt_k - bt_p).abs().max()) if bt_k.numel() else 0.0
     ms = cuda_ms(lambda: kernel(o4, d4, w, words, counts), 20)
-    plain_ms = cuda_ms(lambda: plain(o4, d4, w, words, counts), 3)
+    plain_ms = cuda_ms(lambda: plain(o4, d4, w, words, counts), 1)
     # The fast kernel's walk is its first word, whatever the bound.
     if name == "closest_fast":
         bnd, tests = closest_bound(words[:, :1], counts.clamp_max(1),
@@ -314,7 +313,7 @@ def compare_anyhit(name, kernel, plain, args, results):
     torch.cuda.synchronize()
     bad = int((occ_k != occ_p).sum())
     ms = cuda_ms(lambda: kernel(*args), 20)
-    plain_ms = cuda_ms(lambda: plain(*args), 3)
+    plain_ms = cuda_ms(lambda: plain(*args), 1)
     bnd, tests = anyhit_bound(words, counts, occ_k, tmax, w.shape[2] // 3)
     report(name, results, o4.shape[0],
            f"{count_stats(counts)}, occluded {float(occ_k.float().mean()):.3f}: occ "
@@ -323,16 +322,28 @@ def compare_anyhit(name, kernel, plain, args, results):
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
 
 
-def kernel_alone_ms(name, entry, args, reps=20):
-    """(ms, segments) of a segmented any-hit kernel alone: one launch through
-    `entry` over a segment table built beforehand (the wrapper builds it at
-    every call, in eager PyTorch)."""
-    table = t2.anyhit_segments(args[5], t2.SEG, args[4].shape[1])
-    return (cuda_ms(lambda: t2._launch_anyhit(name, entry, *args, table=table), reps),
-            int(table[2]))
+def kernel_alone_ms(name, kernel, args, reps=5):
+    """Device ms of a segmented any-hit kernel alone, inside its wrapper
+    `kernel`: the profile's time of the __global__ function, median of the
+    launches it recorded of `reps` warm calls (the wrapper also builds the
+    segment table at every call, in eager PyTorch)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kernel(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            kernel(*args)
+        torch.cuda.synchronize()
+    spans = [(e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and f"{name}_kernel" in re.findall(r"\w+_kernel", e.name)]
+    check(len(spans) > 0, f"the profile holds no {name}_kernel")
+    return float(np.median(spans))
 
 
-def tail_report(name, entry, args, results):
+def tail_report(name, kernel, args, results):
     """What is left of the tail of long candidate lists in a segmented
     any-hit kernel: args (tiles by descending count) cut into how many
     segments, the kernel's own time beside its segment table's, and the
@@ -342,9 +353,10 @@ def tail_report(name, entry, args, results):
     cut = lambda a, b: tuple(x if x is args[3] else x[a:b].contiguous() for x in args)
     heavy, rest = cut(0, 1), cut(256, None)
     check(rest[0].shape[0] > 0, f"{name}: the selection holds no tile past the 256 heaviest")
-    table_ms = cuda_ms(lambda: t2.anyhit_segments(counts, t2.SEG, args[4].shape[1]), 20)
-    (ms_all, n_seg), (ms_heavy, seg_heavy), (ms_rest, seg_rest) = (
-        kernel_alone_ms(name, entry, a) for a in (args, heavy, rest))
+    table = lambda a: t2.anyhit_segments(a[5], t2.SEG, a[4].shape[1])
+    table_ms = cuda_ms(lambda: table(args), 10)
+    n_seg, seg_heavy, seg_rest = (int(table(a)[1][-1]) for a in (args, heavy, rest))
+    ms_all, ms_heavy, ms_rest = (kernel_alone_ms(name, kernel, a) for a in (args, heavy, rest))
     log(f"[kernels] {name}: {n_seg} segments of {t2.SEG} words, {t2.SLICES} threads a ray, "
         f"{t2.BLOCKS_PER_SM} blocks an SM; of the wrapper's {results[name]['ms']:.4f} ms the "
         f"segment table takes {table_ms:.4f} ms, the kernel alone {ms_all:.4f} ms; kernel "
@@ -394,7 +406,7 @@ def phase_kernels(results: dict, cfg, dev):
         check(int(excess2) == 0, "shadow cull dropped candidates")
         args = anyhit_args(accel, so, sd, tmax, words2, counts2)
         compare_anyhit("anyhit", t2.anyhit, t2.anyhit_plain, args, results)
-        tail_report("anyhit", "tt_anyhit", args, results)
+        tail_report("anyhit", t2.anyhit, args, results)
 
 
 def phase_pod_scene(cfg, dev="cuda"):
@@ -445,25 +457,7 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
             f"S {need2[1]}; {far} tiles hold a ray with t_max > 1e29 (a missed receiver)")
         args = anyhit_args(accel, so, sd, tm, words2, counts2)
         compare_anyhit("anyhit_stream", st.anyhit_stream, st.anyhit_stream_plain, args, results)
-        tail_report("anyhit_stream", st.ANYHIT_ENTRY, args, results)
-        compare_ring_copies(args)
-
-
-def compare_ring_copies(args):
-    """anyhit_stream_kernel through each of its entry points (its ring filled
-    by bulk copies or by cp.async copies): both equal to the plain version;
-    the kernel alone timed in turns (first, second, second, first)."""
-    want = st.anyhit_stream_plain(*args)
-    for entry in st.ANYHIT_ENTRIES:
-        check(bool((st._anyhit_stream_cuda(entry, *args) == want).all()),
-              f"{entry} disagrees with the plain version")
-    first, second = st.ANYHIT_ENTRIES
-    ms = {first: [], second: []}
-    for entry in (first, second, second, first):
-        ms[entry].append(kernel_alone_ms("anyhit_stream", entry, args)[0])
-    log(f"[stream] anyhit_stream_kernel alone, ring copies on {args[0].shape[0]} tiles: "
-        + ", ".join(f"{e} {np.mean(v):.4f} ms {[round(x, 4) for x in v]}" for e, v in ms.items())
-        + f"; the tier runs {st.ANYHIT_ENTRY}")
+        tail_report("anyhit_stream", st.anyhit_stream, args, results)
 
 
 def first_shadow_rays(scene, cfg, rays, trace_fn, tr):
@@ -524,7 +518,7 @@ def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
         bnd = bound(n_tests * FLOPS_FIELD, sel.numel(), tr, items,
                     torch.unique(clusters[walked]).numel() * 48 * c, 36, 1)
         tests = f"{n_tests} (ray, triangle) tests x {FLOPS_FIELD}"
-    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 2)
+    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 1)
     report(name, results, sel.numel(), f"{count_stats(counts[sel])}: {what}", ms, plain_ms,
            err, bnd, tests)
     if any(bad):
@@ -594,7 +588,7 @@ def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
                     36, 1)
         tests = (f"{n_tst} (ray, triangle) tests x {FLOPS_TRI} + {n_vis} slab tests x {tr} x "
                  f"{FLOPS_SLAB}")
-    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 2)
+    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 1)
     report(name, results, sel.numel(), f"{count_stats(c_s)}: {what}", ms, plain_ms, err, bnd,
            tests)
     if any(bad):
@@ -655,7 +649,9 @@ def compare_shadow_lists(accel, so, sd, tm, words, counts):
     """On the pair tier's surface-origin shadow rays: anyhit_kernel over the
     two-stage cull's lists against pair_anyhit_kernel over the single-stage
     cull's (words, counts), on the pair comparison's tiles and on all tiles;
-    timed in turns. Both are exact, so their occlusion is compared."""
+    timed in turns. Both are exact: their occlusion must be equal on every
+    ray (on all tiles this is the any-hit kernel's one run over a whole
+    frame's lists that is held against another kernel)."""
     words2, counts2, excess, _ = cull_clusters_sorted2(accel, so, sd, tm)
     check(int(excess) == 0, "shadow cull dropped candidates")
     tmz = torch.where((sd != 0.0).any(-1), tm, 0.0)
@@ -673,9 +669,11 @@ def compare_shadow_lists(accel, so, sd, tm, words, counts):
         run_a = lambda: t2.anyhit(o4, d4, t_m, accel.tri_w, w2, c2)
         run_p = lambda: t3.pair_anyhit(o4, d4, t_m, accel.tri_w, lo, hi, offs, pwords)
         differ = int((run_a() != run_p()).sum())
+        check(differ == 0, f"anyhit_kernel and pair_anyhit_kernel differ on {differ} rays of "
+                           f"{what}")
         ms_a, ms_p = [], []
         for run, ms in ((run_a, ms_a), (run_p, ms_p), (run_p, ms_p), (run_a, ms_a)):
-            ms.append(cuda_ms(run, 10))
+            ms.append(cuda_ms(run, 5))
         log(f"[wavefront] surface-origin shadow rays, {what} ({idx.numel()}): anyhit_kernel "
             f"over the two-stage cull's lists ({count_stats(c2)}, total {int(c2.sum())}) "
             f"{np.mean(ms_a):.4f} ms {[round(x, 4) for x in ms_a]}; pair_anyhit_kernel over "
@@ -1016,7 +1014,7 @@ def main() -> int:
     bench = load_config("bench100k")
     timed("kernels", phase_kernels, results, bench, torch.device("cuda"))
     launches.update(timed("frame", phase_frame, bench, "cuda", "tiled"))
-    timed("cross-device", phase_cross_device, load_config("bench100k", height=270, width=480))
+    timed("cross-device", phase_cross_device, load_config("bench100k", height=216, width=384))
     timed("timing", phase_timing, smi, "bench100k", iters=10, warmup=2)
     timed("layers", phase_layers, bench)
     timed("profile", phase_profile, bench)

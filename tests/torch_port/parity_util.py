@@ -79,3 +79,16 @@ def exact_cull(accel, o_t, d_t, t_max):
                                          s=accel.super_lo.shape[0])
     assert int(excess) == 0
     return words, counts
+
+
+def segment_list(order, ends, seg: int):
+    """The segments of a table of tracer_torch's anyhit_segments, in the
+    table's order -> (tile (n,) int64, k0 (n,) int64) numpy arrays: rank r
+    holds the first ends[r] - ends[r-1] tiles of `order`, from word r*seg."""
+    order, ends = np.asarray(order), np.asarray(ends).astype(np.int64)
+    per_rank = np.diff(ends, prepend=0)
+    assert (per_rank >= 0).all() and (per_rank <= order.shape[0]).all()
+    tile = np.concatenate([order[:n] for n in per_rank] + [order[:0]])
+    k0 = np.repeat(np.arange(ends.shape[0], dtype=np.int64) * seg, per_rank)
+    return tile, k0
+

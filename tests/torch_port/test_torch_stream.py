@@ -34,7 +34,7 @@ from tracer_torch.core.types import Ray
 from tracer_torch.kernels import stream as ts
 from tracer_torch.kernels import traversal2 as tt2
 
-from parity_util import bunny_rays, exact_cull, leaves, soup_rays
+from parity_util import bunny_rays, exact_cull, leaves, segment_list, soup_rays
 
 FIXTURES = {"bunny3": functools.partial(bunny_rays, 32), "soup400": soup_rays}
 
@@ -229,10 +229,9 @@ def test_anyhit_stream_plain_by_segments_equals_whole(case):
     tm = torch.where((d4 != 0).any(-1), _t(tm), 0.0)
     w = case["t_accel"].tri_w
     whole = ts.anyhit_stream_plain(o4, d4, tm, w, words, counts)
-    seg_tile, seg_k0, n_seg = tt2.anyhit_segments(counts, tt2.SEG, words.shape[1])
-    n = int(n_seg)
-    assert n > o4.shape[0], "some tile must hold more than one segment"
-    tile, k0 = seg_tile[:n], seg_k0[:n].long()
+    tile, k0 = map(torch.from_numpy, segment_list(
+        *tt2.anyhit_segments(counts, tt2.SEG, words.shape[1]), tt2.SEG))
+    assert tile.shape[0] > o4.shape[0], "some tile must hold more than one segment"
     pad = torch.nn.functional.pad(words, (0, tt2.SEG))
     seg_words = pad[tile[:, None], k0[:, None] + torch.arange(tt2.SEG)]
     seg_counts = (counts[tile] - k0).clamp_max(tt2.SEG).int()
@@ -244,11 +243,15 @@ def test_anyhit_stream_plain_by_segments_equals_whole(case):
 
 
 def test_anyhit_stream_entry_points():
-    """The tier runs one of the two entry points of anyhit_stream_kernel
-    that csrc/stream.cu exports and kernels/_build.py declares."""
+    """csrc/stream.cu exports one entry point a kernel, the ones the
+    wrappers launch and kernels/_build.py declares."""
+    import inspect
+
     from tracer_torch.kernels import _build
 
     src = (Path(ts.__file__).parent / "csrc" / "stream.cu").read_text()
-    exported = re.findall(r"^int (st_anyhit\w*)\(", src, flags=re.M)
-    assert tuple(exported) == ts.ANYHIT_ENTRIES and ts.ANYHIT_ENTRY in ts.ANYHIT_ENTRIES
-    assert all(e in _build._SIGNATURES for e in ts.ANYHIT_ENTRIES)
+    exported = re.findall(r"^int (st_\w+)\(", src, flags=re.M)
+    assert exported == ["st_closest", "st_anyhit"]
+    assert exported == [e for e in _build._SIGNATURES if e.startswith("st_")]
+    for entry, wrapper in zip(exported, (ts.closest_stream, ts.anyhit_stream)):
+        assert f'"{entry}"' in inspect.getsource(wrapper)

@@ -23,7 +23,7 @@ from tracer.kernels import traversal2 as jt2
 from tracer_torch.bridge import accel_from_arrays
 from tracer_torch.kernels import traversal2 as tt2
 
-from parity_util import bunny_rays, exact_cull as _cull, leaves, soup_rays
+from parity_util import bunny_rays, exact_cull as _cull, leaves, segment_list, soup_rays
 
 FIXTURES = {"bunny3": functools.partial(bunny_rays, 64), "soup400": soup_rays}
 
@@ -126,13 +126,13 @@ def test_wrappers_dispatch_by_device(case):
         tt2.anyhit(*map(meta, (o4, d4, tm, t_accel.tri_w, words, counts)))
 
 
-def _segment_pairs(counts, seg, k_cap=None):
-    """anyhit_segments -> [(tile, k0)] of its first n_seg entries."""
-    seg_tile, seg_k0, n_seg = tt2.anyhit_segments(torch.from_numpy(counts), seg, k_cap)
-    assert seg_tile.shape == seg_k0.shape and n_seg.shape == (1,)
-    n = int(n_seg)
-    assert n <= seg_tile.shape[0]
-    return list(zip(seg_tile[:n].tolist(), seg_k0[:n].tolist()))
+def _segment_pairs(counts, seg, k_cap):
+    """anyhit_segments -> [(tile, k0)] of its segments, in its order."""
+    order, ends = tt2.anyhit_segments(torch.from_numpy(counts), seg, k_cap)
+    assert order.shape == counts.shape and order.dtype == torch.int64
+    assert ends.shape == (-(-k_cap // seg),) and ends.dtype == torch.int32
+    tile, k0 = segment_list(order, ends, seg)
+    return list(zip(tile.tolist(), k0.tolist()))
 
 
 @pytest.mark.parametrize("seg", [1, 3, tt2.SEG])
@@ -140,22 +140,22 @@ def test_anyhit_segments_cover_every_word_once_in_order(seg):
     """Random counts, zeros and counts not divisible by seg among them: the
     segments cover every (tile, k < count) exactly once; every tile's first
     segment comes before any second one, and so on; within a rank the
-    heaviest tile comes first (ties by tile index). With the host-side
-    bound k_cap (no read-back) the table is the same."""
+    heaviest tile comes first (ties by tile index). A wider bound k_cap of
+    the counts gives the same segments."""
     rng = np.random.default_rng(11)
     for trial in range(40):
         n_tiles = int(rng.integers(0, 50))
         k_max = int(rng.integers(0, 45))
         counts = rng.integers(0, k_max + 1, size=n_tiles).astype(np.int32)
         counts[rng.random(n_tiles) < 0.2] = 0
-        pairs = _segment_pairs(counts, seg)
+        pairs = _segment_pairs(counts, seg, k_max)
         covered = [(t, k) for t, k0 in pairs for k in range(k0, min(k0 + seg, counts[t]))]
         want = [(t, k) for t in range(n_tiles) for k in range(counts[t])]
         assert sorted(covered) == want and len(covered) == len(want)
         assert all(k0 % seg == 0 and k0 < counts[t] for t, k0 in pairs)
         keys = [(k0 // seg, -int(counts[t]), t) for t, k0 in pairs]
         assert keys == sorted(keys)
-        assert _segment_pairs(counts, seg, k_cap=k_max + int(rng.integers(0, 9))) == pairs
+        assert _segment_pairs(counts, seg, k_max + int(rng.integers(1, 9))) == pairs
 
 
 def _anyhit_by_segments(case, batch):
@@ -169,10 +169,9 @@ def _anyhit_by_segments(case, batch):
     tm = torch.from_numpy(np.random.default_rng(5).uniform(0.8, 3.5, o4.shape[:2])
                           .astype(np.float32))
     whole = tt2.anyhit_plain(o4, d4, tm, t_accel.tri_w, words, counts, batch=batch)
-    seg_tile, seg_k0, n_seg = tt2.anyhit_segments(counts, tt2.SEG, words.shape[1])
-    n = int(n_seg)
-    assert n > o4.shape[0], "some tile must hold more than one segment"
-    tile, k0 = seg_tile[:n], seg_k0[:n].long()
+    tile, k0 = map(torch.from_numpy, segment_list(
+        *tt2.anyhit_segments(counts, tt2.SEG, words.shape[1]), tt2.SEG))
+    assert tile.shape[0] > o4.shape[0], "some tile must hold more than one segment"
     pad = torch.nn.functional.pad(words, (0, tt2.SEG))
     seg_words = pad[tile[:, None], k0[:, None] + torch.arange(tt2.SEG)]
     seg_counts = (counts[tile] - k0).clamp_max(tt2.SEG).int()
@@ -204,6 +203,6 @@ def test_segment_constants_pinned_to_the_kernels():
         src = (csrc / name).read_text()
         assert '#include "common.cuh"' in src
         assert not re.search(r"constexpr int (kSeg|kSlices) =", src)
-        assert re.search(r"anyhit\w*kernel(<kBulk>)?<<<grid, kSlices \* tr,", src)
+        assert re.search(r"anyhit\w*kernel<<<grid, kSlices \* tr,", src)
     batch = re.search(r"constexpr int kBatch = (\d+);", (csrc / "traversal2.cu").read_text())
     assert int(batch.group(1)) == tt2.BATCH and tt2.SEG % tt2.BATCH == 0

@@ -30,17 +30,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _CLOSEST = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
-# words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c, seg_tile, seg_k0, n_seg,
+# words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c, order, ends, n_ranks,
 # next_seg, grid, occ, stream
-_ANYHIT = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P]
+_ANYHIT = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P]
 # Entry points (see the extern "C" block of each source): name -> argtypes.
 _SIGNATURES = {
     "tt_closest": _CLOSEST,      # traversal2.cu
     "tt_closest_fast": _CLOSEST,
     "tt_anyhit": _ANYHIT,
     "st_closest": _CLOSEST,      # stream.cu
-    "st_anyhit_bulk": _ANYHIT,
-    "st_anyhit_cp_async": _ANYHIT,
+    "st_anyhit": _ANYHIT,
     "wl_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],   # traversal.cu
     "wl_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
     "pr_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],   # traversal3.cu

@@ -1,6 +1,6 @@
 // What the traversal kernels of this directory share: the packed-word
-// constants, the (ray, triangle) test of the tri_t family, the block-wide max
-// and the launch preparation. Every function is inline, so each source keeps
+// constants, the (ray, triangle) test of the tri_t family, the block-wide max,
+// the any-hit kernels' segment claim and the launch preparation. Every function is inline, so each source keeps
 // its own copy of what it uses.
 #pragma once
 #include <cuda_runtime.h>
@@ -62,6 +62,39 @@ __device__ __forceinline__ int block_max(int v, int* s_red) {
 // floats do).
 __device__ __forceinline__ int open_bits(bool occ, float t_max) {
   return __float_as_int(occ ? 0.0f : t_max);
+}
+
+// Words k0 .. k1-1 of tile `tile`; tile < 0 when no segment is left.
+struct Segment {
+  int tile, k0, k1;
+};
+
+// One thread's claim of the next segment from the counter *next_seg, into the
+// three ints `out` of shared memory. The table (kernels/traversal2.py
+// anyhit_segments) is `order`, the tiles by descending count, and `ends`, the
+// running number of segments after each of the n_ranks ranks: segment s of
+// rank r (ends[r-1] <= s < ends[r]) is the words from r * kSeg on of tile
+// order[s - ends[r-1]]. `rank` is the claiming thread's cursor into ends: the
+// counter only rises, so the cursor never moves back.
+__device__ __forceinline__ void claim_segment(int* out, int* next_seg, int& rank,
+                                              const long long* __restrict__ order,
+                                              const int* __restrict__ ends, int n_ranks,
+                                              const int* __restrict__ counts) {
+  const int s = atomicAdd(next_seg, 1);
+  while (rank < n_ranks && s >= ends[rank]) ++rank;
+  if (rank < n_ranks) {
+    const int tile = (int)order[s - (rank ? ends[rank - 1] : 0)];
+    out[0] = tile;
+    out[1] = rank * kSeg;
+    out[2] = min(rank * kSeg + kSeg, counts[tile]);
+  } else {
+    out[0] = -1;
+    out[1] = out[2] = 0;
+  }
+}
+
+__device__ __forceinline__ Segment read_segment(const int* s) {
+  return Segment{s[0], s[1], s[2]};
 }
 
 template <typename K>

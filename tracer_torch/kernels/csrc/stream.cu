@@ -57,9 +57,11 @@
 // next one it will, and copies the next one's first clusters while this one
 // finishes; a word whose entry bits already reach the tile's bound is not
 // copied at all. One thread issues one cp.async.bulk (TMA's 1-D bulk copy) a
-// cluster, which completes on the stage's mbarrier; the same ring filled by
-// every thread's cp.async copies is kept as a second instantiation, for the
-// comparison of the two (chip_smoke.py times both).
+// cluster, which completes on the stage's mbarrier. The same ring filled by
+// every thread's cp.async copies, as closest_stream_kernel's is, was measured
+// beside it and took 2 to 3 % longer on the pod-1m shadow pass: it needs one more
+// block barrier a step (a thread can wait for its own chunks only) and 90
+// registers a thread against 80, which leaves room for 2 blocks an SM, not 3.
 #include "common.cuh"
 
 namespace {
@@ -252,23 +254,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
-// Wait until at most n (0 .. kNBuf-1) of this thread's commit groups are
-// still in flight.
-__device__ __forceinline__ void cp_async_wait_upto(int n) {
-  static_assert(kNBuf == 4, "one case per ring stage");
-  switch (n) {
-    case 0: cp_async_wait<0>(); break;
-    case 1: cp_async_wait<1>(); break;
-    case 2: cp_async_wait<2>(); break;
-    default: cp_async_wait<3>(); break;
-  }
-}
-
-// kBulk: thread 0 issues one bulk copy a cluster, which completes on the
-// stage's mbarrier; a thread that has waited may read the stage. Else every
-// thread copies its 16-byte chunks of the cluster as one commit group, and
-// waits for its own: the block needs a __syncthreads before it reads.
-template <bool kBulk>
+// A stage is filled by one bulk copy, issued by thread 0, which completes on
+// the stage's mbarrier; a thread that has waited for it may read the stage.
 struct Ring {
   float4* stages;
   uint64_t* bars;
@@ -276,7 +263,7 @@ struct Ring {
   int issued;  // copies issued so far
 
   __device__ __forceinline__ void init() {
-    if (kBulk && threadIdx.x == 0) {
+    if (threadIdx.x == 0) {
       for (int b = 0; b < kNBuf; ++b) mbar_init(bars + b);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -284,26 +271,16 @@ struct Ring {
   }
 
   __device__ __forceinline__ void issue(const float4* src) {
-    float4* dst = stages + (issued % kNBuf) * per4;
-    if (kBulk) {
-      if (threadIdx.x == 0) {
-        uint64_t* bar = bars + issued % kNBuf;
-        mbar_expect(bar, per4 * sizeof(float4));
-        bulk_copy(dst, src, per4 * sizeof(float4), bar);
-      }
-    } else {
-      for (int i = threadIdx.x; i < per4; i += blockDim.x) cp_async16(dst + i, src + i);
-      cp_async_commit();
+    if (threadIdx.x == 0) {
+      uint64_t* bar = bars + issued % kNBuf;
+      mbar_expect(bar, per4 * sizeof(float4));
+      bulk_copy(stages + (issued % kNBuf) * per4, src, per4 * sizeof(float4), bar);
     }
     ++issued;
   }
 
   __device__ __forceinline__ void wait(int item) {
-    if (kBulk) {
-      mbar_wait(bars + item % kNBuf, (item / kNBuf) & 1);
-    } else {
-      cp_async_wait_upto(issued - 1 - item);
-    }
+    mbar_wait(bars + item % kNBuf, (item / kNBuf) & 1);
   }
 
   __device__ __forceinline__ const float4* stage(int item) const {
@@ -311,57 +288,29 @@ struct Ring {
   }
 };
 
-// Words k0 .. k1-1 of tile `tile`; tile < 0 when no segment is left.
-struct Segment {
-  int tile, k0, k1;
-};
-
-// Thread 0's claim of the next segment of the table, into shared memory.
-__device__ __forceinline__ void claim_segment(int* out, int* next_seg, int n_seg,
-                                              const long long* __restrict__ seg_tile,
-                                              const int* __restrict__ seg_k0,
-                                              const int* __restrict__ counts) {
-  const int s = atomicAdd(next_seg, 1);
-  if (s < n_seg) {
-    const int tile = (int)seg_tile[s], k0 = seg_k0[s];
-    out[0] = tile;
-    out[1] = k0;
-    out[2] = min(k0 + kSeg, counts[tile]);
-  } else {
-    out[0] = -1;
-    out[1] = out[2] = 0;
-  }
-}
-
-__device__ __forceinline__ Segment read_segment(const int* s) {
-  return Segment{s[0], s[1], s[2]};
-}
-
 // Occlusion: a ray is occluded iff some candidate triangle has t in
 // (kTMin, tmax[ray]); occ_out holds zeros at launch and a ray's flag is set by
-// whichever segment finds it a hit. The block pulls segments (seg_tile,
-// seg_k0) until the counter passes *n_seg_p, kBatch clusters a step. Thread
-// tid serves ray tid % tr with the quads l4 % kSlices == tid / tr of each
-// cluster. A segment stops once the next word's entry bits reach the max
-// tmax of the tile's rays still unoccluded (0 once all are), which it may do
-// at once.
+// whichever segment finds it a hit. The block pulls segments of the table
+// (order, ends; claim_segment, common.cuh) until the counter has passed them
+// all, kBatch clusters a step. Thread tid serves ray tid % tr with the quads
+// l4 % kSlices == tid / tr of each cluster. A segment stops once the next
+// word's entry bits reach the max tmax of the tile's rays still unoccluded (0
+// once all are), which it may do at once.
 //
 // The block holds `cur`, the segment it works on (kc: the next word to
 // intersect, kf: the next to copy) and, claimed when it starts on cur, `nxt`,
 // the one it will work on next (kfn: the next word to copy). The copies in
 // flight are cur's words kc .. kf-1, then nxt's words nxt.k0 .. kfn-1: the
 // ring's items `consumed` .. issued-1.
-template <bool kBulk>
 __global__ void anyhit_stream_kernel(const int* __restrict__ words,
                                      const int* __restrict__ counts, int k_cap, int tr,
                                      const float4* __restrict__ o4,
                                      const float4* __restrict__ d4,
                                      const float* __restrict__ tmax,
                                      const float4* __restrict__ w, int n_cl, int c,
-                                     const long long* __restrict__ seg_tile,
-                                     const int* __restrict__ seg_k0,
-                                     const int* __restrict__ n_seg_p, int* next_seg,
-                                     uint8_t* occ_out) {
+                                     const long long* __restrict__ order,
+                                     const int* __restrict__ ends, int n_ranks,
+                                     int* next_seg, uint8_t* occ_out) {
   extern __shared__ __align__(128) float4 ring_mem[];
   __shared__ __align__(8) uint64_t s_bar[kNBuf];
   __shared__ int s_red[32];
@@ -371,10 +320,11 @@ __global__ void anyhit_stream_kernel(const int* __restrict__ words,
   const int c4 = c / kLanes;
   const int r = threadIdx.x % tr;
   const int slice = threadIdx.x / tr;
-  const int n_seg = *n_seg_p;
-  Ring<kBulk> ring{ring_mem, s_bar, per4, 0};
+  int rank = 0;  // thread 0's cursor into ends
+  Ring ring{ring_mem, s_bar, per4, 0};
   ring.init();
-  if (threadIdx.x == 0) claim_segment(s_claim[1], next_seg, n_seg, seg_tile, seg_k0, counts);
+  if (threadIdx.x == 0)
+    claim_segment(s_claim[1], next_seg, rank, order, ends, n_ranks, counts);
   __syncthreads();  // the barriers and the claim are published
   Segment cur = read_segment(s_claim[1]);
   int consumed = 0;
@@ -383,7 +333,7 @@ __global__ void anyhit_stream_kernel(const int* __restrict__ words,
     // The segment after this one: claimed here, read after the barriers of
     // block_max, its slot of s_claim claimed into again two segments on.
     if (threadIdx.x == 0)
-      claim_segment(s_claim[it & 1], next_seg, n_seg, seg_tile, seg_k0, counts);
+      claim_segment(s_claim[it & 1], next_seg, rank, order, ends, n_ranks, counts);
     const int* wt = words + (size_t)cur.tile * k_cap;
     const size_t ray = (size_t)cur.tile * tr + r;
     const float4 o = o4[ray], d = d4[ray];
@@ -425,7 +375,6 @@ __global__ void anyhit_stream_kernel(const int* __restrict__ words,
       if ((wt[kc] & ~kClMask) >= bound) break;  // block-uniform; all occluded -> bound 0
       const int n_live = min(kBatch, k1 - kc);  // all copied or in flight: kf >= kc + n_live
       for (int j = 0; j < n_live; ++j) ring.wait(consumed + j);
-      if (!kBulk) __syncthreads();  // everyone's chunks
       if (!occ && !dead) {
         for (int j = 0; j < n_live && !hit; ++j) {
           const float4* stage = ring.stage(consumed + j);
@@ -454,26 +403,9 @@ __global__ void anyhit_stream_kernel(const int* __restrict__ words,
     cur = nxt;
     kf = kfn;
   }
-  if (!kBulk) cp_async_wait<0>();
 }
 
 size_t ring_bytes(int c) { return (size_t)kNBuf * 3 * c * sizeof(float4); }
-
-template <bool kBulk>
-int launch_anyhit_stream(const void* words, const void* counts, int k_cap, int tr, const void* o4,
-                         const void* d4, const void* tmax, const void* w, int n_cl, int c,
-                         const void* seg_tile, const void* seg_k0, const void* n_seg,
-                         void* next_seg, int grid, void* occ, void* stream) {
-  if (tr > kMaxRays) return (int)cudaErrorInvalidValue;
-  const size_t smem = ring_bytes(c);
-  cudaError_t e = launch_prep(anyhit_stream_kernel<kBulk>, smem);
-  if (e != cudaSuccess) return (int)e;
-  anyhit_stream_kernel<kBulk><<<grid, kSlices * tr, smem, (cudaStream_t)stream>>>(
-      (const int*)words, (const int*)counts, k_cap, tr, (const float4*)o4, (const float4*)d4,
-      (const float*)tmax, (const float4*)w, n_cl, c, (const long long*)seg_tile, (const int*)seg_k0,
-      (const int*)n_seg, (int*)next_seg, (uint8_t*)occ);
-  return (int)cudaGetLastError();
-}
 
 }  // namespace
 
@@ -494,24 +426,22 @@ int st_closest(const void* words, const void* counts, int n_tiles, int k_cap, in
   return (int)cudaGetLastError();
 }
 
-// anyhit_stream_kernel with its ring filled by bulk copies (st_anyhit_bulk) or
-// by per-thread cp.async copies (st_anyhit_cp_async): grid persistent blocks of
-// kSlices * tr threads; seg_tile, seg_k0 and *n_seg are the segment table,
-// *next_seg is 0 and occ holds zeros at launch.
-int st_anyhit_bulk(const void* words, const void* counts, int k_cap, int tr, const void* o4,
-                   const void* d4, const void* tmax, const void* w, int n_cl, int c,
-                   const void* seg_tile, const void* seg_k0, const void* n_seg, void* next_seg,
-                   int grid, void* occ, void* stream) {
-  return launch_anyhit_stream<true>(words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c, seg_tile,
-                                    seg_k0, n_seg, next_seg, grid, occ, stream);
-}
-
-int st_anyhit_cp_async(const void* words, const void* counts, int k_cap, int tr, const void* o4,
-                       const void* d4, const void* tmax, const void* w, int n_cl, int c,
-                       const void* seg_tile, const void* seg_k0, const void* n_seg,
-                       void* next_seg, int grid, void* occ, void* stream) {
-  return launch_anyhit_stream<false>(words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c,
-                                     seg_tile, seg_k0, n_seg, next_seg, grid, occ, stream);
+// grid persistent blocks of kSlices * tr threads; order (int64) and the n_ranks
+// entries of ends are the segment table, *next_seg is 0 and occ holds zeros at
+// launch.
+int st_anyhit(const void* words, const void* counts, int k_cap, int tr, const void* o4,
+              const void* d4, const void* tmax, const void* w, int n_cl, int c,
+              const void* order, const void* ends, int n_ranks, void* next_seg, int grid,
+              void* occ, void* stream) {
+  if (tr > kMaxRays) return (int)cudaErrorInvalidValue;
+  const size_t smem = ring_bytes(c);
+  cudaError_t e = launch_prep(anyhit_stream_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  anyhit_stream_kernel<<<grid, kSlices * tr, smem, (cudaStream_t)stream>>>(
+      (const int*)words, (const int*)counts, k_cap, tr, (const float4*)o4, (const float4*)d4,
+      (const float*)tmax, (const float4*)w, n_cl, c, (const long long*)order, (const int*)ends,
+      n_ranks, (int*)next_seg, (uint8_t*)occ);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

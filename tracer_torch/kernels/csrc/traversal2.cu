@@ -47,13 +47,13 @@
 // card has drained. So its unit of work is a segment, kSeg consecutive words
 // of one tile (the table of kernels/traversal2.py anyhit_segments: every
 // tile's first segment, then every second one, heaviest tile first), and a
-// fixed grid of persistent blocks pulls segments from a device counter. A
-// block is kSlices * TR threads: kSlices threads serve one ray, each testing
-// every kSlices-th triangle of a staged cluster, kGroup tests at a time
-// without a branch between them. A segment starts from the tile's occlusion
-// flags as they stand in device memory (possibly stale; flags are only ever
-// set, so a stale read costs work, never a result) and sets the flags of the
-// rays it occludes.
+// fixed grid of persistent blocks pulls segments from a device counter
+// (claim_segment, common.cuh). A block is kSlices * TR threads: kSlices
+// threads serve one ray, each testing every kSlices-th triangle of a staged
+// cluster, kGroup tests at a time without a branch between them. A segment
+// starts from the tile's occlusion flags as they stand in device memory
+// (possibly stale; flags are only ever set, so a stale read costs work, never
+// a result) and sets the flags of the rays it occludes.
 #include "common.cuh"
 
 namespace {
@@ -175,35 +175,34 @@ __global__ void closest_fast_kernel(const int* __restrict__ words, const int* __
 
 // Occlusion: a ray is occluded iff some candidate triangle has t in
 // (kTMin, t_max[ray]); occ_out holds zeros at launch and a ray's flag is set
-// by whichever segment finds it a hit. The block pulls segments (seg_tile,
-// seg_k0) until the counter passes *n_seg_p. Thread tid serves ray tid % tr
-// with the triangles lane % kSlices == tid / tr of each staged cluster. A
-// segment stops once the next word's entry bits reach the max t_max of the
-// tile's rays still unoccluded (0 once all are), which it may do at once.
+// by whichever segment finds it a hit. The block pulls segments of the table
+// (order, ends) until the counter has passed them all. Thread tid serves ray
+// tid % tr with the triangles lane % kSlices == tid / tr of each staged
+// cluster. A segment stops once the next word's entry bits reach the max
+// t_max of the tile's rays still unoccluded (0 once all are), which it may do
+// at once.
 __global__ void anyhit_kernel(const int* __restrict__ words, const int* __restrict__ counts,
                               int k_cap, int tr, const float4* __restrict__ o4,
                               const float4* __restrict__ d4, const float* __restrict__ tmax,
                               const float* __restrict__ w, int n_cl, int c,
-                              const long long* __restrict__ seg_tile,
-                              const int* __restrict__ seg_k0, const int* __restrict__ n_seg_p,
-                              int* next_seg, uint8_t* occ_out) {
+                              const long long* __restrict__ order,
+                              const int* __restrict__ ends, int n_ranks, int* next_seg,
+                              uint8_t* occ_out) {
   extern __shared__ float4 s_w[];
   __shared__ int s_red[32];
-  __shared__ int s_seg;
+  __shared__ int s_claim[3];
   __shared__ uint8_t s_occ[kMaxRays];
   const int r = threadIdx.x % tr;
   const int slice = threadIdx.x / tr;
-  const int n_seg = *n_seg_p;
+  int rank = 0;  // thread 0's cursor into ends
   for (;;) {
-    if (threadIdx.x == 0) s_seg = atomicAdd(next_seg, 1);
+    if (threadIdx.x == 0) claim_segment(s_claim, next_seg, rank, order, ends, n_ranks, counts);
     __syncthreads();
-    const int seg = s_seg;  // rewritten only after the barriers of block_max below
-    if (seg >= n_seg) break;  // block-uniform
-    const int tile = (int)seg_tile[seg];
-    const int k0 = seg_k0[seg];
-    const int k1 = min(k0 + kSeg, counts[tile]);
-    const int* wt = words + (size_t)tile * k_cap;
-    const size_t ray = (size_t)tile * tr + r;
+    const Segment seg = read_segment(s_claim);  // claimed into again only after block_max below
+    if (seg.tile < 0) break;                    // block-uniform
+    const int k1 = seg.k1;
+    const int* wt = words + (size_t)seg.tile * k_cap;
+    const size_t ray = (size_t)seg.tile * tr + r;
     const float4 o = o4[ray], d = d4[ray];
     const float tm = tmax[ray];
     bool occ = ((const volatile uint8_t*)occ_out)[ray] != 0;
@@ -213,7 +212,7 @@ __global__ void anyhit_kernel(const int* __restrict__ words, const int* __restri
     // The barriers of block_max publish s_occ, and order the last segment's
     // reads of the stage before this one's writes.
     int bound = block_max(open_bits(occ, tm), s_red);
-    for (int k = k0; k < k1; k += kBatch) {
+    for (int k = seg.k0; k < k1; k += kBatch) {
       if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform; all occluded -> bound 0
       const int n_live = min(kBatch, k1 - k);
       stage_clusters(s_w, w, wt, k, n_live, k_cap, n_cl, c);
@@ -275,20 +274,21 @@ int tt_closest_fast(const void* words, const void* counts, int n_tiles, int k_ca
   return (int)cudaGetLastError();
 }
 
-// grid persistent blocks of kSlices * tr threads; seg_tile (int64), seg_k0 and
-// *n_seg are the segment table, *next_seg is 0 and occ holds zeros at launch.
+// grid persistent blocks of kSlices * tr threads; order (int64) and the n_ranks
+// entries of ends are the segment table, *next_seg is 0 and occ holds zeros at
+// launch.
 int tt_anyhit(const void* words, const void* counts, int k_cap, int tr, const void* o4,
               const void* d4, const void* tmax, const void* w, int n_cl, int c,
-              const void* seg_tile, const void* seg_k0, const void* n_seg, void* next_seg,
-              int grid, void* occ, void* stream) {
+              const void* order, const void* ends, int n_ranks, void* next_seg, int grid,
+              void* occ, void* stream) {
   if (tr > kMaxRays) return (int)cudaErrorInvalidValue;
   const size_t smem = stage_bytes(kBatch, c);
   cudaError_t e = launch_prep(anyhit_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   anyhit_kernel<<<grid, kSlices * tr, smem, (cudaStream_t)stream>>>(
       (const int*)words, (const int*)counts, k_cap, tr, (const float4*)o4, (const float4*)d4,
-      (const float*)tmax, (const float*)w, n_cl, c, (const long long*)seg_tile, (const int*)seg_k0,
-      (const int*)n_seg, (int*)next_seg, (uint8_t*)occ);
+      (const float*)tmax, (const float*)w, n_cl, c, (const long long*)order, (const int*)ends,
+      n_ranks, (int*)next_seg, (uint8_t*)occ);
   return (int)cudaGetLastError();
 }
 

@@ -27,20 +27,14 @@ from tracer_torch.bvh.cull import cull_clusters_sorted2
 from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels.traversal import _homog, tile_rays, tiled_tmax, untile
 from tracer_torch.kernels.traversal2 import (
-    _check_cuda, _closest_out, _count_sort, _launch, _launch_anyhit, anyhit_plain,
-    closest_hit_plain, recover_hit)
+    _check_cuda, _closest_out, _launch, _launch_anyhit, anyhit_plain, closest_hit_plain,
+    recover_hit)
 
 # Ring stages of cluster blocks in flight per tile (kNBuf of csrc/stream.cu).
 NBUF = 4
 # Candidate clusters per step (kBatch of csrc/stream.cu, which builds the
 # kernels for this B only).
 STREAM_BATCH = 2
-
-# The entry points of anyhit_stream_kernel: its ring filled by one bulk copy
-# (TMA) a cluster, or by every thread's cp.async copies. The first is the one
-# the tier runs; the other is kept for the comparison of the two.
-ANYHIT_ENTRIES = ("st_anyhit_bulk", "st_anyhit_cp_async")
-ANYHIT_ENTRY = ANYHIT_ENTRIES[0]
 
 closest_stream_plain = functools.partial(closest_hit_plain, batch=STREAM_BATCH)
 anyhit_stream_plain = functools.partial(anyhit_plain, batch=STREAM_BATCH)
@@ -69,20 +63,14 @@ def closest_stream(o4, d4, w, words, counts):
     return bt, bid
 
 
-def _anyhit_stream_cuda(entry: str, o4, d4, tmax, w, words, counts):
-    """One launch of anyhit_stream_kernel on CUDA tensors through the entry
-    point `entry` of ANYHIT_ENTRIES, or raises."""
-    _check_cuda(o4, d4, w, words, counts, (tmax, torch.float32))
-    _check_stream(w)
-    return _launch_anyhit("anyhit_stream", entry, o4, d4, tmax, w, words, counts)
-
-
 def anyhit_stream(o4, d4, tmax, w, words, counts):
     """anyhit_stream_plain on CPU tensors; the CUDA kernel
     anyhit_stream_kernel on CUDA tensors."""
     if o4.device.type == "cpu":
         return anyhit_stream_plain(o4, d4, tmax, w, words, counts)
-    return _anyhit_stream_cuda(ANYHIT_ENTRY, o4, d4, tmax, w, words, counts)
+    _check_cuda(o4, d4, w, words, counts, (tmax, torch.float32))
+    _check_stream(w)
+    return _launch_anyhit("anyhit_stream", "st_anyhit", o4, d4, tmax, w, words, counts)
 
 
 def trace_tiles_streamed(o_t, d_t, accel, words, counts):
@@ -93,16 +81,14 @@ def trace_tiles_streamed(o_t, d_t, accel, words, counts):
 
 
 def any_hit_tiles_streamed(o_t, d_t, t_max_t, accel, words, counts):
-    """Occlusion over count-sorted tiles -> (Nt, TR) bool. Padding and dead
-    rays (d == 0) get t_max = 0 so they cannot raise a tile's early-out
-    bound (they never hit: den == 0); the heaviest tiles launch first."""
+    """Occlusion over every tile in its own order -> (Nt, TR) bool. Padding
+    and dead rays (d == 0) get t_max = 0 so they cannot raise a tile's
+    early-out bound (they never hit: den == 0); the kernel's segment table
+    puts the heaviest tiles first."""
     valid = (d_t != 0.0).any(-1)
     tmax = torch.where(valid, t_max_t, 0.0)
-    order, inv = _count_sort(counts)
-    o4, d4 = _homog(o_t[order], d_t[order])
-    occ = anyhit_stream(o4, d4, tmax[order].contiguous(), accel.tri_w,
-                        words[order].contiguous(), counts[order].contiguous())
-    return occ[inv]
+    o4, d4 = _homog(o_t, d_t)
+    return anyhit_stream(o4, d4, tmax, accel.tri_w, words.contiguous(), counts.contiguous())
 
 
 def make_streamed_tracers_aux(scene, accel, tr: int = 64):

@@ -17,12 +17,13 @@ Each of the three kernels of the pass has three pieces here:
   * a launch counter, LAUNCHES[name] (kernels/_launch.py), raised by one per
     kernel launch.
 
-The drivers trace_tiles_split and any_hit_tiles_graded sort tiles by
-candidate count and set the partition points at run time from the counts
-(P = tiles with count > 1, Z = tiles with count > 0), so every tile lands in
-a region that is exact for it. The reference's static partitions, and the
-excess they could leave, are computed with the reference's formulas and are
-0 by construction. recover_hit maps a selected slot back to a full Hit.
+trace_tiles_split sorts tiles by candidate count and sets the partition
+points at run time from the counts (P = tiles with count > 1, Z = tiles
+with count > 0), so every tile lands in a region that is exact for it;
+any_hit_tiles_graded hands every tile to the one any-hit launch, whose
+segment table does the sorting. The reference's static partitions could
+leave an excess; here it is 0 by construction. recover_hit maps a selected
+slot back to a full Hit.
 """
 from __future__ import annotations
 
@@ -50,7 +51,10 @@ FAST_BATCH = 1
 # words of one tile, and SLICES threads serve one ray of it, each with its
 # share of a cluster's triangles (kSeg, kSlices of csrc/common.cuh): a block
 # is SLICES * TR threads, 256 for a tile of 64 rays. Their grid is
-# BLOCKS_PER_SM persistent blocks for every SM of the card.
+# BLOCKS_PER_SM persistent blocks for every SM of the card, 32 of the 64
+# warps an SM holds. Of anyhit_stream_kernel, at 80 registers a thread, three
+# blocks fit at a time; its fourth starts when the counter has run out and
+# ends at once.
 SEG = 8
 SLICES = 4
 BLOCKS_PER_SM = 4
@@ -161,37 +165,24 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
     return occ
 
 
-def anyhit_segments(counts, seg: int = SEG, k_cap: int | None = None):
+def anyhit_segments(counts, seg: int, k_cap: int):
     """The any-hit kernels' work list: every tile's candidate run cut into
-    segments of `seg` words. counts (Nt,) i32 -> (seg_tile (Nt*R,) i64,
-    seg_k0 (Nt*R,) i32, n_seg (1,) i32) with R = ceil(k_cap / seg): entry
-    i < n_seg is the words seg_k0[i] .. min(seg_k0[i] + seg, counts[tile]) - 1
-    of tile seg_tile[i]; the entries from n_seg on are padding. Order: every
-    tile's first segment, then every second one, and so on (the front-most
-    clusters occlude the most rays, so a later segment finds more of its
-    rays already occluded); within a rank the heaviest tile first.
-
-    k_cap is an upper bound of the counts known on the host (the width of
-    the word lists), so that nothing here waits for the device; without it
-    the largest count is read back."""
-    if k_cap is None:
-        k_cap = int(counts.max()) if counts.numel() else 0
-    n_tiles, dev = counts.shape[0], counts.device
-    ranks = -(-k_cap // seg)
-    if not n_tiles * ranks:
-        empty = torch.zeros(0, dtype=torch.int64, device=dev)
-        return empty, empty.int(), torch.zeros(1, dtype=torch.int32, device=dev)
-    order = torch.argsort(counts, descending=True, stable=True)
-    k0 = torch.arange(0, ranks * seg, seg, dtype=torch.int32, device=dev)
-    # A rank's tiles are a prefix of the count-sorted order: rank r holds the
-    # per_rank[r] heaviest tiles, as entries starts[r] .. ends[r]-1.
-    per_rank = (counts[None, :] > k0[:, None]).sum(1, dtype=torch.int32)
-    ends = per_rank.cumsum(0, dtype=torch.int32)
-    starts = ends - per_rank
-    i = torch.arange(n_tiles * ranks, dtype=torch.int32, device=dev)
-    rank = torch.searchsorted(ends[:-1], i, right=True)
-    within = (i - starts[rank]).clamp_max(n_tiles - 1)      # the clamp serves the padding
-    return order[within], k0[rank], ends[-1:]
+    segments of `seg` words. counts (Nt,) i32, none above k_cap (the width
+    of the word lists, known on the host, so nothing here waits for the
+    device) -> (order (Nt,) i64, ends (R,) i32) with R = ceil(k_cap / seg)
+    ranks. order holds the tiles by descending count (stable), ends[r] the
+    number of segments of the ranks 0 .. r. Order of the segments: every
+    tile's first one (rank 0), then every second one, and so on (the
+    front-most clusters occlude the most rays, so a later segment finds more
+    of its rays already occluded); within a rank the heaviest tile first.
+    The tiles of a rank are a prefix of `order`, so segment s with
+    ends[r-1] <= s < ends[r] (ends[-1] read as 0) is the words r*seg ..
+    min((r+1)*seg, counts[tile]) - 1 of tile order[s - ends[r-1]], and
+    ends[R-1] is the number of segments."""
+    sorted_counts, order = torch.sort(counts, descending=True, stable=True)
+    k0 = torch.arange(0, k_cap, seg, dtype=counts.dtype, device=counts.device)
+    per_rank = torch.searchsorted(-sorted_counts, -k0)      # tiles with count > k0
+    return order, per_rank.cumsum(0, dtype=torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -247,12 +238,11 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _launch_anyhit(name: str, entry: str, o4, d4, tmax, w, words, counts, table=None):
+def _launch_anyhit(name: str, entry: str, o4, d4, tmax, w, words, counts):
     """One launch of a segmented any-hit kernel (anyhit_kernel or
     anyhit_stream_kernel) over checked CUDA tensors -> occ (Nt, TR) bool.
     The kernel only ever sets flags, so occ starts as zeros; the segment
-    table (`table`, or anyhit_segments of the counts) and the segment
-    counter are its scratch."""
+    table (anyhit_segments) and the segment counter are its scratch."""
     n_tiles, tr = o4.shape[:2]
     if tmax.shape != (n_tiles, tr):
         raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
@@ -262,10 +252,10 @@ def _launch_anyhit(name: str, entry: str, o4, d4, tmax, w, words, counts, table=
     dev = o4.device
     occ = torch.zeros((n_tiles, tr), dtype=torch.uint8, device=dev)
     if n_tiles:
-        seg_tile, seg_k0, n_seg = table or anyhit_segments(counts, SEG, words.shape[1])
+        order, ends = anyhit_segments(counts, SEG, words.shape[1])
         next_seg = torch.zeros(1, dtype=torch.int32, device=dev)
         _launch(name, entry, dev, words, counts, words.shape[1], tr, o4, d4, tmax, w,
-                w.shape[0], w.shape[2] // 3, seg_tile, seg_k0, n_seg, next_seg,
+                w.shape[0], w.shape[2] // 3, order, ends, ends.shape[0], next_seg,
                 _sm_count(dev.index) * BLOCKS_PER_SM, occ)
     return occ.bool()
 
@@ -327,31 +317,24 @@ def trace_tiles_split(o_t, d_t, accel, words, counts):
 
 
 def any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts):
-    """Occlusion over count-sorted tiles: ONE any-hit launch over the Z
-    tiles with count > 0, zero-count tiles unoccluded. (The reference
+    """Occlusion of every tile in ONE any-hit launch; a tile with count 0
+    has no segment and stays unoccluded. (The reference sorts the tiles and
     grades the kernel region into B=4 and B=1 parts because its lockstep
-    groups of 8 tiles step to the group's max count; a block here steps to
-    its own tile's count.) Padding rays (d == 0) get t_max = 0 so they
-    cannot raise a tile's early-out bound.
+    groups of 8 tiles step to the group's max count; the kernel here works
+    through segments, heaviest tiles first, in whatever order the tiles
+    lie.) Padding rays (d == 0) get t_max = 0 so they cannot raise a tile's
+    early-out bound.
 
     Returns (occ (Nt, TR) bool, excess, (need_b1, need_zero)) with need_b1
-    = #tiles with count > 1 and need_zero = Z."""
-    n_tiles, tr, _ = o_t.shape
+    = #tiles with count > 1, need_zero = #tiles with count > 0, and excess
+    0: no tile lies outside a region that is exact for it."""
     valid = (d_t != 0.0).any(-1)
     tmax = torch.where(valid, t_max_t, 0.0)
-    order, inv = _count_sort(counts)
-    o4, d4 = _homog(o_t[order], d_t[order])
-    tmax_s = tmax[order].contiguous()
-    words_s = words[order].contiguous()
-    counts_s = counts[order].contiguous()
-    need_b1, Z = (int(x) for x in torch.stack(
+    o4, d4 = _homog(o_t, d_t)
+    need = tuple(int(x) for x in torch.stack(
         [(counts > 1).sum(), (counts > 0).sum()]).tolist())
-    excess = (counts_s[Z:] > 0).sum()
-    occ_s = torch.zeros((n_tiles, tr), dtype=torch.bool, device=o_t.device)
-    if Z > 0:
-        occ_s[:Z] = anyhit(o4[:Z], d4[:Z], tmax_s[:Z], accel.tri_w, words_s[:Z],
-                           counts_s[:Z])
-    return occ_s[inv], excess, (need_b1, Z)
+    occ = anyhit(o4, d4, tmax, accel.tri_w, words.contiguous(), counts.contiguous())
+    return occ, torch.zeros((), dtype=torch.int64, device=o_t.device), need
 
 
 def recover_hit(scene, ray: Ray, bt, gid, accel, t_min=T_MIN) -> Hit:
