@@ -96,7 +96,7 @@ from tracer_torch.bvh.cull import (  # noqa: E402
 from tracer_torch.core.camera import generate_rays  # noqa: E402
 from tracer_torch.core.types import T_FAR  # noqa: E402
 from tracer_torch.kernels import (  # noqa: E402
-    _build, stream as st, traversal as t1, traversal2 as t2, traversal3 as t3)
+    _build, _launch, stream as st, traversal as t1, traversal2 as t2, traversal3 as t3)
 from tracer_torch.kernels.traversal import (  # noqa: E402
     _homog, generate_rays_tiled, tile_rays, tiled_tmax)
 from tracer_torch.render import tiled, whitted  # noqa: E402
@@ -341,33 +341,63 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def tail_report(name, kernel, args, results):
-    """What is left of the tail of long candidate lists in a segmented
-    any-hit kernel: args (tiles by descending count) cut into how many
-    segments, and the kernel's own device time on all of them, on the
-    heaviest tile alone and on the selection without its 256 heaviest
-    tiles. The wrapper builds the segment table at every call, in eager
-    PyTorch, so the kernel's own time is the wrapper's device time less the
-    table's (device_ms of each: what is left holds the kernel and the fills
-    of its flags and its counter)."""
-    counts = args[5]
-    cut = lambda a, b: tuple(x if x is args[3] else x[a:b].contiguous() for x in args)
-    heavy, rest = cut(0, 1), cut(256, None)
-    check(rest[0].shape[0] > 0, f"{name}: the selection holds no tile past the 256 heaviest")
-    table = lambda a: t2.anyhit_segments(a[5], t2.SEG, a[4].shape[1])
-    n_seg, seg_heavy, seg_rest = (int(table(a)[1][-1]) for a in (args, heavy, rest))
-    table_ms = [device_ms(lambda: table(a), 10) for a in (args, heavy, rest)]
-    wrap_ms = [device_ms(lambda: kernel(*a), 10) for a in (args, heavy, rest)]
+def tail_report(name, results, geometry, counts, call, table):
+    """What is left of the tail of long candidate runs in a segmented
+    kernel, on a selection of tiles by descending count (`counts`): how many
+    segments its work is cut into, and the kernel's own device time on all
+    of the selection, on the heaviest tile alone and on the selection
+    without its 256 heaviest tiles. call(a, b) and table(a, b) give a
+    function that runs the wrapper, and one that builds its segment table,
+    on tiles a:b of the selection. The wrapper builds the table at every
+    call, in eager PyTorch, so the kernel's own time is the wrapper's device
+    time less the table's (device_ms of each: what is left holds the kernel
+    and the fills of its scratch). Returns the kernel's own ms on all."""
+    parts = ((0, None), (0, 1), (256, None))
+    check(counts.shape[0] > 256, f"{name}: the selection holds no tile past the 256 heaviest")
+    n_seg, seg_heavy, seg_rest = (int(table(a, b)()[1][-1]) for a, b in parts)
+    table_ms = [device_ms(table(a, b), 10) for a, b in parts]
+    wrap_ms = [device_ms(call(a, b), 10) for a, b in parts]
     ms_all, ms_heavy, ms_rest = (w - t for w, t in zip(wrap_ms, table_ms))
-    log(f"[kernels] {name}: {n_seg} segments of {t2.SEG} words, {t2.SLICES} threads a ray, "
-        f"{t2.BLOCKS_PER_SM} blocks an SM; the wrapper takes {results[name]['ms']:.4f} ms a call "
+    log(f"[kernels] {name}: {n_seg} segments, {geometry}; the wrapper takes "
+        f"{results[name]['ms']:.4f} ms a call "
         f"with the host's gaps, {wrap_ms[0]:.4f} ms of device time without them, of which the "
         f"segment table {table_ms[0]:.4f} ms and the kernel alone {ms_all:.4f} ms; kernel "
         f"alone on the heaviest tile (count {int(counts[0])}, {seg_heavy} segments) "
         f"{ms_heavy:.4f} ms (wrapper {wrap_ms[1]:.4f} less table {table_ms[1]:.4f}); without "
-        f"the 256 heaviest tiles ({rest[0].shape[0]} tiles, count max {int(rest[5].max())}, "
+        f"the 256 heaviest tiles ({counts.shape[0] - 256} tiles, count max {int(counts[256])}, "
         f"{seg_rest} segments) {ms_rest:.4f} ms (wrapper {wrap_ms[2]:.4f} less table "
         f"{table_ms[2]:.4f})")
+    return ms_all
+
+
+def sorted_tail_report(name, kernel, args, results):
+    """tail_report of a sorted any-hit kernel on args = (o4, d4, tmax, w,
+    words, counts), tiles by descending count."""
+    def cut(a, b):
+        return tuple(x if x is args[3] else x[a:b].contiguous() for x in args)
+
+    def call(a, b):
+        part = cut(a, b)
+        return lambda: kernel(*part)
+
+    def table(a, b):
+        part = cut(a, b)
+        return lambda: _launch.run_segments(part[5], t2.SEG, part[4].shape[1])
+
+    tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES} threads a ray, "
+                f"{t2.BLOCKS_PER_SM} blocks an SM", args[5], call, table)
+
+
+def clock_under_load(fn, ms: float) -> int:
+    """The SM clock in MHz that nvidia-smi reports while the card runs fn
+    back to back: some 0.5 s of calls (ms each) are enqueued, the query runs
+    beside them."""
+    for _ in range(max(1, int(500.0 / max(ms, 1e-3)))):
+        fn()
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True).stdout
+    torch.cuda.synchronize()
+    return int(out.split()[0])
 
 
 def anyhit_args(accel, so, sd, tmax, words, counts):
@@ -411,7 +441,7 @@ def phase_kernels(results: dict, cfg, dev):
         check(int(excess2) == 0, "shadow cull dropped candidates")
         args = anyhit_args(accel, so, sd, tmax, words2, counts2)
         compare_anyhit("anyhit", t2.anyhit, t2.anyhit_plain, args, results)
-        tail_report("anyhit", t2.anyhit, args, results)
+        sorted_tail_report("anyhit", t2.anyhit, args, results)
 
 
 def phase_pod_scene(cfg, dev="cuda"):
@@ -462,7 +492,7 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
             f"S {need2[1]}; {far} tiles hold a ray with t_max > 1e29 (a missed receiver)")
         args = anyhit_args(accel, so, sd, tm, words2, counts2)
         compare_anyhit("anyhit_stream", st.anyhit_stream, st.anyhit_stream_plain, args, results)
-        tail_report("anyhit_stream", st.anyhit_stream, args, results)
+        sorted_tail_report("anyhit_stream", st.anyhit_stream, args, results)
 
 
 def first_shadow_rays(scene, cfg, rays, trace_fn, tr):
@@ -475,41 +505,62 @@ def first_shadow_rays(scene, cfg, rays, trace_fn, tr):
     return so, sd, tiled_tmax(t_max, sray, so, tr)
 
 
-def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
-    """One work-list kernel against its plain version on the selected
-    tiles: closest hit when tmax_t is None, else any-hit."""
-    sel = select_tiles(counts)
-    if tmax_t is not None:
-        sel = sel[counts[sel] > 0]
-    check(sel.numel() > 0, "work-list comparison: the selection holds no tile")
+def worklist_case(accel, o_t, d_t, tmax_t, cand, counts, sel):
+    """A work-list wrapper's arguments on tiles `sel` (closest hit when
+    tmax_t is None, else any-hit) -> (run_k, run_p, clusters, tm): the kernel
+    and its plain version as functions that return a tuple of outputs, the
+    flat list of the tiles' runs, and their t_max (None for closest hit)."""
     offs, clusters = t1.tile_runs(cand[sel], counts[sel])
     o4, d4 = _homog(o_t[sel], d_t[sel])
-    w, ids = accel.tri_w, accel.tri_ids
-    tr, c = o4.shape[1], ids.shape[1]
+    w, ids, k_cap = accel.tri_w, accel.tri_ids, cand.shape[1]
     if tmax_t is None:
-        name = "worklist_closest"
-        run_k = lambda: t1.worklist_closest(o4, d4, w, ids, offs, clusters)
-        run_p = lambda: t1.worklist_closest_plain(o4, d4, w, ids, offs, clusters)
-        out_k, out_p = run_k(), run_p()
-        torch.cuda.synchronize()
-        bad = [int((float_bits(k) != float_bits(q)).sum()) for k, q in zip(out_k, out_p)]
+        return (lambda: t1.worklist_closest(o4, d4, w, ids, offs, clusters, k_cap),
+                lambda: t1.worklist_closest_plain(o4, d4, w, ids, offs, clusters), clusters, None)
+    tm = tmax_t[sel].contiguous()
+    return (lambda: (t1.worklist_anyhit(o4, d4, tm, w, offs, clusters, k_cap),),
+            lambda: (t1.worklist_anyhit_plain(o4, d4, tm, w, offs, clusters),), clusters, tm)
+
+
+def bit_mismatches(out_a, out_b):
+    """Elements whose bits differ, per output of two tuples of outputs."""
+    return [int((float_bits(x) != float_bits(y)).sum()) if x.dtype.is_floating_point
+            else int((x != y).sum()) for x, y in zip(out_a, out_b)]
+
+
+def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
+    """One work-list kernel against its plain version: closest hit when
+    tmax_t is None, else any-hit. On the selected tiles: outputs bit for
+    bit, times, the bound, the tail report and the achieved tests a second
+    beside the card's issue rate; for closest hit three runs whose outputs
+    must be bit-identical (its blocks merge by atomics, in an order that
+    varies). Then once on every tile of the pass, untimed."""
+    closest = tmax_t is None
+    name = "worklist_closest" if closest else "worklist_anyhit"
+    sel = select_tiles(counts)
+    if not closest:
+        sel = sel[counts[sel] > 0]
+    check(sel.numel() > 0, "work-list comparison: the selection holds no tile")
+    case = lambda idx: worklist_case(accel, o_t, d_t, tmax_t, cand, counts, idx)
+    run_k, run_p, clusters, tm = case(sel)
+    tr, c = o_t.shape[1], accel.tri_ids.shape[1]
+    out_k, out_p = run_k(), run_p()
+    torch.cuda.synchronize()
+    bad = bit_mismatches(out_k, out_p)
+    if closest:
         err = max(float((out_k[i] - out_p[i]).abs().max()) for i in (0, 2, 3))
+        again = sum(sum(bit_mismatches(out_k, run_k())) for _ in range(2))
         what = (f"bit mismatches bt {bad[0]}, btri {bad[1]}, bu {bad[2]}, bv {bad[3]}, "
-                f"max |d| {err:.3g}")
+                f"max |d| {err:.3g}; elements that differ between three runs: {again}")
+        bad.append(again)
         # No early-out: every item, every ray. Inputs o4, d4 (32 B a ray),
         # outputs bt, btri, bu, bv (16 B a ray); a cluster is its matrix plus
         # its C triangle ids.
-        bnd = bound(clusters.numel() * tr * c * FLOPS_FIELD, sel.numel(), tr, clusters.numel(),
+        n_tests = clusters.numel() * tr * c
+        bnd = bound(n_tests * FLOPS_FIELD, sel.numel(), tr, clusters.numel(),
                     torch.unique(clusters).numel() * 52 * c, 32, 16)
         tests = f"{clusters.numel()} cluster tests x {tr} x {c} x {FLOPS_FIELD}"
     else:
-        name = "worklist_anyhit"
-        tm = tmax_t[sel].contiguous()
-        run_k = lambda: t1.worklist_anyhit(o4, d4, tm, w, offs, clusters)
-        run_p = lambda: t1.worklist_anyhit_plain(o4, d4, tm, w, offs, clusters)
-        occ_k, occ_p = run_k(), run_p()
-        torch.cuda.synchronize()
-        bad = [int((occ_k != occ_p).sum())]
+        occ_k = out_k[0]
         err = float(bad[0] > 0)
         what = f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad[0]}"
         # Per ray, in an unsorted list: a ray left unoccluded needs every
@@ -527,7 +578,30 @@ def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
     report(name, results, sel.numel(), f"{count_stats(counts[sel])}: {what}", ms, plain_ms,
            err, bnd, tests)
     if any(bad):
-        raise SystemExit(f"{name}: kernel disagrees with its plain version")
+        raise SystemExit(f"{name}: kernel disagrees with its plain version, or with itself")
+
+    k_cap = cand.shape[1]
+    table = lambda a, b: (lambda n=counts[sel[a:b]].contiguous():
+                          _launch.run_segments(n, t1.SEG_WL, k_cap))
+    alone = tail_report(name, results, f"of {t1.SEG_WL} items, {t1.RAYS_WL} rays a thread, "
+                        f"{t1.BLOCKS_PER_SM_WL} blocks an SM", counts[sel],
+                        lambda a, b: case(sel[a:b])[0], table)
+    mhz = clock_under_load(run_k, ms)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[kernels] {name}: {n_tests} tests in {alone:.4f} ms of the kernel alone, "
+        f"{n_tests / alone / 1e6:.1f} G tests/s; the card issues {sms} SMs x 128 lanes x "
+        f"{mhz} MHz (nvidia-smi, under this load) = {sms * 128 * mhz / 1e6:.2f} T "
+        f"instructions/s, {sms * 128 * mhz * alone / 1e3 / n_tests:.1f} issue slots a test")
+
+    t0 = time.perf_counter()
+    every = torch.argsort(-counts, stable=True)   # by count, so the plain version's chunks are even
+    run_k, run_p, clusters, _ = case(every)
+    bad = bit_mismatches(run_k(), run_p())
+    torch.cuda.synchronize()
+    log(f"[kernels] {name} on every tile of the pass ({every.numel()} tiles, "
+        f"{clusters.numel()} items), untimed: bit mismatches {bad} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check(not any(bad), f"{name}: kernel disagrees with its plain version on the whole pass")
 
 
 def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
@@ -611,43 +685,53 @@ def phase_bench_scene(cfg, dev="cuda"):
     return scene, camera, accel
 
 
+def worklist_kernels(results: dict, cfg, scene, accel, rays):
+    """The two work-list kernels vs their plain versions at the frame's own
+    shapes, tiles of 256 rays in order: the primary rays, and the first
+    light's shadow rays from the tier's own primary hits."""
+    o_t, d_t, tiling = tile_rays(rays.o, rays.d, t1.DEFAULT_TILE)
+    check(tiling.tile_hw is None, "1080 rows do not fold into 16x16 tiles")
+    cand, counts, excess = cull_clusters(accel, o_t, d_t, T_FAR)
+    check(int(excess) == 0, "work-list primary cull dropped candidates")
+    log(f"[wavefront] work-list primary cull: {o_t.shape[0]} in-order tiles of "
+        f"{o_t.shape[1]}, {count_stats(counts)}, total {int(counts.sum())}")
+    compare_worklist(results, accel, o_t, d_t, None, cand, counts)
+    trace_fn, _ = t1.make_accel_tracers(scene, accel, use_pallas=True)
+    so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, t1.DEFAULT_TILE)
+    cand, counts, excess = cull_clusters(accel, so, sd, tm)
+    check(int(excess) == 0, "work-list shadow cull dropped candidates")
+    log(f"[wavefront] work-list shadow cull (light 0): {so.shape[0]} tiles, "
+        f"{count_stats(counts)}, total {int(counts.sum())}")
+    compare_worklist(results, accel, so, sd, tm, cand, counts)
+
+
+def pair_kernels(results: dict, cfg, scene, accel, rays):
+    """The two pair kernels vs their plain versions at the frame's own
+    shapes, 8x8 tiles, as worklist_kernels; then the two shadow-ray any-hit
+    kernels against each other (compare_shadow_lists)."""
+    o_t, d_t, _ = tile_rays(rays.o, rays.d, 64)
+    words, counts, excess = cull_clusters_sorted(accel, o_t, d_t, T_FAR)
+    check(int(excess) == 0, "pair primary cull dropped candidates")
+    log(f"[wavefront] pair primary cull: {o_t.shape[0]} tiles of 64, {count_stats(counts)}, "
+        f"total {int(counts.sum())}")
+    compare_pairs(results, accel, o_t, d_t, None, words, counts)
+    trace_fn, _ = t3.make_pair_tracers(scene, accel)
+    so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, 64)
+    words, counts, excess = cull_clusters_sorted(accel, so, sd, tm)
+    check(int(excess) == 0, "pair shadow cull dropped candidates")
+    log(f"[wavefront] pair shadow cull (light 0): {so.shape[0]} tiles, "
+        f"{count_stats(counts)}, total {int(counts.sum())}")
+    compare_pairs(results, accel, so, sd, tm, words, counts)
+    compare_shadow_lists(accel, so, sd, tm, words, counts)
+
+
 def phase_wavefront_kernels(results: dict, cfg, scene, camera, accel):
     """The four kernels of the work-list and pair tiers vs their plain
-    versions at the frame's own shapes: the primary rays, and the first
-    light's shadow rays from each tier's own primary hits."""
+    versions at the frame's own shapes."""
     with torch.inference_mode():
         rays = generate_rays(camera, cfg.height, cfg.width)
-
-        o_t, d_t, tiling = tile_rays(rays.o, rays.d, t1.DEFAULT_TILE)
-        check(tiling.tile_hw is None, "1080 rows do not fold into 16x16 tiles")
-        cand, counts, excess = cull_clusters(accel, o_t, d_t, T_FAR)
-        check(int(excess) == 0, "work-list primary cull dropped candidates")
-        log(f"[wavefront] work-list primary cull: {o_t.shape[0]} in-order tiles of "
-            f"{o_t.shape[1]}, {count_stats(counts)}, total {int(counts.sum())}")
-        compare_worklist(results, accel, o_t, d_t, None, cand, counts)
-        trace_fn, _ = t1.make_accel_tracers(scene, accel, use_pallas=True)
-        so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, t1.DEFAULT_TILE)
-        cand, counts, excess = cull_clusters(accel, so, sd, tm)
-        check(int(excess) == 0, "work-list shadow cull dropped candidates")
-        log(f"[wavefront] work-list shadow cull (light 0): {so.shape[0]} tiles, "
-            f"{count_stats(counts)}, total {int(counts.sum())}")
-        compare_worklist(results, accel, so, sd, tm, cand, counts)
-        del cand
-
-        o_t, d_t, _ = tile_rays(rays.o, rays.d, 64)
-        words, counts, excess = cull_clusters_sorted(accel, o_t, d_t, T_FAR)
-        check(int(excess) == 0, "pair primary cull dropped candidates")
-        log(f"[wavefront] pair primary cull: {o_t.shape[0]} tiles of 64, {count_stats(counts)}, "
-            f"total {int(counts.sum())}")
-        compare_pairs(results, accel, o_t, d_t, None, words, counts)
-        trace_fn, _ = t3.make_pair_tracers(scene, accel)
-        so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, 64)
-        words, counts, excess = cull_clusters_sorted(accel, so, sd, tm)
-        check(int(excess) == 0, "pair shadow cull dropped candidates")
-        log(f"[wavefront] pair shadow cull (light 0): {so.shape[0]} tiles, "
-            f"{count_stats(counts)}, total {int(counts.sum())}")
-        compare_pairs(results, accel, so, sd, tm, words, counts)
-        compare_shadow_lists(accel, so, sd, tm, words, counts)
+        worklist_kernels(results, cfg, scene, accel, rays)
+        pair_kernels(results, cfg, scene, accel, rays)
 
 
 def compare_shadow_lists(accel, so, sd, tm, words, counts):

@@ -40,8 +40,13 @@ _SIGNATURES = {
     "tt_anyhit": _ANYHIT,
     "st_closest": _CLOSEST,      # stream.cu
     "st_anyhit": _ANYHIT,
-    "wl_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P],   # traversal.cu
-    "wl_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P],
+    # traversal.cu. offs, clusters, counts, n_tiles, tr, o4, d4, w, tri_ids, c, order, ends,
+    # n_ranks, next_seg, grid, key, bt, btri, bu, bv, stream
+    "wl_closest": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P,
+                   _P, _P],
+    # offs, clusters, counts, tr, o4, d4, tmax, w, c, order, ends, n_ranks, next_seg, grid,
+    # occ, stream
+    "wl_anyhit": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
     "pr_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],   # traversal3.cu
     "pr_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
 }

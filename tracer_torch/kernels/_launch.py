@@ -1,7 +1,9 @@
 """What every kernel wrapper of kernels/ shares: the launch counters, the
-argument check and the one place a C entry point of the built library is
-called."""
+argument check, the segmented kernels' table of segments and the one place
+a C entry point of the built library is called."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -34,6 +36,31 @@ def check_rays(o4, d4, w):
         raise ValueError(f"tile of {tr} rays: the kernels take a multiple of 32 up to 1024")
     if w.ndim != 3 or w.shape[1] != 4 or w.shape[2] % 3:
         raise ValueError(f"w must be (Ncl, 4, 3C), got {tuple(w.shape)}")
+
+
+def run_segments(counts, seg: int, k_cap: int):
+    """The segmented kernels' work list: every tile's run of candidates cut
+    into segments of `seg` items. counts (Nt,) i32, none above k_cap (the
+    width of the candidate lists, known on the host, so nothing here waits
+    for the device) -> (order (Nt,) i64, ends (R,) i32) with R =
+    ceil(k_cap / seg) ranks. order holds the tiles by descending count
+    (stable), ends[r] the number of segments of the ranks 0 .. r. Order of
+    the segments: every tile's first one (rank 0), then every second one,
+    and so on (in a sorted list the front-most clusters occlude the most
+    rays, so a later segment finds more of its rays already occluded);
+    within a rank the heaviest tile first. The tiles of a rank are a prefix
+    of `order`, so segment s with ends[r-1] <= s < ends[r] (ends[-1] read as
+    0) is the items r*seg .. min((r+1)*seg, counts[tile]) - 1 of tile
+    order[s - ends[r-1]], and ends[R-1] is the number of segments."""
+    sorted_counts, order = torch.sort(counts, descending=True, stable=True)
+    k0 = torch.arange(0, k_cap, seg, dtype=counts.dtype, device=counts.device)
+    per_rank = torch.searchsorted(-sorted_counts, -k0)      # tiles with count > k0
+    return order, per_rank.cumsum(0, dtype=torch.int32)
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def launch(name: str, entry: str, dev, *args):

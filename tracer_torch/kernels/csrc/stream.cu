@@ -46,8 +46,8 @@
 // whatever the order and whoever visits them, and the lists have a long tail
 // (a mean of 3 words a tile, a maximum of some 400), which one block a tile
 // would walk alone while the card has drained. Its unit of work is a segment,
-// kSeg consecutive words of one tile (the table of kernels/traversal2.py
-// anyhit_segments), pulled from a device counter by a fixed grid of
+// kSeg consecutive words of one tile (the table of kernels/_launch.py
+// run_segments), pulled from a device counter by a fixed grid of
 // persistent blocks of kSlices * TR threads: kSlices threads serve one ray,
 // each testing every kSlices-th quad of 4 triangles of a cluster, the 4 tests
 // without a branch between them. A segment starts from the tile's occlusion
@@ -324,7 +324,7 @@ __global__ void anyhit_stream_kernel(const int* __restrict__ words,
   Ring ring{ring_mem, s_bar, per4, 0};
   ring.init();
   if (threadIdx.x == 0)
-    claim_segment(s_claim[1], next_seg, rank, order, ends, n_ranks, counts);
+    claim_segment<kSeg>(s_claim[1], next_seg, rank, order, ends, n_ranks, counts);
   __syncthreads();  // the barriers and the claim are published
   Segment cur = read_segment(s_claim[1]);
   int consumed = 0;
@@ -333,7 +333,7 @@ __global__ void anyhit_stream_kernel(const int* __restrict__ words,
     // The segment after this one: claimed here, read after the barriers of
     // block_max, its slot of s_claim claimed into again two segments on.
     if (threadIdx.x == 0)
-      claim_segment(s_claim[it & 1], next_seg, rank, order, ends, n_ranks, counts);
+      claim_segment<kSeg>(s_claim[it & 1], next_seg, rank, order, ends, n_ranks, counts);
     const int* wt = words + (size_t)cur.tile * k_cap;
     const size_t ray = (size_t)cur.tile * tr + r;
     const float4 o = o4[ray], d = d4[ray];

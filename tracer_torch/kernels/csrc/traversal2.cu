@@ -45,7 +45,7 @@
 // them, and the candidate lists have a long tail (a mean of 4 words a tile, a
 // maximum of some 300), which one block a tile would walk alone while the
 // card has drained. So its unit of work is a segment, kSeg consecutive words
-// of one tile (the table of kernels/traversal2.py anyhit_segments: every
+// of one tile (the table of kernels/_launch.py run_segments: every
 // tile's first segment, then every second one, heaviest tile first), and a
 // fixed grid of persistent blocks pulls segments from a device counter
 // (claim_segment, common.cuh). A block is kSlices * TR threads: kSlices
@@ -196,7 +196,7 @@ __global__ void anyhit_kernel(const int* __restrict__ words, const int* __restri
   const int slice = threadIdx.x / tr;
   int rank = 0;  // thread 0's cursor into ends
   for (;;) {
-    if (threadIdx.x == 0) claim_segment(s_claim, next_seg, rank, order, ends, n_ranks, counts);
+    if (threadIdx.x == 0) claim_segment<kSeg>(s_claim, next_seg, rank, order, ends, n_ranks, counts);
     __syncthreads();
     const Segment seg = read_segment(s_claim);  // claimed into again only after block_max below
     if (seg.tile < 0) break;                    // block-uniform

@@ -5,7 +5,7 @@ The same per-tile sorted front-to-back candidate walk as kernels/traversal2,
 at STREAM_BATCH = 2 candidate clusters a step, with the cluster blocks
 streamed from device memory through an NBUF-deep ring of asynchronous
 copies in shared memory (csrc/stream.cu). The any-hit kernel works, as
-traversal2's does, on segments of a tile's run (traversal2.anyhit_segments),
+traversal2's does, on segments of a tile's run (_launch.run_segments),
 and its ring runs on across the segments a block walks. Each kernel has:
   * a plain version, closest_stream_plain / anyhit_stream_plain: the plain
     versions of kernels/traversal2.py at batch=STREAM_BATCH;

@@ -17,7 +17,14 @@ cluster id, unsorted in depth, so this tier walks every candidate:
     worklist_closest / worklist_anyhit (plain version on CPU tensors, the
     kernel on CUDA tensors, or they raise; launches counted in
     kernels/_launch.py). The counterpart of trace_tiles_pallas /
-    any_hit_tiles_pallas.
+    any_hit_tiles_pallas. The kernels do not walk a tile in one block:
+    their unit of work is a segment of SEG_WL items of a tile's run
+    (_launch.run_segments), pulled by persistent blocks. Occlusion is an OR
+    over the items, so its segments only set flags; closest hits merge
+    through a 64-bit key a ray (pack_key) under an atomic minimum, exact
+    because the tie rule is a total order, and a finishing pass
+    (worklist_finish_plain is its plain version) turns the keys into
+    (t, tri, u, v).
 
 Both evaluate _affine_products + _field_epilogue: four products summed left
 to right, a guarded divide and the test u >= 0, v >= 0, u + v <= 1. This is
@@ -39,10 +46,31 @@ import torch
 
 from tracer_torch.bvh.cull import cull_clusters
 from tracer_torch.core.types import T_FAR, Hit, Ray, normalize
-from tracer_torch.kernels._launch import check_dense, check_rays, launch
+from tracer_torch.kernels._launch import check_dense, check_rays, launch, run_segments, sm_count
 
 DEFAULT_TILE = 256
 T_MIN = 1e-4
+
+# The work-list kernels' unit of work is a segment, SEG_WL consecutive items
+# of one tile's run (a step is TR rays x C triangles, 256 x 128 at the
+# defaults), and a thread serves RAYS_WL rays of the tile: a block is
+# TR / RAYS_WL threads, 128 for a tile of 256 rays. Their grid is
+# BLOCKS_PER_SM_WL persistent blocks for every SM of the card. The kernels
+# are built for clusters of CLUSTER_WL triangles, the size the presets build
+# (kSegWL, kRaysWL, kClusterWL of csrc/traversal.cu).
+SEG_WL = 4
+RAYS_WL = 2
+BLOCKS_PER_SM_WL = 6
+CLUSTER_WL = 128
+
+# The closest-hit key of a ray: bits(t) << 32 | item << KEY_LANE_BITS | lane,
+# item the position in the tile's run (kLaneBits of csrc/traversal.cu; the 17
+# bits left for the item are bvh.cull.CLUSTER_BITS). KEY_MISS is what a ray
+# without a hit keeps: T_FAR's bits over all ones.
+KEY_LANE_BITS = 15
+KEY_ITEM_BITS = 32 - KEY_LANE_BITS
+_T_FAR_BITS = int(torch.tensor(T_FAR, dtype=torch.float32).view(torch.int32))
+KEY_MISS = (_T_FAR_BITS << 32) | 0xFFFFFFFF
 
 
 class Tiling(NamedTuple):
@@ -314,6 +342,51 @@ def worklist_anyhit_plain(o4, d4, tmax, tri_w, offs, clusters):
     return _anyhit_slots(o4, d4, tmax, tri_w, cand, counts)
 
 
+def pack_key(t, item, lane):
+    """The closest-hit key of hits with t (f32, > 0), item and lane (int
+    tensors) -> int64; keys order as (t, item, lane) does."""
+    return ((t.contiguous().view(torch.int32).long() << 32) | (item.long() << KEY_LANE_BITS)
+            | lane.long())
+
+
+def unpack_key(key):
+    """int64 keys -> (t f32, item i64, lane i64); t == T_FAR for KEY_MISS."""
+    t = (key >> 32).to(torch.int32).view(torch.float32)
+    return t, (key >> KEY_LANE_BITS) & ((1 << KEY_ITEM_BITS) - 1), key & ((1 << KEY_LANE_BITS) - 1)
+
+
+def check_key_fits(c: int, k_cap: int):
+    """Raise unless a lane of a cluster of c triangles and a position in a
+    run of up to k_cap items fit the closest-hit key."""
+    if c > 1 << KEY_LANE_BITS or k_cap > 1 << KEY_ITEM_BITS:
+        raise ValueError(f"clusters of {c} triangles in runs of up to {k_cap} items do not fit "
+                         f"the closest-hit key: at most {1 << KEY_LANE_BITS} and "
+                         f"{1 << KEY_ITEM_BITS}")
+
+
+def worklist_finish_plain(key, o4, d4, tri_w, tri_ids, offs, clusters):
+    """The plain version of worklist_finish_kernel: key (Nt, TR) int64, the
+    minimum of pack_key over each ray's hits or KEY_MISS -> (bt, btri, bu,
+    bv) each (Nt, TR): the key's t, and for a hit the triangle id and u, v
+    of the winning (item, lane) by _affine_products + _field_epilogue, for a
+    miss (T_FAR, -1, 0, 0)."""
+    c = tri_ids.shape[1]
+    bt, item, lane = unpack_key(key)
+    hit = bt < T_FAR
+    if clusters.numel() == 0:
+        cl = torch.zeros_like(item)
+    else:
+        cl = clusters[(offs[:-1, None] + torch.where(hit, item, 0))
+                      .clamp_max(clusters.shape[0] - 1).long()].long()
+    cols = lane[..., None] + c * torch.arange(3, device=key.device)          # (Nt, TR, 3)
+    w = tri_w[cl[..., None, None], torch.arange(4, device=key.device)[:, None],
+              cols[..., None, :]]                                            # (Nt, TR, 4, 3)
+    so, sd = _affine_products(o4[..., None, :], d4[..., None, :], w)         # (Nt, TR, 1, 3)
+    _, u, v, _ = _field_epilogue(so[..., 0, :], sd[..., 0, :], 1, T_MIN, T_FAR)
+    return (bt, torch.where(hit, tri_ids[cl, lane], -1), torch.where(hit, u[..., 0], 0.0),
+            torch.where(hit, v[..., 0], 0.0))
+
+
 def _check_worklist(o4, d4, tri_w, offs, clusters, *extra):
     """Raise unless the arguments are what the work-list kernels take."""
     check_dense(o4.device, (o4, torch.float32), (d4, torch.float32), (tri_w, torch.float32),
@@ -322,35 +395,62 @@ def _check_worklist(o4, d4, tri_w, offs, clusters, *extra):
     if offs.shape != (o4.shape[0] + 1,) or clusters.ndim != 1:
         raise ValueError(f"offs must be (Nt+1,) and clusters (W,), got {tuple(offs.shape)}, "
                          f"{tuple(clusters.shape)}")
+    tr, c = o4.shape[1], tri_w.shape[2] // 3
+    if tr % (32 * RAYS_WL) or c != CLUSTER_WL:
+        raise ValueError(f"tiles of {tr} rays over clusters of {c} triangles: the work-list "
+                         f"kernels take a multiple of {32 * RAYS_WL} rays and {CLUSTER_WL} "
+                         f"triangles")
 
 
-def worklist_closest(o4, d4, tri_w, tri_ids, offs, clusters):
-    """worklist_closest_plain on CPU tensors; the CUDA kernel
-    worklist_closest_kernel on CUDA tensors."""
+def _segment_scratch(offs, k_cap: int):
+    """What a launch over segments takes after the runs: their lengths, the
+    segment table over them, its number of ranks, the segment counter and
+    the grid."""
+    counts = (offs[1:] - offs[:-1]).contiguous()
+    order, ends = run_segments(counts, SEG_WL, k_cap)
+    next_seg = torch.zeros(1, dtype=torch.int32, device=offs.device)
+    return counts, order, ends, ends.shape[0], next_seg, sm_count(offs.device.index) * BLOCKS_PER_SM_WL
+
+
+def worklist_closest(o4, d4, tri_w, tri_ids, offs, clusters, k_cap: int):
+    """worklist_closest_plain on CPU tensors; on CUDA tensors the kernels
+    worklist_closest_kernel and, behind it on the stream,
+    worklist_finish_kernel (one call of the C entry point, counted as one
+    launch). k_cap: an upper bound of the runs' lengths that is known on
+    the host (the width of the candidate lists). The kernels take o4 =
+    (o, 1) and d4 = (d, 0), as _homog makes them."""
     if o4.device.type == "cpu":
         return worklist_closest_plain(o4, d4, tri_w, tri_ids, offs, clusters)
     _check_worklist(o4, d4, tri_w, offs, clusters, (tri_ids, torch.int32))
     if tri_ids.shape != (tri_w.shape[0], tri_w.shape[2] // 3):
         raise ValueError(f"tri_ids must be (Ncl, C), got {tuple(tri_ids.shape)}")
+    check_key_fits(tri_ids.shape[1], k_cap)
     out = _closest_out4(o4)
     if o4.shape[0]:
-        launch("worklist_closest", "wl_closest", o4.device, offs, clusters, o4.shape[0],
-               o4.shape[1], o4, d4, tri_w, tri_ids, tri_w.shape[2] // 3, *out)
+        counts, order, ends, n_ranks, next_seg, grid = _segment_scratch(offs, k_cap)
+        key = torch.full(o4.shape[:2], KEY_MISS, dtype=torch.int64, device=o4.device)
+        launch("worklist_closest", "wl_closest", o4.device, offs, clusters, counts, o4.shape[0],
+               o4.shape[1], o4, d4, tri_w, tri_ids, tri_ids.shape[1], order, ends, n_ranks,
+               next_seg, grid, key, *out)
     return out
 
 
-def worklist_anyhit(o4, d4, tmax, tri_w, offs, clusters):
+def worklist_anyhit(o4, d4, tmax, tri_w, offs, clusters, k_cap: int):
     """worklist_anyhit_plain on CPU tensors; the CUDA kernel
-    worklist_anyhit_kernel on CUDA tensors."""
+    worklist_anyhit_kernel on CUDA tensors. k_cap and the rays' form as for
+    worklist_closest. The kernel only ever sets flags, so occ starts as
+    zeros."""
     if o4.device.type == "cpu":
         return worklist_anyhit_plain(o4, d4, tmax, tri_w, offs, clusters)
     _check_worklist(o4, d4, tri_w, offs, clusters, (tmax, torch.float32))
     if tmax.shape != o4.shape[:2]:
         raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
-    occ = torch.empty(o4.shape[:2], dtype=torch.uint8, device=o4.device)
+    occ = torch.zeros(o4.shape[:2], dtype=torch.uint8, device=o4.device)
     if o4.shape[0]:
-        launch("worklist_anyhit", "wl_anyhit", o4.device, offs, clusters, o4.shape[0],
-               o4.shape[1], o4, d4, tmax, tri_w, tri_w.shape[2] // 3, occ)
+        counts, order, ends, n_ranks, next_seg, grid = _segment_scratch(offs, k_cap)
+        launch("worklist_anyhit", "wl_anyhit", o4.device, offs, clusters, counts, o4.shape[1],
+               o4, d4, tmax, tri_w, tri_w.shape[2] // 3, order, ends, n_ranks, next_seg, grid,
+               occ)
     return occ.bool()
 
 
@@ -359,14 +459,15 @@ def trace_tiles_worklist(o_t, d_t, accel, cand, counts):
     tiles -> (t, tri, u, v) as trace_tiles_plain. The runs hold every
     candidate: the list is as long as the counts say."""
     o4, d4 = _homog(o_t, d_t)
-    return worklist_closest(o4, d4, accel.tri_w, accel.tri_ids, *tile_runs(cand, counts))
+    return worklist_closest(o4, d4, accel.tri_w, accel.tri_ids, *tile_runs(cand, counts),
+                            cand.shape[1])
 
 
 def any_hit_tiles_worklist(o_t, d_t, t_max_t, accel, cand, counts):
     """Occlusion over the tiles' runs of candidates -> (Ntiles, TR) bool."""
     o4, d4 = _homog(o_t, d_t)
     return worklist_anyhit(o4, d4, t_max_t.contiguous(), accel.tri_w,
-                           *tile_runs(cand, counts))
+                           *tile_runs(cand, counts), cand.shape[1])
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,7 @@ Each of the three kernels of the pass has three pieces here:
     version for CPU tensors and launches the CUDA kernel of
     csrc/traversal2.cu for CUDA tensors, or raises. The any-hit kernel does
     not walk a tile in one block: its unit of work is a segment of a tile's
-    candidate run (anyhit_segments), which is exact because occlusion is an
+    candidate run (_launch.run_segments), which is exact because occlusion is an
     OR over the candidates, in any order;
   * a launch counter, LAUNCHES[name] (kernels/_launch.py), raised by one per
     kernel launch.
@@ -27,15 +27,13 @@ slot back to a full Hit.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from tracer_torch.bvh.cull import CLUSTER_BITS, cull_clusters_sorted2
 from tracer_torch.core.intersect import moller_trumbore
 from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels._launch import (  # noqa: F401 (LAUNCHES is read through this module)
-    LAUNCHES, check_dense, check_rays, launch as _launch)
+    LAUNCHES, check_dense, check_rays, launch as _launch, run_segments, sm_count)
 from tracer_torch.kernels.traversal import _homog, T_MIN, tile_rays, tiled_tmax, untile
 
 _CL_MASK = (1 << CLUSTER_BITS) - 1
@@ -165,26 +163,6 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
     return occ
 
 
-def anyhit_segments(counts, seg: int, k_cap: int):
-    """The any-hit kernels' work list: every tile's candidate run cut into
-    segments of `seg` words. counts (Nt,) i32, none above k_cap (the width
-    of the word lists, known on the host, so nothing here waits for the
-    device) -> (order (Nt,) i64, ends (R,) i32) with R = ceil(k_cap / seg)
-    ranks. order holds the tiles by descending count (stable), ends[r] the
-    number of segments of the ranks 0 .. r. Order of the segments: every
-    tile's first one (rank 0), then every second one, and so on (the
-    front-most clusters occlude the most rays, so a later segment finds more
-    of its rays already occluded); within a rank the heaviest tile first.
-    The tiles of a rank are a prefix of `order`, so segment s with
-    ends[r-1] <= s < ends[r] (ends[-1] read as 0) is the words r*seg ..
-    min((r+1)*seg, counts[tile]) - 1 of tile order[s - ends[r-1]], and
-    ends[R-1] is the number of segments."""
-    sorted_counts, order = torch.sort(counts, descending=True, stable=True)
-    k0 = torch.arange(0, k_cap, seg, dtype=counts.dtype, device=counts.device)
-    per_rank = torch.searchsorted(-sorted_counts, -k0)      # tiles with count > k0
-    return order, per_rank.cumsum(0, dtype=torch.int32)
-
-
 # ---------------------------------------------------------------------------
 # Wrappers: plain version on CPU tensors, CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
@@ -233,16 +211,11 @@ def closest_fast(o4, d4, w, words, counts):
     return bt, bid
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch_anyhit(name: str, entry: str, o4, d4, tmax, w, words, counts):
     """One launch of a segmented any-hit kernel (anyhit_kernel or
     anyhit_stream_kernel) over checked CUDA tensors -> occ (Nt, TR) bool.
     The kernel only ever sets flags, so occ starts as zeros; the segment
-    table (anyhit_segments) and the segment counter are its scratch."""
+    table (run_segments) and the segment counter are its scratch."""
     n_tiles, tr = o4.shape[:2]
     if tmax.shape != (n_tiles, tr):
         raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
@@ -252,11 +225,11 @@ def _launch_anyhit(name: str, entry: str, o4, d4, tmax, w, words, counts):
     dev = o4.device
     occ = torch.zeros((n_tiles, tr), dtype=torch.uint8, device=dev)
     if n_tiles:
-        order, ends = anyhit_segments(counts, SEG, words.shape[1])
+        order, ends = run_segments(counts, SEG, words.shape[1])
         next_seg = torch.zeros(1, dtype=torch.int32, device=dev)
         _launch(name, entry, dev, words, counts, words.shape[1], tr, o4, d4, tmax, w,
                 w.shape[0], w.shape[2] // 3, order, ends, ends.shape[0], next_seg,
-                _sm_count(dev.index) * BLOCKS_PER_SM, occ)
+                sm_count(dev.index) * BLOCKS_PER_SM, occ)
     return occ.bool()
 
 
