@@ -50,8 +50,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      rays in order, the pair kernels (traversal3.cu) at 8x8 tiles, each at
      the frame's primary rays and its first light's surface-origin shadow
      rays (the heaviest tiles plus a stride), against its plain version:
-     ids, slots and occlusion equal, t, u, v bit-equal; then, on the pair
-     tier's shadow rays, anyhit_kernel over the two-stage cull's lists
+     ids, slots and occlusion equal, t, u, v bit-equal; for each work-list
+     kernel also what phase 3 reports of the any-hit kernel (segments,
+     kernel alone, table, heaviest tile alone, selection without its 256
+     heaviest), its tests a second beside the card's issue rate (132 SMs x
+     128 lanes x the SM clock nvidia-smi reports under the load), one
+     comparison on every tile of the pass, untimed, and for closest hit,
+     whose blocks merge by atomics, three runs that must be bit-identical;
+     then, on the pair tier's shadow rays, anyhit_kernel over the two-stage cull's lists
      against pair_anyhit_kernel over the single-stage cull's, on the same
      tiles and on all tiles: occlusion equal on every ray;
   15. wavefront frames: render_wavefront over make_accel_tracers(
@@ -583,15 +589,15 @@ def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
     k_cap = cand.shape[1]
     table = lambda a, b: (lambda n=counts[sel[a:b]].contiguous():
                           _launch.run_segments(n, t1.SEG_WL, k_cap))
-    alone = tail_report(name, results, f"of {t1.SEG_WL} items, {t1.RAYS_WL} rays a thread, "
+    alone = tail_report(name, results, f"of {t1.SEG_WL} items, one thread a ray, "
                         f"{t1.BLOCKS_PER_SM_WL} blocks an SM", counts[sel],
                         lambda a, b: case(sel[a:b])[0], table)
     mhz = clock_under_load(run_k, ms)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sms = _launch.sm_count(0)
     log(f"[kernels] {name}: {n_tests} tests in {alone:.4f} ms of the kernel alone, "
         f"{n_tests / alone / 1e6:.1f} G tests/s; the card issues {sms} SMs x 128 lanes x "
         f"{mhz} MHz (nvidia-smi, under this load) = {sms * 128 * mhz / 1e6:.2f} T "
-        f"instructions/s, {sms * 128 * mhz * alone / 1e3 / n_tests:.1f} issue slots a test")
+        f"instructions/s, {sms * 128 * mhz * 1e3 * alone / n_tests:.1f} issue slots a test")
 
     t0 = time.perf_counter()
     every = torch.argsort(-counts, stable=True)   # by count, so the plain version's chunks are even

@@ -82,7 +82,7 @@ def exact_cull(accel, o_t, d_t, t_max):
 
 
 def segment_list(order, ends, seg: int):
-    """The segments of a table of tracer_torch's anyhit_segments, in the
+    """The segments of a table of tracer_torch's run_segments, in the
     table's order -> (tile (n,) int64, k0 (n,) int64) numpy arrays: rank r
     holds the first ends[r] - ends[r-1] tiles of `order`, from word r*seg."""
     order, ends = np.asarray(order), np.asarray(ends).astype(np.int64)

@@ -217,7 +217,7 @@ def test_stream_wrappers_dispatch_by_device(case):
 
 def test_anyhit_stream_plain_by_segments_equals_whole(case):
     """The streamed any-hit kernel walks the same segments as traversal2's
-    (traversal2.anyhit_segments) at B = STREAM_BATCH: anyhit_plain at that B
+    (_launch.run_segments) at B = STREAM_BATCH: anyhit_plain at that B
     applied segment by segment and OR-ed equals it over the whole lists,
     and a segment is a whole number of steps."""
     assert tt2.SEG % ts.STREAM_BATCH == 0
@@ -230,7 +230,7 @@ def test_anyhit_stream_plain_by_segments_equals_whole(case):
     w = case["t_accel"].tri_w
     whole = ts.anyhit_stream_plain(o4, d4, tm, w, words, counts)
     tile, k0 = map(torch.from_numpy, segment_list(
-        *tt2.anyhit_segments(counts, tt2.SEG, words.shape[1]), tt2.SEG))
+        *tt2.run_segments(counts, tt2.SEG, words.shape[1]), tt2.SEG))
     assert tile.shape[0] > o4.shape[0], "some tile must hold more than one segment"
     pad = torch.nn.functional.pad(words, (0, tt2.SEG))
     seg_words = pad[tile[:, None], k0[:, None] + torch.arange(tt2.SEG)]

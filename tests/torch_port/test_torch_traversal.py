@@ -13,6 +13,8 @@ triangles, one ulp 4e-6), so a few ulps of them show in u: the largest
 difference was 2.5e-5 on the bunny and under 1e-5 on the soup when this was
 written."""
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +36,7 @@ from tracer_torch.core.types import Ray
 from tracer_torch.kernels import traversal as tt
 from tracer_torch.kernels._launch import LAUNCHES
 
-from parity_util import leaves
+from parity_util import leaves, segment_list
 
 
 def _soup():
@@ -279,11 +281,210 @@ def test_worklist_wrappers_dispatch_by_device(case):
     offs, clusters = tt.tile_runs(_t(case["cand"]), _t(case["counts"]))
     tm = torch.ones(o4.shape[:2])
     before = dict(LAUNCHES)
-    tt.worklist_closest(o4, d4, accel.tri_w, accel.tri_ids, offs, clusters)
-    tt.worklist_anyhit(o4, d4, tm, accel.tri_w, offs, clusters)
+    k_cap = case["cand"].shape[1]
+    tt.worklist_closest(o4, d4, accel.tri_w, accel.tri_ids, offs, clusters, k_cap)
+    tt.worklist_anyhit(o4, d4, tm, accel.tri_w, offs, clusters, k_cap)
     assert LAUNCHES == before
     meta = lambda x: x.to("meta")
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
-        tt.worklist_closest(*map(meta, (o4, d4, accel.tri_w, accel.tri_ids, offs, clusters)))
+        tt.worklist_closest(*map(meta, (o4, d4, accel.tri_w, accel.tri_ids, offs, clusters)),
+                            k_cap)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
-        tt.worklist_anyhit(*map(meta, (o4, d4, tm, accel.tri_w, offs, clusters)))
+        tt.worklist_anyhit(*map(meta, (o4, d4, tm, accel.tri_w, offs, clusters)), k_cap)
+
+
+# ---------------------------------------------------------------------------
+# The segmented kernels' arithmetic, on the CPU: what a block does with one
+# segment is the plain version on that segment's items; how segments merge is
+# the key's minimum (closest hit) or an OR (any-hit).
+# ---------------------------------------------------------------------------
+
+def _segment_runs(offs, clusters, seg, k_cap):
+    """The segments of run_segments over the runs (offs, clusters), each as a
+    run of its own -> (tile (S,), k0 (S,), seg_offs (S+1,), seg_clusters)."""
+    counts = offs[1:] - offs[:-1]
+    tile, k0 = map(torch.from_numpy, segment_list(*tt.run_segments(counts, seg, k_cap), seg))
+    n = (counts[tile] - k0).clamp_max(seg)
+    seg_offs = torch.cat([n.new_zeros(1), n.cumsum(0)]).int()
+    within = torch.arange(int(n.sum())) - torch.repeat_interleave(seg_offs[:-1].long(), n)
+    idx = torch.repeat_interleave(offs[tile].long() + k0, n) + within
+    return tile, k0, seg_offs, clusters[idx]
+
+
+def _closest_by_segments(o4, d4, w, ids, offs, clusters, seg, k_cap):
+    """worklist_closest_plain on every segment, the winners packed into keys
+    (the winner's place in its segment: the first item whose cluster holds
+    its triangle id, and there the first lane with that id), the keys'
+    minimum per ray, and the finishing pass."""
+    c = ids.shape[1]
+    tile, k0, s_offs, s_clusters = _segment_runs(offs, clusters, seg, k_cap)
+    bt, btri, _, _ = tt.worklist_closest_plain(o4[tile], d4[tile], w, ids, s_offs, s_clusters)
+    cand, n = tt._runs_to_slots(s_offs, s_clusters)
+    match = ids[cand.long()][:, None] == btri[:, :, None, None]             # (S, TR, seg, C)
+    match &= (torch.arange(cand.shape[1])[None] < n[:, None])[:, None, :, None]
+    first = match.flatten(2).int().argmax(-1)
+    keys = torch.where(bt < T_FAR, tt.pack_key(bt, k0[:, None] + first // c, first % c),
+                       tt.KEY_MISS)
+    merged = torch.full(o4.shape[:2], tt.KEY_MISS, dtype=torch.int64).scatter_reduce_(
+        0, tile[:, None].expand_as(keys), keys, "amin")
+    return tt.worklist_finish_plain(merged, o4, d4, w, ids, offs, clusters), tile
+
+
+def _assert_bit_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g.contiguous().view(torch.int32).numpy(),
+                                      w.contiguous().view(torch.int32).numpy())
+
+
+@pytest.mark.parametrize("seg", [tt.SEG_WL, 1])
+def test_closest_by_segments_merges_to_the_whole_run(case, seg):
+    """Closest hit over a run is the lexicographic minimum of (t bits, item,
+    lane) over its segments, with u, v recomputed for the winner: t, tri, u,
+    v bit for bit."""
+    accel = case["accel"]
+    o4, d4 = tt._homog(_t(case["o_t"]), _t(case["d_t"]))
+    cand, counts = _t(case["cand"]), _t(case["counts"])
+    offs, clusters = tt.tile_runs(cand, counts)
+    whole = tt.worklist_closest_plain(o4, d4, accel.tri_w, accel.tri_ids, offs, clusters)
+    got, tile = _closest_by_segments(o4, d4, accel.tri_w, accel.tri_ids, offs, clusters, seg,
+                                     cand.shape[1])
+    assert tile.shape[0] > o4.shape[0], "some tile must hold more than one segment"
+    assert (whole[1] >= 0).sum() >= 5
+    _assert_bit_equal(got, whole)
+
+
+@pytest.mark.parametrize("seg", [tt.SEG_WL, 1])
+def test_closest_by_segments_keeps_the_tie_rule(seg):
+    """A hand-made tie: cluster 0 of the soup's accel appended again as the
+    last cluster (ids + 20000) and walked first, so the same triangles stand
+    at items 0 and 3 of every run (one segment of SEG_WL, two of 1), and in
+    cluster 0 the triangle that is the closest hit of the most rays copied
+    into the next lane under the id 10000. The earlier item and the lower
+    lane win, segment by segment as over the whole run."""
+    scene, o_t, d_t = _soup()
+    j_accel = jax.jit(build_clusters, static_argnums=2)(scene.verts, scene.tris, 64)
+    accel = accel_from_arrays(leaves(j_accel), "cpu")
+    n_cl, c = accel.tri_ids.shape
+    o4, d4 = tt._homog(_t(o_t), _t(d_t))
+    n_tiles = o4.shape[0]
+    w, ids = accel.tri_w.clone(), accel.tri_ids.clone()
+    every = torch.arange(n_cl, dtype=torch.int32).repeat(n_tiles)
+    first = tt.worklist_closest_plain(o4, d4, w, ids, (torch.arange(n_tiles + 1) * n_cl).int(),
+                                      every)[1]
+    wins = (first[..., None] == ids[0, :c - 1]).sum((0, 1))
+    lane = int(wins.argmax())
+    assert int(wins[lane]) > 0, "some ray's closest hit must lie in cluster 0"
+    w[0, :, lane + 1::c] = w[0, :, lane::c]
+    ids[0, lane + 1] = 10000
+    w, ids = torch.cat([w, w[:1]]), torch.cat([ids, ids[:1] + 20000])
+    run = torch.tensor([n_cl, 1, 2, 0] + list(range(3, n_cl)), dtype=torch.int32)
+    offs = (torch.arange(n_tiles + 1) * run.shape[0]).int()
+    clusters = run.repeat(n_tiles)
+    whole = tt.worklist_closest_plain(o4, d4, w, ids, offs, clusters)
+    assert (whole[1] == int(ids[0, lane]) + 20000).any()
+    assert not (whole[1] % 20000 == 10000).any() and not (whole[1] == int(ids[0, lane])).any()
+    got, _ = _closest_by_segments(o4, d4, w, ids, offs, clusters, seg, run.shape[0])
+    _assert_bit_equal(got, whole)
+
+
+@pytest.mark.parametrize("seg", [tt.SEG_WL, 1])
+def test_anyhit_by_segments_ors_to_the_whole_run(case, seg):
+    """Occlusion over a run is the OR of the occlusion over its segments."""
+    accel = case["accel"]
+    o4, d4 = tt._homog(_t(case["o_t"]), _t(case["d_t"]))
+    cand, counts = _t(case["cand"]), _t(case["counts"])
+    offs, clusters = tt.tile_runs(cand, counts)
+    tm = _t(_shadow_tmax(case["o_t"]))
+    whole = tt.worklist_anyhit_plain(o4, d4, tm, accel.tri_w, offs, clusters)
+    tile, _, s_offs, s_clusters = _segment_runs(offs, clusters, seg, cand.shape[1])
+    occ_seg = tt.worklist_anyhit_plain(o4[tile], d4[tile], tm[tile], accel.tri_w, s_offs,
+                                       s_clusters)
+    ored = torch.zeros(whole.shape, dtype=torch.int32).index_put_(
+        (tile,), occ_seg.int(), accumulate=True) > 0
+    assert 0.0 < whole.float().mean() < 1.0
+    np.testing.assert_array_equal(ored.numpy(), whole.numpy())
+
+
+@pytest.mark.parametrize("seg", [tt.SEG_WL, 1, 3])
+def test_run_segments_over_worklist_counts(seg):
+    """The segment table over runs as the work-list cull gives them: tiles
+    without a candidate have no segment, a run as long as k_cap ends in a
+    last, shorter rank when k_cap is no multiple of the segment, and the
+    segments' runs hold every item of every run once, in run order."""
+    counts = torch.tensor([0, 5, 11, 1, 0, 7, 11, 4], dtype=torch.int32)
+    k_cap = 11
+    offs = torch.cat([counts.new_zeros(1), counts.cumsum(0)]).int()
+    clusters = torch.arange(int(counts.sum()), dtype=torch.int32) + 100
+    order, ends = tt.run_segments(counts, seg, k_cap)
+    assert ends.shape == (-(-k_cap // seg),)
+    assert int(ends[-1]) == int((-(-counts // seg)).sum())
+    tile, k0, s_offs, s_clusters = _segment_runs(offs, clusters, seg, k_cap)
+    assert not set(tile.tolist()) & {0, 4}
+    n = s_offs[1:] - s_offs[:-1]
+    assert bool((n >= 1).all()) and bool((n <= seg).all())
+    last = k0 == (k_cap - 1) // seg * seg
+    assert sorted(tile[last].tolist()) == [2, 6]
+    assert bool((n[last] == k_cap - (k_cap - 1) // seg * seg).all())
+    items = sorted((int(t), int(k) + i, int(s_clusters[int(a) + i]))
+                   for t, k, a, m in zip(tile, k0, s_offs[:-1], n) for i in range(int(m)))
+    want = [(t, i, int(clusters[int(offs[t]) + i])) for t in range(counts.shape[0])
+            for i in range(int(counts[t]))]
+    assert items == want
+
+
+def test_closest_key_packing():
+    """The key orders as (t, item, lane), round-trips at the limits of its
+    fields, and the miss key decodes to (T_FAR, -1, 0, 0); past the limits
+    check_key_fits raises."""
+    item_max, lane_max = (1 << tt.KEY_ITEM_BITS) - 1, (1 << tt.KEY_LANE_BITS) - 1
+    assert tt.KEY_ITEM_BITS == tcull.CLUSTER_BITS == 17 and tt.KEY_LANE_BITS == 15
+    t = torch.tensor([1.0001e-4, 1.0001e-4, 1.0, 1.0, 1.0, 9.9e29], dtype=torch.float32)
+    item = torch.tensor([0, item_max, 0, 0, item_max, item_max])
+    lane = torch.tensor([lane_max, 0, 0, 1, lane_max, lane_max])
+    keys = tt.pack_key(t, item, lane)
+    assert keys.dtype == torch.int64 and bool((keys[1:] > keys[:-1]).all())
+    assert bool((keys < tt.KEY_MISS).all()) and bool((keys > 0).all())
+    t2, item2, lane2 = tt.unpack_key(keys)
+    np.testing.assert_array_equal(t2.view(torch.int32).numpy(), t.view(torch.int32).numpy())
+    np.testing.assert_array_equal(item2.numpy(), item.numpy())
+    np.testing.assert_array_equal(lane2.numpy(), lane.numpy())
+
+    miss = torch.full((2, 32), tt.KEY_MISS, dtype=torch.int64)
+    assert float(tt.unpack_key(miss)[0][0, 0]) == np.float32(T_FAR)
+    o4, d4 = tt._homog(torch.zeros(2, 32, 3), torch.ones(2, 32, 3))
+    w, ids = torch.ones(3, 4, 3 * 8), torch.arange(24, dtype=torch.int32).reshape(3, 8)
+    offs = torch.tensor([0, 2, 3], dtype=torch.int32)
+    clusters = torch.tensor([0, 2, 1], dtype=torch.int32)
+    for runs in ((offs, clusters), (torch.zeros(3, dtype=torch.int32), clusters[:0])):
+        bt, btri, bu, bv = tt.worklist_finish_plain(miss, o4, d4, w, ids, *runs)
+        assert bool((bt == T_FAR).all()) and bool((btri == -1).all())
+        assert btri.dtype == torch.int32 and not bu.any() and not bv.any()
+
+    tt.check_key_fits(1 << tt.KEY_LANE_BITS, 1 << tt.KEY_ITEM_BITS)
+    with pytest.raises(ValueError, match="closest-hit key"):
+        tt.check_key_fits((1 << tt.KEY_LANE_BITS) + 1, 8)
+    with pytest.raises(ValueError, match="closest-hit key"):
+        tt.check_key_fits(128, (1 << tt.KEY_ITEM_BITS) + 1)
+
+
+def test_worklist_constants_pinned_to_the_kernels():
+    """SEG_WL, CLUSTER_WL and KEY_LANE_BITS are csrc/traversal.cu's kSegWL,
+    kClusterWL and kLaneBits, a block of the work-list kernels is TR
+    threads, every segmented kernel claims through
+    common.cuh's claim_segment at its own segment length, and KEY_MISS is
+    kTFar's bits over all ones (the kernels cannot run here: their constants
+    are read from the sources)."""
+    csrc = Path(tt.__file__).parent / "csrc"
+    src = (csrc / "traversal.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert ((int(consts["kSegWL"]), int(consts["kClusterWL"]), int(consts["kLaneBits"]))
+            == (tt.SEG_WL, tt.CLUSTER_WL, tt.KEY_LANE_BITS))
+    assert len(re.findall(r"kernel<kClusterWL><<<grid, tr, 0,", src)) == 2
+    assert len(re.findall(r"claim_segment<kSegWL>\(", src)) == 2
+    for name in ("traversal2.cu", "stream.cu"):
+        other = (csrc / name).read_text()
+        assert "claim_segment<kSeg>(" in other and "claim_segment(" not in other
+    far = re.search(r"constexpr float kTFar = (\S+)f;", (csrc / "common.cuh").read_text())
+    far_bits = int(torch.tensor(float(far.group(1)), dtype=torch.float32).view(torch.int32))
+    assert float(far.group(1)) == T_FAR and tt.KEY_MISS == (far_bits << 32) | 0xFFFFFFFF

@@ -127,8 +127,8 @@ def test_wrappers_dispatch_by_device(case):
 
 
 def _segment_pairs(counts, seg, k_cap):
-    """anyhit_segments -> [(tile, k0)] of its segments, in its order."""
-    order, ends = tt2.anyhit_segments(torch.from_numpy(counts), seg, k_cap)
+    """run_segments -> [(tile, k0)] of its segments, in its order."""
+    order, ends = tt2.run_segments(torch.from_numpy(counts), seg, k_cap)
     assert order.shape == counts.shape and order.dtype == torch.int64
     assert ends.shape == (-(-k_cap // seg),) and ends.dtype == torch.int32
     tile, k0 = segment_list(order, ends, seg)
@@ -160,7 +160,7 @@ def test_anyhit_segments_cover_every_word_once_in_order(seg):
 
 def _anyhit_by_segments(case, batch):
     """anyhit_plain over the whole word lists, and OR-ed over the segments
-    of anyhit_segments, one call a segment rank (a segment's words as a list
+    of run_segments, one call a segment rank (a segment's words as a list
     of its own, as a block of the kernel walks them)."""
     _, t_accel, o_t, d_t, _, words, counts = case
     words, counts = torch.from_numpy(np.array(words)), torch.from_numpy(np.array(counts))
@@ -170,7 +170,7 @@ def _anyhit_by_segments(case, batch):
                           .astype(np.float32))
     whole = tt2.anyhit_plain(o4, d4, tm, t_accel.tri_w, words, counts, batch=batch)
     tile, k0 = map(torch.from_numpy, segment_list(
-        *tt2.anyhit_segments(counts, tt2.SEG, words.shape[1]), tt2.SEG))
+        *tt2.run_segments(counts, tt2.SEG, words.shape[1]), tt2.SEG))
     assert tile.shape[0] > o4.shape[0], "some tile must hold more than one segment"
     pad = torch.nn.functional.pad(words, (0, tt2.SEG))
     seg_words = pad[tile[:, None], k0[:, None] + torch.arange(tt2.SEG)]

@@ -52,18 +52,17 @@
 //     bits(t) << 32 | item << kLaneBits | lane, on a key the wrapper filled
 //     with the miss key. The atomics' order varies from run to run, the
 //     minimum does not. worklist_finish_kernel, one thread a ray, decodes the
-//     key and recomputes u, v of the winner with the full field_t.
-//   * Rate. A thread serves kRaysWL rays of the tile (a block is TR / kRaysWL
-//     threads) and keeps kGroupWL triangles in flight: kRaysWL * kGroupWL
-//     independent tests, and every float4 of coefficients read from shared
-//     memory (a broadcast) feeds kRaysWL tests. C is a template parameter
-//     (128, the only cluster size the presets build; the entry points refuse
-//     any other). The loops carry t and the lane only. The fourth components
-//     are constants of the homogeneous form, o3 = 1 and d3 = 0: the loops add
-//     w3 instead of 1*w3, which is the same float, and drop 0*w3, a signed
-//     zero that can change a sum only in the sign of a zero: no compare of
-//     the test sees that, t of a hit has a non-zero divisor, and u, v are
-//     written by the finishing pass, which keeps the four products.
+//     key and recomputes u, v of the winner with all four products.
+//   * Rate. One thread a ray, a block of TR threads, and kGroupWL triangles
+//     in flight a thread before they fold (a test is a chain of some 50
+//     dependent instructions). C is a template parameter (128, the only
+//     cluster size the presets build; the entry points refuse any other).
+//     The loops carry t and the lane only. The fourth components are
+//     constants of the homogeneous form, o3 = 1 and d3 = 0: the loops add w3
+//     instead of 1*w3, which is the same float, and drop 0*w3, a signed zero
+//     that can change a sum only in the sign of a zero: no compare of the
+//     test sees that, t of a hit has a non-zero divisor, and u, v are written
+//     by the finishing pass, which keeps the four products.
 //   * Staging. The next cluster of the segment is copied into the other of
 //     two 6 KB buffers before this one is tested: one barrier a step.
 #include "common.cuh"
@@ -71,8 +70,7 @@
 namespace {
 
 constexpr int kSegWL = 4;    // items of a run in a segment; SEG_WL of kernels/traversal.py
-constexpr int kRaysWL = 2;   // rays a thread serves; RAYS_WL
-constexpr int kGroupWL = 2;  // triangles a thread keeps in flight before it folds
+constexpr int kGroupWL = 4;  // triangles a thread keeps in flight before it folds
 constexpr int kLaneBits = 15;  // KEY_LANE_BITS: the key is bits(t) | item | lane, 32 + 17 + 15
 constexpr int kClusterWL = 128;  // the cluster size the kernels are built for; CLUSTER_WL
 
@@ -89,19 +87,13 @@ __device__ __forceinline__ float affine(float4 r, float4 m) {
   return ((r.x * m.x + r.y * m.y) + r.z * m.z) + r.w * m.w;
 }
 
-// _field_epilogue for one (ray, triangle): t (kTFar on a miss), u and v.
-__device__ __forceinline__ float field_t(float4 n, float4 a, float4 b, float4 o, float4 d,
-                                         float t_max, float* u_out, float* v_out) {
+// u and v of _field_epilogue for one (ray, triangle).
+__device__ __forceinline__ void field_uv(float4 n, float4 a, float4 b, float4 o, float4 d,
+                                         float* u_out, float* v_out) {
   const float den = affine(d, n);
-  const bool safe = fabsf(den) > 1e-12f;
-  const float t = -affine(o, n) / (safe ? den : 1.0f);
-  const float u = affine(o, a) + t * affine(d, a);
-  const float v = affine(o, b) + t * affine(d, b);
-  const bool hit = safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > kTMin) &&
-                   (t < t_max);
-  *u_out = u;
-  *v_out = v;
-  return hit ? t : kTFar;
+  const float t = -affine(o, n) / (fabsf(den) > 1e-12f ? den : 1.0f);
+  *u_out = affine(o, a) + t * affine(d, a);
+  *v_out = affine(o, b) + t * affine(d, b);
 }
 
 // A ray of the homogeneous form (o, 1), (d, 0).
@@ -125,8 +117,8 @@ __device__ __forceinline__ float affine_d(const Ray3& r, float4 m) {
   return (r.dx * m.x + r.dy * m.y) + r.dz * m.z;
 }
 
-// field_t's hit and its t (meaningful on a hit) for a ray of the homogeneous
-// form: the same bits (see the header), without u and v.
+// _field_epilogue's hit and its t (meaningful on a hit) for a ray of the
+// homogeneous form: the same bits (see the header), without u and v.
 __device__ __forceinline__ bool field_hit(float4 n, float4 a, float4 b, const Ray3& r,
                                           float t_max, float* t_out) {
   const float den = affine_d(r, n);
@@ -138,29 +130,25 @@ __device__ __forceinline__ bool field_hit(float4 n, float4 a, float4 b, const Ra
   return safe && (u >= 0.0f) && (v >= 0.0f) && (u + v <= 1.0f) && (t > kTMin) && (t < t_max);
 }
 
-// The staged cluster's triangles lane .. lane + kGroupWL - 1 against the
-// thread's kRaysWL rays: kGroupWL * kRaysWL tests with no branch between them.
+// The staged cluster's triangles lane .. lane + kGroupWL - 1 against the ray:
+// kGroupWL tests with no branch between them.
 template <int C>
-__device__ __forceinline__ void test_group(bool (&hit)[kGroupWL][kRaysWL],
-                                           float (&t)[kGroupWL][kRaysWL], const float4* s,
-                                           int lane, const Ray3 (&r)[kRaysWL],
-                                           const float (&t_max)[kRaysWL]) {
+__device__ __forceinline__ void test_group(bool (&hit)[kGroupWL], float (&t)[kGroupWL],
+                                           const float4* s, int lane, const Ray3& r,
+                                           float t_max) {
 #pragma unroll
-  for (int g = 0; g < kGroupWL; ++g) {
-    const float4 n = s[lane + g], a = s[C + lane + g], b = s[2 * C + lane + g];
-#pragma unroll
-    for (int j = 0; j < kRaysWL; ++j) hit[g][j] = field_hit(n, a, b, r[j], t_max[j], &t[g][j]);
-  }
+  for (int g = 0; g < kGroupWL; ++g)
+    hit[g] = field_hit(s[lane + g], s[C + lane + g], s[2 * C + lane + g], r, t_max, &t[g]);
 }
 
 // Closest hit, the segments' part: key[ray] = min(key[ray], bits(t) << 32 |
 // item << kLaneBits | lane) over the hits of the ray in the block's segments;
-// key holds the miss key at launch. Thread tid serves rays tid + j *
-// blockDim.x, j < kRaysWL, of the segment's tile.
+// key holds the miss key at launch. Thread tid serves ray tid of the
+// segment's tile.
 template <int C>
 __global__ void worklist_closest_kernel(const int* __restrict__ offs,
                                         const int* __restrict__ clusters,
-                                        const int* __restrict__ counts, int tr,
+                                        const int* __restrict__ counts,
                                         const float4* __restrict__ o4,
                                         const float4* __restrict__ d4,
                                         const float* __restrict__ w,
@@ -176,15 +164,10 @@ __global__ void worklist_closest_kernel(const int* __restrict__ offs,
     __syncthreads();
     const Segment seg = read_segment(s_claim);  // claimed into again only after a step's barrier
     if (seg.tile < 0) break;                    // block-uniform
-    Ray3 r[kRaysWL];
-    float bt[kRaysWL];
-    unsigned code[kRaysWL];
-#pragma unroll
-    for (int j = 0; j < kRaysWL; ++j) {
-      r[j] = load_ray(o4, d4, (size_t)seg.tile * tr + threadIdx.x + j * blockDim.x);
-      bt[j] = kTFar;
-      code[j] = 0;
-    }
+    const size_t ray = (size_t)seg.tile * blockDim.x + threadIdx.x;
+    const Ray3 r = load_ray(o4, d4, ray);
+    float bt = kTFar;
+    unsigned code = 0;
     const int* run = clusters + offs[seg.tile];
     stage_cluster<C>(s_w[0], w, run[seg.k0]);
     __syncthreads();
@@ -193,34 +176,27 @@ __global__ void worklist_closest_kernel(const int* __restrict__ offs,
       if (k + 1 < seg.k1) stage_cluster<C>(s_w[(k + 1 - seg.k0) & 1], w, run[k + 1]);
       const unsigned item = (unsigned)k << kLaneBits;
       for (int lane = 0; lane < C; lane += kGroupWL) {
-        bool hit[kGroupWL][kRaysWL];
-        float t[kGroupWL][kRaysWL];
+        bool hit[kGroupWL];
+        float t[kGroupWL];
         test_group<C>(hit, t, s, lane, r, bt);  // a t that is not under the best cannot win
 #pragma unroll
         for (int g = 0; g < kGroupWL; ++g) {  // in lane order: the first lane keeps a tie
-#pragma unroll
-          for (int j = 0; j < kRaysWL; ++j) {
-            // hit holds t < bt as it stood before this group's folds
-            if (hit[g][j] && (g == 0 || t[g][j] < bt[j])) {
-              bt[j] = t[g][j];
-              code[j] = item | (unsigned)(lane + g);
-            }
+          // hit holds t < bt as it stood before this group's folds
+          if (hit[g] && (g == 0 || t[g] < bt)) {
+            bt = t[g];
+            code = item | (unsigned)(lane + g);
           }
         }
       }
       __syncthreads();  // the next cluster is staged, and this one's readers are done
     }
-#pragma unroll
-    for (int j = 0; j < kRaysWL; ++j) {
-      if (bt[j] < kTFar)
-        atomicMin(key + (size_t)seg.tile * tr + threadIdx.x + j * blockDim.x,
-                  ((unsigned long long)__float_as_uint(bt[j]) << 32) | code[j]);
-    }
+    if (bt < kTFar)
+      atomicMin(key + ray, ((unsigned long long)__float_as_uint(bt) << 32) | code);
   }
 }
 
 // Closest hit, the finishing pass, one thread a ray: the key's t, and for a
-// hit the triangle id and u, v of the winning (item, lane) by field_t, for a
+// hit the triangle id and u, v of the winning (item, lane) by field_uv, for a
 // miss (kTFar, -1, 0, 0).
 __global__ void worklist_finish_kernel(const int* __restrict__ offs,
                                        const int* __restrict__ clusters, int tr, size_t n_rays,
@@ -247,7 +223,7 @@ __global__ void worklist_finish_kernel(const int* __restrict__ offs,
 #pragma unroll
     for (int f = 0; f < 3; ++f)
       m[f] = make_float4(wc[f * c], wc[per + f * c], wc[2 * per + f * c], wc[3 * per + f * c]);
-    field_t(m[0], m[1], m[2], o4[ray], d4[ray], kTFar, &u, &v);
+    field_uv(m[0], m[1], m[2], o4[ray], d4[ray], &u, &v);
     tri = tri_ids[(size_t)cl * c + lane];
   }
   bt_out[ray] = t;
@@ -265,7 +241,7 @@ __global__ void worklist_finish_kernel(const int* __restrict__ offs,
 template <int C>
 __global__ void worklist_anyhit_kernel(const int* __restrict__ offs,
                                        const int* __restrict__ clusters,
-                                       const int* __restrict__ counts, int tr,
+                                       const int* __restrict__ counts,
                                        const float4* __restrict__ o4,
                                        const float4* __restrict__ d4,
                                        const float* __restrict__ tmax,
@@ -282,49 +258,33 @@ __global__ void worklist_anyhit_kernel(const int* __restrict__ offs,
     __syncthreads();
     const Segment seg = read_segment(s_claim);  // claimed into again only after a later barrier
     if (seg.tile < 0) break;                    // block-uniform
-    Ray3 r[kRaysWL];
-    float tm[kRaysWL];
-    bool hit[kRaysWL];
-    bool open = false;
-#pragma unroll
-    for (int j = 0; j < kRaysWL; ++j) {
-      const size_t ray = (size_t)seg.tile * tr + threadIdx.x + j * blockDim.x;
-      r[j] = load_ray(o4, d4, ray);
-      tm[j] = ((const volatile uint8_t*)occ_out)[ray] ? 0.0f : tmax[ray];
-      hit[j] = false;
-      open |= tm[j] > kTMin;
-    }
-    if (!__syncthreads_or(open)) continue;  // block-uniform
+    const size_t ray = (size_t)seg.tile * blockDim.x + threadIdx.x;
+    const Ray3 r = load_ray(o4, d4, ray);
+    float tm = ((const volatile uint8_t*)occ_out)[ray] ? 0.0f : tmax[ray];
+    bool found = false;
+    if (!__syncthreads_or(tm > kTMin)) continue;  // block-uniform
     const int* run = clusters + offs[seg.tile];
     stage_cluster<C>(s_w[0], w, run[seg.k0]);
     __syncthreads();
     for (int k = seg.k0; k < seg.k1; ++k) {
       const float4* s = s_w[(k - seg.k0) & 1];
       if (k + 1 < seg.k1) stage_cluster<C>(s_w[(k + 1 - seg.k0) & 1], w, run[k + 1]);
-      for (int lane = 0; lane < C && __any_sync(0xffffffffu, open); lane += kGroupWL) {
-        bool h[kGroupWL][kRaysWL];
-        float t[kGroupWL][kRaysWL];
-        test_group<C>(h, t, s, lane, r, tm);
-        open = false;
+      for (int lane = 0; lane < C && __any_sync(0xffffffffu, tm > kTMin); lane += kGroupWL) {
+        bool hit[kGroupWL];
+        float t[kGroupWL];
+        test_group<C>(hit, t, s, lane, r, tm);
 #pragma unroll
-        for (int j = 0; j < kRaysWL; ++j) {
-#pragma unroll
-          for (int g = 0; g < kGroupWL; ++g) hit[j] |= h[g][j];
-          if (hit[j]) tm[j] = 0.0f;
-          open |= tm[j] > kTMin;
-        }
+        for (int g = 0; g < kGroupWL; ++g) found |= hit[g];
+        if (found) tm = 0.0f;
       }
       __syncthreads();  // the next cluster is staged, and this one's readers are done
     }
-#pragma unroll
-    for (int j = 0; j < kRaysWL; ++j) {
-      if (hit[j]) occ_out[(size_t)seg.tile * tr + threadIdx.x + j * blockDim.x] = 1;
-    }
+    if (found) occ_out[ray] = 1;
   }
 }
 
-// A block is tr / kRaysWL threads in whole warps, and C is kClusterWL.
-bool takes(int tr, int c) { return c == kClusterWL && tr > 0 && tr % (32 * kRaysWL) == 0; }
+// A block is tr threads in whole warps, and C is kClusterWL.
+bool takes(int tr, int c) { return c == kClusterWL && tr > 0 && tr <= 1024 && tr % 32 == 0; }
 
 }  // namespace
 
@@ -340,8 +300,8 @@ int wl_closest(const void* offs, const void* clusters, const void* counts, int n
                const void* order, const void* ends, int n_ranks, void* next_seg, int grid,
                void* key, void* bt, void* btri, void* bu, void* bv, void* stream) {
   if (!takes(tr, c)) return (int)cudaErrorInvalidValue;
-  worklist_closest_kernel<kClusterWL><<<grid, tr / kRaysWL, 0, (cudaStream_t)stream>>>(
-      (const int*)offs, (const int*)clusters, (const int*)counts, tr, (const float4*)o4,
+  worklist_closest_kernel<kClusterWL><<<grid, tr, 0, (cudaStream_t)stream>>>(
+      (const int*)offs, (const int*)clusters, (const int*)counts, (const float4*)o4,
       (const float4*)d4, (const float*)w, (const long long*)order, (const int*)ends, n_ranks,
       (int*)next_seg, (unsigned long long*)key);
   const cudaError_t e = cudaGetLastError();
@@ -360,8 +320,8 @@ int wl_anyhit(const void* offs, const void* clusters, const void* counts, int tr
               const void* ends, int n_ranks, void* next_seg, int grid, void* occ,
               void* stream) {
   if (!takes(tr, c)) return (int)cudaErrorInvalidValue;
-  worklist_anyhit_kernel<kClusterWL><<<grid, tr / kRaysWL, 0, (cudaStream_t)stream>>>(
-      (const int*)offs, (const int*)clusters, (const int*)counts, tr, (const float4*)o4,
+  worklist_anyhit_kernel<kClusterWL><<<grid, tr, 0, (cudaStream_t)stream>>>(
+      (const int*)offs, (const int*)clusters, (const int*)counts, (const float4*)o4,
       (const float4*)d4, (const float*)tmax, (const float*)w, (const long long*)order,
       (const int*)ends, n_ranks, (int*)next_seg, (uint8_t*)occ);
   return (int)cudaGetLastError();

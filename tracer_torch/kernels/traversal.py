@@ -53,13 +53,12 @@ T_MIN = 1e-4
 
 # The work-list kernels' unit of work is a segment, SEG_WL consecutive items
 # of one tile's run (a step is TR rays x C triangles, 256 x 128 at the
-# defaults), and a thread serves RAYS_WL rays of the tile: a block is
-# TR / RAYS_WL threads, 128 for a tile of 256 rays. Their grid is
-# BLOCKS_PER_SM_WL persistent blocks for every SM of the card. The kernels
-# are built for clusters of CLUSTER_WL triangles, the size the presets build
-# (kSegWL, kRaysWL, kClusterWL of csrc/traversal.cu).
+# defaults); a block is TR threads, one a ray. Their grid is
+# BLOCKS_PER_SM_WL persistent blocks for every SM of the card (at some 40
+# registers a thread, 6 blocks of 256 threads fit). The kernels are built
+# for clusters of CLUSTER_WL triangles, the size the presets build (kSegWL,
+# kClusterWL of csrc/traversal.cu).
 SEG_WL = 4
-RAYS_WL = 2
 BLOCKS_PER_SM_WL = 6
 CLUSTER_WL = 128
 
@@ -373,11 +372,11 @@ def worklist_finish_plain(key, o4, d4, tri_w, tri_ids, offs, clusters):
     c = tri_ids.shape[1]
     bt, item, lane = unpack_key(key)
     hit = bt < T_FAR
+    item, lane = torch.where(hit, item, 0), torch.where(hit, lane, 0)     # a miss reads slot 0
     if clusters.numel() == 0:
         cl = torch.zeros_like(item)
     else:
-        cl = clusters[(offs[:-1, None] + torch.where(hit, item, 0))
-                      .clamp_max(clusters.shape[0] - 1).long()].long()
+        cl = clusters[(offs[:-1, None] + item).clamp_max(clusters.shape[0] - 1).long()].long()
     cols = lane[..., None] + c * torch.arange(3, device=key.device)          # (Nt, TR, 3)
     w = tri_w[cl[..., None, None], torch.arange(4, device=key.device)[:, None],
               cols[..., None, :]]                                            # (Nt, TR, 4, 3)
@@ -395,11 +394,9 @@ def _check_worklist(o4, d4, tri_w, offs, clusters, *extra):
     if offs.shape != (o4.shape[0] + 1,) or clusters.ndim != 1:
         raise ValueError(f"offs must be (Nt+1,) and clusters (W,), got {tuple(offs.shape)}, "
                          f"{tuple(clusters.shape)}")
-    tr, c = o4.shape[1], tri_w.shape[2] // 3
-    if tr % (32 * RAYS_WL) or c != CLUSTER_WL:
-        raise ValueError(f"tiles of {tr} rays over clusters of {c} triangles: the work-list "
-                         f"kernels take a multiple of {32 * RAYS_WL} rays and {CLUSTER_WL} "
-                         f"triangles")
+    if tri_w.shape[2] // 3 != CLUSTER_WL:
+        raise ValueError(f"clusters of {tri_w.shape[2] // 3} triangles: the work-list kernels "
+                         f"are built for {CLUSTER_WL}")
 
 
 def _segment_scratch(offs, k_cap: int):
@@ -409,7 +406,8 @@ def _segment_scratch(offs, k_cap: int):
     counts = (offs[1:] - offs[:-1]).contiguous()
     order, ends = run_segments(counts, SEG_WL, k_cap)
     next_seg = torch.zeros(1, dtype=torch.int32, device=offs.device)
-    return counts, order, ends, ends.shape[0], next_seg, sm_count(offs.device.index) * BLOCKS_PER_SM_WL
+    grid = sm_count(offs.device.index) * BLOCKS_PER_SM_WL
+    return counts, order, ends, ends.shape[0], next_seg, grid
 
 
 def worklist_closest(o4, d4, tri_w, tri_ids, offs, clusters, k_cap: int):
