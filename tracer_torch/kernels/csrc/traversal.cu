@@ -31,9 +31,12 @@
 // IEEE divide per (ray, triangle). With -fmad=false an operation is an
 // instruction, so the issue floor is twice the bound that counts a fused
 // multiply-add as two operations, plus what the count leaves out: the
-// divide's sequence, the compares and selects, the shared-memory loads.
-// PERF.md has the instruction count of a test and the rate reached. The
-// tensor cores do not serve these kernels (products of depth 4 that must
+// divide's sequence, the compares and selects, the shared-memory loads. As
+// built here a test executes 61 (any-hit) to 63.5 (closest hit) instructions:
+// 20 FMUL and 18 FADD, 10 for the divide (5 FFMA, MUFU.RCP, FCHK, a branch
+// and its convergence barriers), 7 compares, 3 LDS.128, selects and loop
+// work; on an H100 at 700 W the kernels issue at 83-88 % of the card's rate
+// (PERF.md). The tensor cores do not serve these kernels (products of depth 4 that must
 // round one at a time in fp32). With no early-out the work is the sum of the
 // runs' lengths; the runs are long (up to some 500 items) and uneven.
 //
