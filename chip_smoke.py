@@ -142,7 +142,7 @@ PEAK_BYTES = 3.35e12
 # tri_t (traversal2.cu, stream.cu, traversal3.cu): so 3 x (3 mul + 3 add), sd
 # 3 x (3 mul + 2 add), negate, divide, u and v 2 x (mul + add), 1 - u - v.
 FLOPS_TRI = 41
-# field_t (traversal.cu): so and sd 6 x (4 mul + 3 add), negate, divide, u
+# _field_epilogue (field_hit of traversal.cu): so and sd 6 x (4 mul + 3 add), negate, divide, u
 # and v 2 x (mul + add), u + v.
 FLOPS_FIELD = 49
 # _slab_enter (traversal3.cu) per (ray, box): per axis 2 subtractions, 2
