@@ -125,7 +125,9 @@ KERNELS = {
     "pair_anyhit": ("tracer_torch/kernels/csrc/traversal3.cu",
                     "tracer/kernels/traversal3.py:162"),
 }
-KERNEL_FUNCTIONS = {"closest_hit_kernel"} | {f"{k}_kernel" for k in KERNELS if k != "closest"}
+KERNEL_FUNCTIONS = ({"closest_hit_kernel", "closest_hit_finish_kernel",
+                     "closest_stream_finish_kernel"}
+                    | {f"{k}_kernel" for k in KERNELS if k != "closest"})
 # The kernels each tier's frame must launch; it must launch none of the others.
 TIERS = {"tiled": ("closest", "closest_fast", "anyhit"),
          "sorted": ("closest", "closest_fast", "anyhit"),
@@ -348,20 +350,25 @@ def device_ms(fn, reps: int) -> float:
 
 
 def tail_report(name, results, geometry, counts, call, table):
-    """What is left of the tail of long candidate runs in a segmented
-    kernel, on a selection of tiles by descending count (`counts`): how many
-    segments its work is cut into, and the kernel's own device time on all
-    of the selection, on the heaviest tile alone and on the selection
-    without its 256 heaviest tiles. call(a, b) and table(a, b) give a
-    function that runs the wrapper, and one that builds its segment table,
-    on tiles a:b of the selection. The wrapper builds the table at every
-    call, in eager PyTorch, so the kernel's own time is the wrapper's device
-    time less the table's (device_ms of each: what is left holds the kernel
-    and the fills of its scratch). Returns the kernel's own ms on all."""
+    """What is left of the tail of long candidate runs in a kernel, on a
+    selection of tiles by descending count (`counts`): how many segments
+    its work is cut into, and the kernel's own device time on all of the
+    selection, on the heaviest tile alone and on the selection without its
+    256 heaviest tiles. call(a, b) and table(a, b) give a function that runs
+    the wrapper, and one that builds its segment table, on tiles a:b of the
+    selection (table None: a kernel that walks a tile in one block, which
+    builds no table). The wrapper builds the table at every call, in eager
+    PyTorch, so the kernel's own time is the wrapper's device time less the
+    table's (device_ms of each: what is left holds the kernel and the fills
+    of its scratch). Returns the kernel's own ms on all."""
     parts = ((0, None), (0, 1), (256, None))
     check(counts.shape[0] > 256, f"{name}: the selection holds no tile past the 256 heaviest")
-    n_seg, seg_heavy, seg_rest = (int(table(a, b)()[1][-1]) for a, b in parts)
-    table_ms = [device_ms(table(a, b), 10) for a, b in parts]
+    if table is None:
+        n_seg = seg_heavy = seg_rest = "no"
+        table_ms = [0.0, 0.0, 0.0]
+    else:
+        n_seg, seg_heavy, seg_rest = (int(table(a, b)()[1][-1]) for a, b in parts)
+        table_ms = [device_ms(table(a, b), 10) for a, b in parts]
     wrap_ms = [device_ms(call(a, b), 10) for a, b in parts]
     ms_all, ms_heavy, ms_rest = (w - t for w, t in zip(wrap_ms, table_ms))
     log(f"[kernels] {name}: {n_seg} segments, {geometry}; the wrapper takes "
@@ -392,6 +399,70 @@ def sorted_tail_report(name, kernel, args, results):
 
     tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES} threads a ray, "
                 f"{t2.BLOCKS_PER_SM} blocks an SM", args[5], call, table)
+
+
+def closest_table(counts, k_cap):
+    """The segment table a sorted closest-hit wrapper builds at every call,
+    as a function of no arguments."""
+    return lambda: _launch.run_segments(counts, t2.SEG, k_cap)
+
+
+def closest_tail_report(name, kernel, args, results):
+    """tail_report of a sorted closest-hit kernel on args = (o4, d4, w,
+    words, counts), tiles by descending count."""
+    def cut(a, b):
+        return tuple(x if x is args[2] else x[a:b].contiguous() for x in args)
+
+    def call(a, b):
+        part = cut(a, b)
+        return lambda: kernel(*part)
+
+    def table(a, b):
+        part = cut(a, b)
+        return closest_table(part[4], part[3].shape[1])
+
+    if closest_table(args[4], args[3].shape[1]) is None:
+        tail_report(name, results, "one block a tile, one thread a ray", args[4], call, None)
+    else:
+        tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES} threads a ray, "
+                    f"{t2.BLOCKS_PER_SM} blocks an SM", args[4], call, table)
+
+
+def closest_whole_pass(name, kernel, plain, args, what):
+    """A sorted closest-hit kernel on every tile of its pass, args = (o4, d4,
+    w, words, counts): bt and bid bit for bit against the plain version
+    (untimed), three runs bit-identical (blocks meet in an order that
+    varies), the kernel's own device time (device_ms of the wrapper less its
+    segment table's), the bound on these tiles (closest_bound), and the
+    cluster tests a second that the bound counts beside the SM clock under
+    the load. Returns (kernel-alone ms, bound ms)."""
+    o4, _, w, words, counts = args
+    tr, c = o4.shape[1], w.shape[2] // 3
+    t0 = time.perf_counter()
+    out_k, out_p = kernel(*args), plain(*args)
+    bad = bit_mismatches(out_k, out_p)
+    again = sum(sum(bit_mismatches(out_k, kernel(*args))) for _ in range(2))
+    torch.cuda.synchronize()
+    cmp_s = time.perf_counter() - t0
+    table = closest_table(counts, words.shape[1])
+    wrap = device_ms(lambda: kernel(*args), 10)
+    tab = 0.0 if table is None else device_ms(table, 10)
+    alone = wrap - tab
+    bnd, tests = closest_bound(words, counts, float_bits(out_k[0]).amax(1), tr, c)
+    n_tests = int(needed_words(words, counts, float_bits(out_k[0]).amax(1)).sum()) * tr * c
+    mhz = clock_under_load(lambda: kernel(*args), wrap)
+    sms = _launch.sm_count(0)
+    log(f"[kernels] {name} on every tile of its pass ({what}: {counts.shape[0]} tiles, "
+        f"{count_stats(counts)}): bit mismatches bt {bad[0]}, bid {bad[1]}, elements that "
+        f"differ between three runs {again} ({cmp_s:.1f} s, untimed); wrapper {wrap:.4f} ms "
+        f"of device time, segment table {tab:.4f}, kernel alone {alone:.4f} ms; bound "
+        f"{bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), kernel alone / bound "
+        f"{alone / bnd['bound_ms']:.2f}; {n_tests / alone / 1e6:.1f} G (ray, triangle) tests/s "
+        f"of those the bound counts, beside {sms} SMs x 128 lanes x {mhz} MHz (nvidia-smi, "
+        f"under this load) = {sms * 128 * mhz / 1e6:.2f} T instructions/s")
+    check(not any(bad) and not again,
+          f"{name}: kernel disagrees with its plain version, or with itself, on the whole pass")
+    return alone, bnd["bound_ms"]
 
 
 def clock_under_load(fn, ms: float) -> int:
@@ -431,12 +502,19 @@ def phase_kernels(results: dict, cfg, dev):
         w_s, c_s = words[sel].contiguous(), counts[sel].contiguous()
         gen = c_s > t2.FAST_BATCH
         one = c_s == 1
-        compare_closest("closest", t2.closest_hit, t2.closest_hit_plain,
-                        o4[gen], d4[gen], w, w_s[gen].contiguous(), c_s[gen].contiguous(),
-                        results)
+        gen_args = (o4[gen], d4[gen], w, w_s[gen].contiguous(), c_s[gen].contiguous())
+        compare_closest("closest", t2.closest_hit, t2.closest_hit_plain, *gen_args, results)
+        closest_tail_report("closest", t2.closest_hit, gen_args, results)
         compare_closest("closest_fast", t2.closest_fast, t2.closest_fast_plain,
                         o4[one], d4[one], w, w_s[one].contiguous(), c_s[one].contiguous(),
                         results)
+        # The frame's generic region: every tile with count > 1, by descending
+        # count, as trace_tiles_split hands it to the kernel.
+        order = torch.argsort(-counts, stable=True)
+        region = order[:int((counts > t2.FAST_BATCH).sum())]
+        closest_whole_pass("closest", t2.closest_hit, t2.closest_hit_plain,
+                           (*_homog(o_t[region], d_t[region]), w, words[region].contiguous(),
+                            counts[region].contiguous()), "the generic region")
 
         # The frame's shadow pass: segments from the light to the primary hits.
         gid, rows, _, _, _ = tiled._trace_rows(accel, o_t, d_t)
@@ -480,10 +558,15 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
         log(f"[stream] primary cull: {o_t.shape[0]} tiles, {count_stats(counts)}, S {need[1]}")
         sel = select_tiles(counts)
         o4, d4 = _homog(o_t[sel], d_t[sel])
-        compare_closest("closest_stream", st.closest_stream, st.closest_stream_plain, o4, d4,
-                        accel.tri_w, words[sel].contiguous(), counts[sel].contiguous(),
+        sel_args = (o4, d4, accel.tri_w, words[sel].contiguous(), counts[sel].contiguous())
+        compare_closest("closest_stream", st.closest_stream, st.closest_stream_plain, *sel_args,
                         results)
-        del words
+        closest_tail_report("closest_stream", st.closest_stream, sel_args, results)
+        closest_whole_pass("closest_stream", st.closest_stream, st.closest_stream_plain,
+                           (*_homog(o_t, d_t), accel.tri_w, words.contiguous(),
+                            counts.contiguous()),
+                           "the primary pass, in tile order")
+        del words, sel_args
 
         trace_fn, _ = st.make_streamed_tracers_aux(scene, accel)
         hit, _ = trace_fn(rays)
@@ -711,6 +794,34 @@ def worklist_kernels(results: dict, cfg, scene, accel, rays):
     compare_worklist(results, accel, so, sd, tm, cand, counts)
 
 
+def worklist_cluster_size(cfg, scene, rays, c: int = 32):
+    """The two work-list kernels at clusters of c triangles (an accel of its
+    own), tiles of 256 rays in order, against their plain versions on a
+    reduced selection (the 64 heaviest tiles and every 64th): the primary
+    rays, and the first light's shadow rays from the tier's own primary hits
+    at that size; outputs bit for bit, untimed."""
+    accel = build_scene_accel(scene, c)
+    o_t, d_t, _ = tile_rays(rays.o, rays.d, t1.DEFAULT_TILE)
+    trace_fn, _ = t1.make_accel_tracers(scene, accel, use_pallas=True)
+    so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, t1.DEFAULT_TILE)
+    for what, (ro, rd, rt) in (("primary", (o_t, d_t, None)), ("shadow", (so, sd, tm))):
+        cand, counts, excess = cull_clusters(accel, ro, rd, T_FAR if rt is None else rt)
+        check(int(excess) == 0, f"work-list {what} cull at C = {c} dropped candidates")
+        n = counts.shape[0]
+        sel = torch.unique(torch.cat([torch.argsort(-counts, stable=True)[:64],
+                                      torch.arange(0, n, 64, device=counts.device)]))
+        if rt is not None:
+            sel = sel[counts[sel] > 0]
+        run_k, run_p, clusters, _ = worklist_case(accel, ro, rd, rt, cand, counts, sel)
+        bad = bit_mismatches(run_k(), run_p())
+        torch.cuda.synchronize()
+        log(f"[wavefront] work-list kernels at C = {c} ({accel.num_clusters} clusters), {what} "
+            f"rays: {sel.numel()} of {n} tiles, {count_stats(counts[sel])}, {clusters.numel()} "
+            f"items: bit mismatches {bad}")
+        check(not any(bad), f"work-list kernel at C = {c} disagrees with its plain version "
+                            f"({what} rays)")
+
+
 def pair_kernels(results: dict, cfg, scene, accel, rays):
     """The two pair kernels vs their plain versions at the frame's own
     shapes, 8x8 tiles, as worklist_kernels; then the two shadow-ray any-hit
@@ -737,6 +848,7 @@ def phase_wavefront_kernels(results: dict, cfg, scene, camera, accel):
     with torch.inference_mode():
         rays = generate_rays(camera, cfg.height, cfg.width)
         worklist_kernels(results, cfg, scene, accel, rays)
+        worklist_cluster_size(cfg, scene, rays)
         pair_kernels(results, cfg, scene, accel, rays)
 
 

@@ -468,23 +468,52 @@ def test_closest_key_packing():
         tt.check_key_fits(128, (1 << tt.KEY_ITEM_BITS) + 1)
 
 
+def _built_cluster_sizes(src):
+    """The cluster sizes csrc/traversal.cu's with_cluster_size dispatches to."""
+    cases = re.findall(r"case (\d+): f\(std::integral_constant<int, (\d+)>\(\)\); return true;",
+                       src)
+    assert cases and all(a == b for a, b in cases)
+    return tuple(int(a) for a, _ in cases)
+
+
 def test_worklist_constants_pinned_to_the_kernels():
-    """SEG_WL, CLUSTER_WL and KEY_LANE_BITS are csrc/traversal.cu's kSegWL,
-    kClusterWL and kLaneBits, a block of the work-list kernels is TR
-    threads, every segmented kernel claims through
-    common.cuh's claim_segment at its own segment length, and KEY_MISS is
-    kTFar's bits over all ones (the kernels cannot run here: their constants
-    are read from the sources)."""
+    """SEG_WL, CLUSTER_SIZES_WL and KEY_LANE_BITS are csrc/traversal.cu's
+    kSegWL, the sizes with_cluster_size instantiates and kLaneBits, a block
+    of the work-list kernels is TR threads, every segmented kernel claims
+    through common.cuh's claim_segment at its own segment length, and
+    KEY_MISS is kTFar's bits over all ones (the kernels cannot run here:
+    their constants are read from the sources)."""
     csrc = Path(tt.__file__).parent / "csrc"
     src = (csrc / "traversal.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert ((int(consts["kSegWL"]), int(consts["kClusterWL"]), int(consts["kLaneBits"]))
-            == (tt.SEG_WL, tt.CLUSTER_WL, tt.KEY_LANE_BITS))
-    assert len(re.findall(r"kernel<kClusterWL><<<grid, tr, 0,", src)) == 2
+    assert ((int(consts["kSegWL"]), _built_cluster_sizes(src), int(consts["kLaneBits"]))
+            == (tt.SEG_WL, tt.CLUSTER_SIZES_WL, tt.KEY_LANE_BITS))
+    assert len(re.findall(r"kernel<decltype\(size\)::value><<<grid, tr, 0,", src)) == 2
+    assert len(re.findall(r"with_cluster_size\(c, walk\)", src)) == 2
     assert len(re.findall(r"claim_segment<kSegWL>\(", src)) == 2
-    for name in ("traversal2.cu", "stream.cu"):
+    for name in ("traversal2.cu", "stream.cu", "sorted.cuh"):
         other = (csrc / name).read_text()
         assert "claim_segment<kSeg>(" in other and "claim_segment(" not in other
     far = re.search(r"constexpr float kTFar = (\S+)f;", (csrc / "common.cuh").read_text())
     far_bits = int(torch.tensor(float(far.group(1)), dtype=torch.float32).view(torch.int32))
     assert float(far.group(1)) == T_FAR and tt.KEY_MISS == (far_bits << 32) | 0xFFFFFFFF
+
+
+@pytest.mark.parametrize("c", [4, 32, 64, 128, 48])
+def test_worklist_cluster_sizes(c):
+    """The work-list kernels are built for the cluster sizes the reference's
+    tests build, 4, 32, 64 and 128 (read from csrc/traversal.cu): the
+    wrappers' check passes those on to the device check (which CPU tensors
+    fail) and raises for any other size, naming the set; nothing falls back
+    to the plain version."""
+    src = (Path(tt.__file__).parent / "csrc" / "traversal.cu").read_text()
+    assert _built_cluster_sizes(src) == tt.CLUSTER_SIZES_WL == (4, 32, 64, 128)
+    o4, d4 = tt._homog(torch.zeros(2, 32, 3), torch.ones(2, 32, 3))
+    w = torch.zeros(3, 4, 3 * c)
+    offs, clusters = torch.tensor([0, 1, 2], dtype=torch.int32), torch.tensor([0, 2], dtype=torch.int32)
+    if c in tt.CLUSTER_SIZES_WL:
+        with pytest.raises(RuntimeError, match="CUDA or CPU"):
+            tt._check_worklist(o4, d4, w, offs, clusters)
+    else:
+        with pytest.raises(ValueError, match=re.escape(str(tt.CLUSTER_SIZES_WL))):
+            tt._check_worklist(o4, d4, w, offs, clusters)

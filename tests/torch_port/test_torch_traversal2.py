@@ -21,6 +21,8 @@ from tracer.bvh.cluster import build_clusters
 from tracer.core.types import T_FAR
 from tracer.kernels import traversal2 as jt2
 from tracer_torch.bridge import accel_from_arrays
+from tracer_torch.bvh.cull import CLUSTER_BITS
+from tracer_torch.kernels import traversal as tt
 from tracer_torch.kernels import traversal2 as tt2
 
 from parity_util import bunny_rays, exact_cull as _cull, leaves, segment_list, soup_rays
@@ -192,17 +194,195 @@ def test_anyhit_plain_by_segments_equals_whole(case):
 
 def test_segment_constants_pinned_to_the_kernels():
     """SEG and SLICES are csrc/common.cuh's kSeg and kSlices, a block of the
-    any-hit kernels is SLICES * 64 = 256 threads for a tile of 64 rays, and
-    both sources take the header's constants and launch that block (the
-    kernels cannot run here: their constants are read from the sources)."""
+    segmented kernels (both any-hit kernels, and the closest-hit walk of
+    sorted.cuh that closest_hit_kernel and closest_stream_kernel run) is
+    SLICES * 64 = 256 threads for a tile of 64 rays, both sources take the
+    header's constants and launch that block, and SEG is a whole number of
+    each closest-hit kernel's steps: B = BATCH in traversal2.cu, STREAM_BATCH
+    in stream.cu (the kernels cannot run here: their constants are read from
+    the sources)."""
     csrc = Path(tt2.__file__).parent / "csrc"
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", (csrc / "common.cuh").read_text()))
     assert (int(consts["kSeg"]), int(consts["kSlices"])) == (tt2.SEG, tt2.SLICES) == (8, 4)
     assert tt2.SLICES * 64 == 256
     for name in ("traversal2.cu", "stream.cu"):
         src = (csrc / name).read_text()
-        assert '#include "common.cuh"' in src
+        assert '#include "common.cuh"' in src and '#include "sorted.cuh"' in src
         assert not re.search(r"constexpr int (kSeg|kSlices) =", src)
         assert re.search(r"anyhit\w*kernel<<<grid, kSlices \* tr,", src)
-    batch = re.search(r"constexpr int kBatch = (\d+);", (csrc / "traversal2.cu").read_text())
+    sorted_src = (csrc / "sorted.cuh").read_text()
+    assert "walk<<<grid, kSlices * tr, smem, s>>>" in sorted_src
+    assert "static_assert(kSeg % kB == 0" in sorted_src
+    src2, srcs = ((csrc / name).read_text() for name in ("traversal2.cu", "stream.cu"))
+    batch = re.search(r"constexpr int kBatch = (\d+);", src2)
     assert int(batch.group(1)) == tt2.BATCH and tt2.SEG % tt2.BATCH == 0
+    assert "constexpr int kNBufClosest = 2 * kBatch;" in src2
+    assert "closest_segments<kBatch, kNBufClosest>(" in src2
+    assert "launch_closest(closest_hit_kernel, closest_hit_finish_kernel, kNBufClosest," in src2
+    stream_batch = int(re.search(r"constexpr int kBatch = (\d+);", srcs).group(1))
+    assert stream_batch == 2 and tt2.SEG % stream_batch == 0
+    assert "closest_segments<kBatch, kNBuf>(" in srcs
+    assert "launch_closest(closest_stream_kernel, closest_stream_finish_kernel, kNBuf," in srcs
+
+
+# ---------------------------------------------------------------------------
+# The segmented closest-hit walk (csrc/sorted.cuh), modelled in plain torch:
+# segments of run_segments, each walked step by step from the keys merged so
+# far (its early-out bound), its hits merged into one key a ray by the
+# minimum, the keys decoded by closest_finish_plain. The kernels' blocks meet
+# in no fixed order; the model walks the segment ranks forward or backward.
+# ---------------------------------------------------------------------------
+
+def _homog_np(o_t, d_t):
+    return (torch.from_numpy(np.concatenate([o_t, np.ones_like(o_t[..., :1])], -1)),
+            torch.from_numpy(np.concatenate([d_t, np.zeros_like(d_t[..., :1])], -1)))
+
+
+def _step_keys(o4, d4, w, words, counts, k, batch, n_cl):
+    """The least key of each ray over one step (words k .. k+B-1) of each
+    tile: per lane the earliest word wins, the candidate (t, step, rank,
+    lane) -> (Nt, TR) int64, KEY_MISS where the step has no hit."""
+    c = w.shape[2] // 3
+    cl, live = tt2._candidates(words, counts, k, batch, n_cl)
+    tv = tt2._cluster_t(o4[:, None], d4[:, None], w[cl.long()], T_FAR)
+    tv = torch.where(live[..., None, None], tv, T_FAR)                   # (Nt, B, TR, C)
+    m = tv.amin(1)
+    j_first = (tv == m[:, None]).to(torch.uint8).argmax(1)               # (Nt, TR, C)
+    ranks = tt2.step_ranks(cl, live)                                      # (Nt, B)
+    rank = torch.gather(ranks, 1, j_first.flatten(1)).view_as(j_first)
+    lane = torch.arange(c).expand_as(rank)
+    keys = tt2.pack_closest_key(m, torch.full_like(rank, k // batch), rank, lane, c, batch)
+    return torch.where(m < T_FAR, keys, tt.KEY_MISS).amin(-1)
+
+
+def _closest_by_segments(o4, d4, w, words, counts, batch, seg, backward=False):
+    """The segmented walk, merged by the key and decoded -> (bt, bid)."""
+    n_cl, c = w.shape[0], w.shape[2] // 3
+    k_cap = words.shape[1]
+    tile, k0 = map(torch.from_numpy, segment_list(*tt2.run_segments(counts, seg, k_cap), seg))
+    key = torch.full(o4.shape[:2], tt.KEY_MISS, dtype=torch.int64)
+    ranks = sorted(set(k0.tolist()), reverse=backward)
+    for r0 in ranks:                     # a rank's tiles are distinct: one block each
+        t = tile[k0 == r0]
+        held = key[t]                    # the keys as the segments find them
+        best = held.clone()
+        going = torch.ones(t.shape[0], dtype=torch.bool)
+        for k in range(r0, r0 + seg, batch):
+            bound = (best >> 32).amax(1)
+            entry = (words[t, min(k, k_cap - 1)] & ~tt2._CL_MASK).long()
+            going &= (k < counts[t]) & ~(entry > bound)
+            if not going.any():
+                break
+            g = t[going]
+            step = _step_keys(o4[g], d4[g], w, words[g], counts[g], k, batch, n_cl)
+            best[going] = torch.minimum(best[going], step)
+        key[t] = torch.minimum(key[t], best)
+    return tt2.closest_finish_plain(key, words, counts, n_cl, c, batch)
+
+
+def _assert_bits(got, want):
+    np.testing.assert_array_equal(got[0].view(torch.int32).numpy(),
+                                  want[0].view(torch.int32).numpy())
+    np.testing.assert_array_equal(got[1].numpy(), want[1].numpy())
+    assert got[1].dtype == want[1].dtype == torch.int32
+
+
+@pytest.mark.parametrize("batch", [tt2.BATCH, 2])
+@pytest.mark.parametrize("mult", [1, 2, 4])
+def test_closest_by_segments_equals_the_plain_walk(case, batch, mult):
+    """Segments of B, 2B and 4B words, walked from the keys merged so far
+    (forward) or from none of the earlier ranks' (backward: every bound
+    stale), merged by the key's minimum and decoded: bt and bid bit for bit
+    those of closest_hit_plain at the same B."""
+    _, t_accel, o_t, d_t, _, words, counts = case
+    words, counts = torch.from_numpy(np.array(words)), torch.from_numpy(np.array(counts))
+    o4, d4 = _homog_np(o_t, d_t)
+    w = t_accel.tri_w
+    want = tt2.closest_hit_plain(o4, d4, w, words, counts, batch=batch)
+    assert int(counts.max()) > batch, "some tile must walk more than one step"
+    for backward in (False, True):
+        _assert_bits(_closest_by_segments(o4, d4, w, words, counts, batch, batch * mult,
+                                          backward), want)
+    assert (want[1] >= 0).float().mean() > 0.05
+
+
+def _tie_case(kind):
+    """A hand-made tie over the soup's accel (C = 32): cluster y, the cluster
+    that holds the most rays' closest hit over all clusters, and y' = a copy
+    appended with the highest id, n_cl. Every tile walks the same words
+    (entry bits 0: no early out). Returns (o4, d4, w, words, counts, the
+    slot that must win for the tied rays, the slot that a wrong rule would
+    pick)."""
+    scene, o_t, d_t = soup_rays()
+    j_accel = jax.jit(build_clusters, static_argnums=2)(scene.verts, scene.tris, 32)
+    accel = accel_from_arrays(leaves(j_accel), "cpu")
+    w = accel.tri_w
+    n_cl, c = w.shape[0], w.shape[2] // 3
+    o4, d4 = _homog_np(o_t, d_t)
+    n_tiles = o4.shape[0]
+    every = torch.arange(n_cl, dtype=torch.int32).expand(n_tiles, n_cl).contiguous()
+    bid = tt2.closest_hit_plain(o4, d4, w, every, torch.full((n_tiles,), n_cl, dtype=torch.int32))[1]
+    y, lane = divmod(int(torch.mode(bid[bid >= 0]).values), c)
+    copy = w[y].clone()
+    if kind == "two_lanes":            # y' holds y's lane l at lane l + 1
+        copy = copy.view(4, 3, c).roll(1, dims=2).reshape(4, 3 * c)
+    w = torch.cat([w, copy[None]])
+    others = [i for i in range(n_cl) if i != y][:3]
+    if kind == "two_steps":            # y in step 0, y' in step 1 (at both B)
+        run, win, lose = [y] + others + [n_cl], y * c + lane, n_cl * c + lane
+    elif kind == "two_lanes":          # y' at j = 0, y at j = 1: the lower id wins, at its lane
+        run, win, lose = [n_cl, y] + others, y * c + lane, n_cl * c + lane + 1
+    else:                              # one lane, y' at j = 0, y at j = 1: the earlier j wins
+        run, win, lose = [n_cl, y] + others, n_cl * c + lane, y * c + lane
+    words = torch.tensor(run, dtype=torch.int32).expand(n_tiles, len(run)).contiguous()
+    counts = torch.full((n_tiles,), len(run), dtype=torch.int32)
+    return o4, d4, w, words, counts, win, lose
+
+
+@pytest.mark.parametrize("batch", [tt2.BATCH, 2])
+@pytest.mark.parametrize("kind", ["two_steps", "two_lanes", "one_lane"])
+def test_closest_by_segments_keeps_the_tie_rule(kind, batch):
+    """Hand-made ties (_tie_case), each held to the plain version: equal t
+    in two steps (the earlier step wins); equal t in two lanes whose
+    clusters' id order is the reverse of their j order (the lower slot
+    wins); one lane whose two words tie, ids in reverse order (the earlier
+    word wins, though its id is higher). Segments of one step each, walked
+    forward and backward."""
+    o4, d4, w, words, counts, win, lose = _tie_case(kind)
+    want = tt2.closest_hit_plain(o4, d4, w, words, counts, batch=batch)
+    assert (want[1] == win).any() and not (want[1] == lose).any()
+    for backward in (False, True):
+        _assert_bits(_closest_by_segments(o4, d4, w, words, counts, batch, batch, backward),
+                     want)
+
+
+@pytest.mark.parametrize("batch", [tt2.BATCH, 2])
+def test_closest_key_packing_and_limits(batch):
+    """The key orders as (t, step, rank, lane), round-trips at the limits of
+    its fields, and KEY_MISS lies above every hit's key and decodes to
+    (T_FAR, -1); check_closest_key raises one step past its limit."""
+    for c in (4, 32, 128):
+        lane_bits, shift = tt2.closest_key_bits(c, batch)
+        assert 1 << lane_bits >= c and shift == lane_bits + (batch - 1).bit_length()
+        step_max, lane_max = (1 << (32 - shift)) - 1, c - 1
+        t = torch.tensor([1.0001e-4, 1.0001e-4, 1.0, 1.0, 1.0, 1.0, 9.9e29], dtype=torch.float32)
+        step = torch.tensor([0, step_max, 0, 0, 0, 1, step_max])
+        rank = torch.tensor([batch - 1, 0, 0, 0, batch - 1, 0, batch - 1])
+        lane = torch.tensor([lane_max, 0, 0, 1, 0, 0, lane_max])
+        keys = tt2.pack_closest_key(t, step, rank, lane, c, batch)
+        assert keys.dtype == torch.int64 and bool((keys[1:] > keys[:-1]).all())
+        assert bool((keys < tt.KEY_MISS).all()) and bool((keys > 0).all())
+        t2, step2, rank2, lane2 = tt2.unpack_closest_key(keys, c, batch)
+        np.testing.assert_array_equal(t2.view(torch.int32).numpy(), t.view(torch.int32).numpy())
+        for got, want in ((step2, step), (rank2, rank), (lane2, lane)):
+            np.testing.assert_array_equal(got.numpy(), want.numpy())
+        k_cap = (step_max + 1) * batch
+        tt2.check_closest_key(c, k_cap, batch)
+        with pytest.raises(ValueError, match="closest-hit key"):
+            tt2.check_closest_key(c, k_cap + 1, batch)
+    # The largest list the cull can emit fits at the presets' C = 128.
+    tt2.check_closest_key(128, 1 << CLUSTER_BITS, batch)
+    miss = torch.full((2, 32), tt.KEY_MISS, dtype=torch.int64)
+    words, counts = torch.zeros((2, 3), dtype=torch.int32), torch.tensor([3, 0], dtype=torch.int32)
+    bt, bid = tt2.closest_finish_plain(miss, words, counts, 5, 32, batch)
+    assert bool((bt == T_FAR).all()) and bool((bid == -1).all()) and bid.dtype == torch.int32

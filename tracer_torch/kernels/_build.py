@@ -6,7 +6,7 @@ at the repository root, under a name keyed by a hash of the sources and the
 flags, so a changed source rebuilds and an unchanged one loads at once.
 Each source compiles to an object in its own nvcc process, all started
 together, and one more nvcc links the objects into the library. The
-sources share the header csrc/common.cuh.
+sources share the headers csrc/common.cuh and csrc/sorted.cuh.
 -fmad=false and the absence of fast math keep every product and the IEEE
 divide rounded as the plain PyTorch versions round them.
 """
@@ -22,23 +22,27 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("traversal2.cu", "stream.cu", "traversal.cu", "traversal3.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "sorted.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# words, counts, n_tiles, k_cap, tr, o4, d4, w, n_cl, c, bt, bid, stream
 _CLOSEST = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
+# words, counts, n_tiles, k_cap, tr, o4, d4, w, n_cl, c, order, ends, n_ranks,
+# next_seg, grid, key, bt, bid, stream
+_CLOSEST_SEG = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P, _P, _P]
 # words, counts, k_cap, tr, o4, d4, tmax, w, n_cl, c, order, ends, n_ranks,
 # next_seg, grid, occ, stream
 _ANYHIT = [_P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _I, _P, _P]
 # Entry points (see the extern "C" block of each source): name -> argtypes.
 _SIGNATURES = {
-    "tt_closest": _CLOSEST,      # traversal2.cu
+    "tt_closest": _CLOSEST_SEG,  # traversal2.cu
     "tt_closest_fast": _CLOSEST,
     "tt_anyhit": _ANYHIT,
-    "st_closest": _CLOSEST,      # stream.cu
+    "st_closest": _CLOSEST_SEG,  # stream.cu
     "st_anyhit": _ANYHIT,
     # traversal.cu. offs, clusters, counts, n_tiles, tr, o4, d4, w, tri_ids, c, order, ends,
     # n_ranks, next_seg, grid, key, bt, btri, bu, bv, stream

@@ -58,8 +58,9 @@
 //     key and recomputes u, v of the winner with all four products.
 //   * Rate. One thread a ray, a block of TR threads, and kGroupWL triangles
 //     in flight a thread before they fold (a test is a chain of some 50
-//     dependent instructions). C is a template parameter (128, the only
-//     cluster size the presets build; the entry points refuse any other).
+//     dependent instructions). C is a template parameter, built for the
+//     cluster sizes 4, 32, 64 and 128 (the presets build 128, the
+//     reference's tests all four; the entry points refuse any other).
 //     The loops carry t and the lane only. The fourth components are
 //     constants of the homogeneous form, o3 = 1 and d3 = 0: the loops add w3
 //     instead of 1*w3, which is the same float, and drop 0*w3, a signed zero
@@ -68,6 +69,8 @@
 //     by the finishing pass, which keeps the four products.
 //   * Staging. The next cluster of the segment is copied into the other of
 //     two 6 KB buffers before this one is tested: one barrier a step.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -75,7 +78,6 @@ namespace {
 constexpr int kSegWL = 4;    // items of a run in a segment; SEG_WL of kernels/traversal.py
 constexpr int kGroupWL = 4;  // triangles a thread keeps in flight before it folds
 constexpr int kLaneBits = 15;  // KEY_LANE_BITS: the key is bits(t) | item | lane, 32 + 17 + 15
-constexpr int kClusterWL = 128;  // the cluster size the kernels are built for; CLUSTER_WL
 
 // s[f*C + lane] = column f*C + lane of cluster cl's (4, 3C) matrix.
 template <int C>
@@ -286,8 +288,21 @@ __global__ void worklist_anyhit_kernel(const int* __restrict__ offs,
   }
 }
 
-// A block is tr threads in whole warps, and C is kClusterWL.
-bool takes(int tr, int c) { return c == kClusterWL && tr > 0 && tr <= 1024 && tr % 32 == 0; }
+// f(std::integral_constant<int, C>()) for the built cluster size C == c
+// (CLUSTER_SIZES_WL of kernels/traversal.py); false, and no call, for any other c.
+template <typename F>
+bool with_cluster_size(int c, F f) {
+  switch (c) {
+    case 4: f(std::integral_constant<int, 4>()); return true;
+    case 32: f(std::integral_constant<int, 32>()); return true;
+    case 64: f(std::integral_constant<int, 64>()); return true;
+    case 128: f(std::integral_constant<int, 128>()); return true;
+  }
+  return false;
+}
+
+// A block is tr threads in whole warps.
+bool takes(int tr) { return tr > 0 && tr <= 1024 && tr % 32 == 0; }
 
 }  // namespace
 
@@ -302,11 +317,13 @@ int wl_closest(const void* offs, const void* clusters, const void* counts, int n
                const void* o4, const void* d4, const void* w, const void* tri_ids, int c,
                const void* order, const void* ends, int n_ranks, void* next_seg, int grid,
                void* key, void* bt, void* btri, void* bu, void* bv, void* stream) {
-  if (!takes(tr, c)) return (int)cudaErrorInvalidValue;
-  worklist_closest_kernel<kClusterWL><<<grid, tr, 0, (cudaStream_t)stream>>>(
-      (const int*)offs, (const int*)clusters, (const int*)counts, (const float4*)o4,
-      (const float4*)d4, (const float*)w, (const long long*)order, (const int*)ends, n_ranks,
-      (int*)next_seg, (unsigned long long*)key);
+  const auto walk = [&](auto size) {
+    worklist_closest_kernel<decltype(size)::value><<<grid, tr, 0, (cudaStream_t)stream>>>(
+        (const int*)offs, (const int*)clusters, (const int*)counts, (const float4*)o4,
+        (const float4*)d4, (const float*)w, (const long long*)order, (const int*)ends, n_ranks,
+        (int*)next_seg, (unsigned long long*)key);
+  };
+  if (!takes(tr) || !with_cluster_size(c, walk)) return (int)cudaErrorInvalidValue;
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t n_rays = (size_t)n_tiles * tr;
@@ -322,11 +339,13 @@ int wl_anyhit(const void* offs, const void* clusters, const void* counts, int tr
               const void* d4, const void* tmax, const void* w, int c, const void* order,
               const void* ends, int n_ranks, void* next_seg, int grid, void* occ,
               void* stream) {
-  if (!takes(tr, c)) return (int)cudaErrorInvalidValue;
-  worklist_anyhit_kernel<kClusterWL><<<grid, tr, 0, (cudaStream_t)stream>>>(
-      (const int*)offs, (const int*)clusters, (const int*)counts, (const float4*)o4,
-      (const float4*)d4, (const float*)tmax, (const float*)w, (const long long*)order,
-      (const int*)ends, n_ranks, (int*)next_seg, (uint8_t*)occ);
+  const auto walk = [&](auto size) {
+    worklist_anyhit_kernel<decltype(size)::value><<<grid, tr, 0, (cudaStream_t)stream>>>(
+        (const int*)offs, (const int*)clusters, (const int*)counts, (const float4*)o4,
+        (const float4*)d4, (const float*)tmax, (const float*)w, (const long long*)order,
+        (const int*)ends, n_ranks, (int*)next_seg, (uint8_t*)occ);
+  };
+  if (!takes(tr) || !with_cluster_size(c, walk)) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

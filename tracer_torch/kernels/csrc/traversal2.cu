@@ -30,36 +30,51 @@
 // (4, 3C) matrix), the frame's exactness rests on fp32 products rounded one
 // at a time, and TF32 keeps 10 mantissa bits and would flip hits.
 //
-// What the design does about it. Every kernel stages kBatch candidate
-// clusters at a time in shared memory, transposed so that one triangle's 12
-// coefficients are three float4s that every thread of a warp reads from the
-// same address, a broadcast. Candidates past the early-out bound are
+// What the design does about it. Candidates past the early-out bound are
 // skipped: the closest-hit bound is the block max of the rays' best t
 // (compared as IEEE bits, order-isomorphic for t >= 0), the any-hit bound the
-// block max of t_max over the rays still unoccluded. The TPU's lockstep
-// group of 8 tiles is dropped: blocks are independent here.
-//
-// The closest-hit kernels run one block a tile, one thread a ray (their tie
-// rule depends on the order of the walk). anyhit_kernel does not: occlusion
-// is an OR over a tile's candidates, whatever the order and whoever visits
-// them, and the candidate lists have a long tail (a mean of 4 words a tile, a
-// maximum of some 300), which one block a tile would walk alone while the
-// card has drained. So its unit of work is a segment, kSeg consecutive words
-// of one tile (the table of kernels/_launch.py run_segments: every
+// block max of t_max over the rays still unoccluded. The TPU's lockstep group
+// of 8 tiles is dropped: blocks are independent here. The candidate lists
+// have a long tail (bench100k's primary pass: a mean of 4 words a tile, a
+// maximum of some 100; its shadow pass a maximum of some 300), which one
+// block a tile would walk alone while the card has drained. So the unit of
+// work of closest_hit_kernel and anyhit_kernel is a segment, kSeg consecutive
+// words of one tile (the table of kernels/_launch.py run_segments: every
 // tile's first segment, then every second one, heaviest tile first), and a
 // fixed grid of persistent blocks pulls segments from a device counter
 // (claim_segment, common.cuh). A block is kSlices * TR threads: kSlices
-// threads serve one ray, each testing every kSlices-th triangle of a staged
-// cluster, kGroup tests at a time without a branch between them. A segment
+// threads serve one ray, each with every kSlices-th lane (or quad of lanes)
+// of a staged cluster.
+//
+// closest_hit_kernel is the closest-hit walk of sorted.cuh at kBatch = 4
+// words a step: the step's clusters come through a ring of 2 * kBatch stages
+// that TMA's bulk copies fill (a cluster's (4, 3C) matrix as it lies in
+// tri_w, read as 16-byte broadcast loads that each cover one coefficient of 4
+// consecutive triangles), so the next step is in flight while this one is
+// tested, with no integer divide in the staging. Its tie rule depends on the
+// order of the walk, and the walk is split across blocks, so hits merge as
+// one 64-bit key a ray, bits(t) | step | rank | lane, under atomicMin: the
+// lexicographic minimum of (t, step, slot), which is the sequential walk's
+// result whatever the order in which the blocks meet (the argument, and the
+// early-out across blocks, are in sorted.cuh). closest_hit_finish_kernel
+// decodes the keys into (bt, bid).
+//
+// anyhit_kernel stages kBatch clusters at a time in shared memory, transposed
+// so that one triangle's 12 coefficients are three float4s that every thread
+// of a warp reads from the same address, a broadcast, and tests kGroup
+// triangles a thread without a branch between them. Occlusion is an OR over
+// a tile's candidates, whatever the order and whoever visits them: a segment
 // starts from the tile's occlusion flags as they stand in device memory
 // (possibly stale; flags are only ever set, so a stale read costs work, never
-// a result) and sets the flags of the rays it occludes.
+// a result) and sets the flags of the rays it occludes. closest_fast_kernel
+// runs one block a tile: one cluster, no loop.
 #include "common.cuh"
+#include "sorted.cuh"
 
 namespace {
 
-// Candidate clusters staged per step of the closest-hit and any-hit loops
-// (kBatch * 6 KB of shared memory at C = 128); BATCH of kernels/traversal2.py.
+// Candidate clusters a step of the closest-hit and any-hit loops (kBatch * 6
+// KB of shared memory at C = 128); BATCH of kernels/traversal2.py.
 constexpr int kBatch = 4;
 // Triangle tests a thread of anyhit_kernel keeps in flight before it folds.
 constexpr int kGroup = 4;
@@ -83,63 +98,30 @@ __device__ __forceinline__ void stage_clusters(float4* s, const float* __restric
   }
 }
 
-// Closest hit over a tile's sorted candidates, kBatch clusters per step. Per ray:
-// within a step the earliest candidate j wins a lane (strict <), across lanes
-// the smallest t and on equal t the smaller slot cl*C + lane, and a step
-// replaces the running best only on a strict < (traversal2.py:_batch_best).
+// Ring stages of closest_hit_kernel: two steps, the one it tests and the next.
+constexpr int kNBufClosest = 2 * kBatch;
+
+// Closest hit: key[ray] = min(key[ray], the key of each hit of the block's
+// segments); key holds the miss key at launch (sorted.cuh closest_segments).
 __global__ void closest_hit_kernel(const int* __restrict__ words, const int* __restrict__ counts,
-                                   int k_cap, const float4* __restrict__ o4,
-                                   const float4* __restrict__ d4, const float* __restrict__ w,
-                                   int n_cl, int c, float* __restrict__ bt_out,
-                                   int* __restrict__ bid_out) {
-  extern __shared__ float4 s_w[];
-  __shared__ int s_red[32];
-  const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
-  const int n = counts[tile];
-  const int* wt = words + (size_t)tile * k_cap;
-  const float4 o = o4[ray], d = d4[ray];
-  float bt = kTFar;
-  int bid = -1;
-  int bound = __float_as_int(kTFar);
-  for (int k = 0; k < n; k += kBatch) {
-    if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform
-    __syncthreads();                          // the last step's readers are done
-    stage_clusters(s_w, w, wt, k, kBatch, k_cap, n_cl, c);
-    __syncthreads();
-    int cl[kBatch];
-    bool live[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      cl[j] = min(wt[min(k + j, k_cap - 1)] & kClMask, n_cl - 1);
-      live[j] = k + j < n;
-    }
-    float tb = kTFar;
-    int tbid = kIntMax;
-    for (int lane = 0; lane < c; ++lane) {
-      float m = kTFar;
-      int mb = 0;
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const float tv = live[j] ? tri_t(s_w + (j * c + lane) * 3, o, d, kTFar) : kTFar;
-        if (j == 0 || tv < m) {
-          m = tv;
-          mb = cl[j] * c + lane;
-        }
-      }
-      if (m < tb || (m == tb && mb < tbid)) {
-        tb = m;
-        tbid = mb;
-      }
-    }
-    if (tb < bt) {
-      bt = tb;
-      bid = tbid;
-    }
-    bound = block_max(__float_as_int(bt), s_red);
-  }
-  bt_out[ray] = bt;
-  bid_out[ray] = bid;
+                                   int k_cap, int tr, const float4* __restrict__ o4,
+                                   const float4* __restrict__ d4, const float4* __restrict__ w,
+                                   int n_cl, int c, int lane_bits,
+                                   const long long* __restrict__ order,
+                                   const int* __restrict__ ends, int n_ranks, int* next_seg,
+                                   unsigned long long* key) {
+  closest_segments<kBatch, kNBufClosest>(words, counts, k_cap, tr, o4, d4, w, n_cl, c, lane_bits,
+                                         order, ends, n_ranks, next_seg, key);
+}
+
+// The keys -> (bt, bid), one thread a ray (sorted.cuh closest_finish).
+__global__ void closest_hit_finish_kernel(const int* __restrict__ words,
+                                          const int* __restrict__ counts, int k_cap, int tr,
+                                          size_t n_rays, int n_cl, int c, int lane_bits,
+                                          const unsigned long long* __restrict__ key,
+                                          float* __restrict__ bt_out, int* __restrict__ bid_out) {
+  closest_finish<kBatch>(words, counts, k_cap, tr, n_rays, n_cl, c, lane_bits, key, bt_out,
+                         bid_out);
 }
 
 // Closest hit for tiles with at most one candidate: one unconditional
@@ -250,16 +232,17 @@ size_t stage_bytes(int batch, int c) { return (size_t)batch * c * 3 * sizeof(flo
 // given stream; each returns cudaGetLastError() (0 on success).
 extern "C" {
 
+// grid persistent blocks of kSlices * tr threads; order (int64) and the n_ranks
+// entries of ends are the segment table, *next_seg is 0 and key holds the
+// miss key at launch; the finishing pass follows on the stream. The caller
+// guarantees c % 4 == 0 and 16-byte aligned w.
 int tt_closest(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
-               const void* o4, const void* d4, const void* w, int n_cl, int c, void* bt,
+               const void* o4, const void* d4, const void* w, int n_cl, int c, const void* order,
+               const void* ends, int n_ranks, void* next_seg, int grid, void* key, void* bt,
                void* bid, void* stream) {
-  const size_t smem = stage_bytes(kBatch, c);
-  cudaError_t e = launch_prep(closest_hit_kernel, smem);
-  if (e != cudaSuccess) return (int)e;
-  closest_hit_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
-      (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
-      (const float*)w, n_cl, c, (float*)bt, (int*)bid);
-  return (int)cudaGetLastError();
+  return launch_closest(closest_hit_kernel, closest_hit_finish_kernel, kNBufClosest, words,
+                        counts, n_tiles, k_cap, tr, o4, d4, w, n_cl, c, order, ends, n_ranks,
+                        next_seg, grid, key, bt, bid, stream);
 }
 
 int tt_closest_fast(const void* words, const void* counts, int n_tiles, int k_cap, int tr,

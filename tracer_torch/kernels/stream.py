@@ -3,10 +3,12 @@ not fit in L2 (torch counterpart of tracer/kernels/stream.py).
 
 The same per-tile sorted front-to-back candidate walk as kernels/traversal2,
 at STREAM_BATCH = 2 candidate clusters a step, with the cluster blocks
-streamed from device memory through an NBUF-deep ring of asynchronous
-copies in shared memory (csrc/stream.cu). The any-hit kernel works, as
-traversal2's does, on segments of a tile's run (_launch.run_segments),
-and its ring runs on across the segments a block walks. Each kernel has:
+streamed from device memory through an NBUF-deep ring of asynchronous bulk
+copies in shared memory (csrc/stream.cu). Both kernels work, as
+traversal2's do, on segments of a tile's run (_launch.run_segments), and
+their ring runs on across the segments a block walks; closest hits merge
+through traversal2's key (pack_closest_key at B = STREAM_BATCH). Each
+kernel has:
   * a plain version, closest_stream_plain / anyhit_stream_plain: the plain
     versions of kernels/traversal2.py at batch=STREAM_BATCH;
   * a wrapper, closest_stream / anyhit_stream: the plain version for CPU
@@ -27,7 +29,7 @@ from tracer_torch.bvh.cull import cull_clusters_sorted2
 from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels.traversal import _homog, tile_rays, tiled_tmax, untile
 from tracer_torch.kernels.traversal2 import (
-    _check_cuda, _closest_out, _launch, _launch_anyhit, anyhit_plain, closest_hit_plain,
+    _check_cuda, _launch_anyhit, anyhit_plain, check_quads, closest_hit_plain, launch_closest,
     recover_hit)
 
 # Ring stages of cluster blocks in flight per tile (kNBuf of csrc/stream.cu).
@@ -40,27 +42,16 @@ closest_stream_plain = functools.partial(closest_hit_plain, batch=STREAM_BATCH)
 anyhit_stream_plain = functools.partial(anyhit_plain, batch=STREAM_BATCH)
 
 
-def _check_stream(w):
-    """What the stream kernels take beyond _check_cuda: 16-byte loads of 4
-    triangles' coefficients need C % 4 == 0 and an aligned matrix."""
-    c = w.shape[2] // 3
-    if c % 4 or w.data_ptr() % 16:
-        raise ValueError(f"the stream kernels take C % 4 == 0 and a 16-byte aligned w, "
-                         f"got C = {c}, address {w.data_ptr():#x}")
-
-
 def closest_stream(o4, d4, w, words, counts):
-    """closest_stream_plain on CPU tensors; the CUDA kernel
-    closest_stream_kernel on CUDA tensors."""
+    """closest_stream_plain on CPU tensors; on CUDA tensors the kernels
+    closest_stream_kernel and, behind it on the stream,
+    closest_stream_finish_kernel (one call of the C entry point, counted as
+    one launch)."""
     if o4.device.type == "cpu":
         return closest_stream_plain(o4, d4, w, words, counts)
     _check_cuda(o4, d4, w, words, counts)
-    _check_stream(w)
-    bt, bid = _closest_out(o4)
-    if o4.shape[0]:
-        _launch("closest_stream", "st_closest", o4.device, words, counts, o4.shape[0],
-                words.shape[1], o4.shape[1], o4, d4, w, w.shape[0], w.shape[2] // 3, bt, bid)
-    return bt, bid
+    return launch_closest("closest_stream", "st_closest", STREAM_BATCH, o4, d4, w, words,
+                          counts)
 
 
 def anyhit_stream(o4, d4, tmax, w, words, counts):
@@ -69,7 +60,7 @@ def anyhit_stream(o4, d4, tmax, w, words, counts):
     if o4.device.type == "cpu":
         return anyhit_stream_plain(o4, d4, tmax, w, words, counts)
     _check_cuda(o4, d4, w, words, counts, (tmax, torch.float32))
-    _check_stream(w)
+    check_quads(w)
     return _launch_anyhit("anyhit_stream", "st_anyhit", o4, d4, tmax, w, words, counts)
 
 

@@ -56,11 +56,12 @@ T_MIN = 1e-4
 # defaults); a block is TR threads, one a ray. Their grid is
 # BLOCKS_PER_SM_WL persistent blocks for every SM of the card (at some 40
 # registers a thread, 6 blocks of 256 threads fit). The kernels are built
-# for clusters of CLUSTER_WL triangles, the size the presets build (kSegWL,
-# kClusterWL of csrc/traversal.cu).
+# for clusters of CLUSTER_SIZES_WL triangles: the presets build 128, the
+# reference's tests all four (kSegWL and with_cluster_size of
+# csrc/traversal.cu).
 SEG_WL = 4
 BLOCKS_PER_SM_WL = 6
-CLUSTER_WL = 128
+CLUSTER_SIZES_WL = (4, 32, 64, 128)
 
 # The closest-hit key of a ray: bits(t) << 32 | item << KEY_LANE_BITS | lane,
 # item the position in the tile's run (kLaneBits of csrc/traversal.cu; the 17
@@ -388,15 +389,15 @@ def worklist_finish_plain(key, o4, d4, tri_w, tri_ids, offs, clusters):
 
 def _check_worklist(o4, d4, tri_w, offs, clusters, *extra):
     """Raise unless the arguments are what the work-list kernels take."""
+    if tri_w.shape[2] // 3 not in CLUSTER_SIZES_WL:
+        raise ValueError(f"clusters of {tri_w.shape[2] // 3} triangles: the work-list kernels "
+                         f"are built for C in {CLUSTER_SIZES_WL}")
     check_dense(o4.device, (o4, torch.float32), (d4, torch.float32), (tri_w, torch.float32),
                 (offs, torch.int32), (clusters, torch.int32), *extra)
     check_rays(o4, d4, tri_w)
     if offs.shape != (o4.shape[0] + 1,) or clusters.ndim != 1:
         raise ValueError(f"offs must be (Nt+1,) and clusters (W,), got {tuple(offs.shape)}, "
                          f"{tuple(clusters.shape)}")
-    if tri_w.shape[2] // 3 != CLUSTER_WL:
-        raise ValueError(f"clusters of {tri_w.shape[2] // 3} triangles: the work-list kernels "
-                         f"are built for {CLUSTER_WL}")
 
 
 def _segment_scratch(offs, k_cap: int):

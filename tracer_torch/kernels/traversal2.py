@@ -10,10 +10,14 @@ Each of the three kernels of the pass has three pieces here:
     ray's t_max);
   * a wrapper (closest_hit, closest_fast, anyhit) that runs the plain
     version for CPU tensors and launches the CUDA kernel of
-    csrc/traversal2.cu for CUDA tensors, or raises. The any-hit kernel does
-    not walk a tile in one block: its unit of work is a segment of a tile's
-    candidate run (_launch.run_segments), which is exact because occlusion is an
-    OR over the candidates, in any order;
+    csrc/traversal2.cu for CUDA tensors, or raises. The closest-hit and
+    any-hit kernels do not walk a tile in one block: their unit of work is
+    a segment of a tile's candidate run (_launch.run_segments). Occlusion is
+    an OR over the candidates, in any order; closest hits merge through a
+    64-bit key a ray (pack_closest_key) under an atomic minimum, exact
+    because the walk's tie rule is the lexicographic minimum of (t, step,
+    slot), and a finishing pass (closest_finish_plain is its plain version)
+    turns the keys into (bt, bid);
   * a launch counter, LAUNCHES[name] (kernels/_launch.py), raised by one per
     kernel launch.
 
@@ -34,7 +38,8 @@ from tracer_torch.core.intersect import moller_trumbore
 from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels._launch import (  # noqa: F401 (LAUNCHES is read through this module)
     LAUNCHES, check_dense, check_rays, launch as _launch, run_segments, sm_count)
-from tracer_torch.kernels.traversal import _homog, T_MIN, tile_rays, tiled_tmax, untile
+from tracer_torch.kernels.traversal import (
+    _homog, KEY_MISS, T_MIN, tile_rays, tiled_tmax, untile)
 
 _CL_MASK = (1 << CLUSTER_BITS) - 1
 _INT_MAX = 2147483647
@@ -45,14 +50,15 @@ _INT_MAX = 2147483647
 BATCH = 4
 FAST_BATCH = 1
 
-# The any-hit kernels' unit of work is a segment, SEG consecutive candidate
-# words of one tile, and SLICES threads serve one ray of it, each with its
-# share of a cluster's triangles (kSeg, kSlices of csrc/common.cuh): a block
-# is SLICES * TR threads, 256 for a tile of 64 rays. Their grid is
-# BLOCKS_PER_SM persistent blocks for every SM of the card, 32 of the 64
-# warps an SM holds. Of anyhit_stream_kernel, at 80 registers a thread, three
-# blocks fit at a time; its fourth starts when the counter has run out and
-# ends at once.
+# The segmented kernels' (closest_hit_kernel, anyhit_kernel and the two of
+# csrc/stream.cu) unit of work is a segment, SEG consecutive candidate words
+# of one tile, a whole number of steps of B words, and SLICES threads serve
+# one ray of it, each with its share of a cluster's triangles (kSeg, kSlices
+# of csrc/common.cuh): a block is SLICES * TR threads, 256 for a tile of 64
+# rays. Their grid is BLOCKS_PER_SM persistent blocks for every SM of the
+# card, 32 of the 64 warps an SM holds. Of anyhit_stream_kernel, at 80
+# registers a thread, three blocks fit at a time; its fourth starts when the
+# counter has run out and ends at once.
 SEG = 8
 SLICES = 4
 BLOCKS_PER_SM = 4
@@ -164,6 +170,75 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
 
 
 # ---------------------------------------------------------------------------
+# The closest-hit key: bits(t) << 32 | step << (log2 B + lane bits) | rank <<
+# lane bits | lane, where step is the word index over B, and rank the place of
+# the lane's cluster among the step's live clusters by id (csrc/sorted.cuh).
+# Within a step (rank, lane) orders as the slot cl*C + lane does, so keys
+# order as the walk's tie rule: (t, step, slot).
+# ---------------------------------------------------------------------------
+
+def closest_key_bits(c: int, batch: int):
+    """(lane bits, step shift) of the closest-hit key for clusters of c
+    triangles and steps of batch words (batch a power of two)."""
+    lane_bits = max(0, (c - 1).bit_length())
+    return lane_bits, (batch - 1).bit_length() + lane_bits
+
+
+def check_closest_key(c: int, k_cap: int, batch: int):
+    """Raise unless every step of a list of up to k_cap words fits the
+    closest-hit key beside its rank and lane."""
+    shift = closest_key_bits(c, batch)[1]
+    steps = -(-k_cap // batch)
+    if steps > 1 << (32 - shift):
+        raise ValueError(f"lists of up to {k_cap} words in steps of {batch} over clusters of {c} "
+                         f"triangles do not fit the closest-hit key: at most "
+                         f"{1 << (32 - shift)} steps")
+
+
+def pack_closest_key(t, step, rank, lane, c: int, batch: int):
+    """The closest-hit key of hits with t (f32, > 0), step, rank and lane
+    (int tensors) -> int64."""
+    lane_bits, shift = closest_key_bits(c, batch)
+    return ((t.contiguous().view(torch.int32).long() << 32) | (step.long() << shift)
+            | (rank.long() << lane_bits) | lane.long())
+
+
+def unpack_closest_key(key, c: int, batch: int):
+    """int64 keys -> (t f32, step, rank, lane i64); t == T_FAR for KEY_MISS."""
+    lane_bits, shift = closest_key_bits(c, batch)
+    low = key & 0xFFFFFFFF
+    return ((key >> 32).to(torch.int32).view(torch.float32), low >> shift,
+            (low >> lane_bits) & (batch - 1), low & ((1 << lane_bits) - 1))
+
+
+def step_ranks(cl, live):
+    """Each word's rank among its step's live clusters by id: cl, live (...,
+    B) -> (..., B) i64, the number of live words of the step with a lower
+    id."""
+    below = (cl[..., None, :] < cl[..., :, None]) & live[..., None, :]
+    return below.sum(-1)
+
+
+def closest_finish_plain(key, words, counts, n_cl: int, c: int, batch: int):
+    """The plain version of the closest-hit finishing pass: key (Nt, TR)
+    int64, the minimum of pack_closest_key over each ray's hits or KEY_MISS
+    -> (bt (Nt, TR) f32, bid (Nt, TR) i32): the key's t, and the slot cl*C +
+    lane of its (step, rank, lane), or -1 for a miss."""
+    bt, step, rank, lane = unpack_closest_key(key, c, batch)
+    hit = bt < T_FAR
+    k0 = torch.where(hit, step, 0) * batch                                  # (Nt, TR)
+    j = k0[..., None] + torch.arange(batch, device=key.device)              # (Nt, TR, B)
+    n = counts.long()[:, None, None]
+    word = torch.gather(words.long(), 1, torch.minimum(j, n - 1).clamp(0, words.shape[1] - 1)
+                        .flatten(1)).view_as(j)
+    cl = torch.clamp_max(word & _CL_MASK, n_cl - 1)
+    live = j < n
+    pick = (step_ranks(cl, live) == rank[..., None]) & live
+    slot = torch.gather(cl, -1, pick.to(torch.uint8).argmax(-1, keepdim=True))[..., 0] * c + lane
+    return bt, torch.where(hit, slot, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: plain version on CPU tensors, CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
 
@@ -185,17 +260,50 @@ def _closest_out(o4):
             torch.empty((n_tiles, tr), dtype=torch.int32, device=o4.device))
 
 
+def check_quads(w):
+    """What the kernels that read a cluster as quads of 4 triangles
+    (closest_hit_kernel and the two of csrc/stream.cu) take beyond
+    _check_cuda: 16-byte loads of 4 triangles' coefficients need C % 4 == 0
+    and an aligned matrix."""
+    c = w.shape[2] // 3
+    if c % 4 or w.data_ptr() % 16:
+        raise ValueError(f"the quad-reading kernels take C % 4 == 0 and a 16-byte aligned w, "
+                         f"got C = {c}, address {w.data_ptr():#x}")
+
+
+def launch_closest(name: str, entry: str, batch: int, o4, d4, w, words, counts):
+    """One launch of a segmented closest-hit kernel (closest_hit_kernel at
+    B = BATCH, closest_stream_kernel at B = 2) and its finishing pass over
+    checked CUDA tensors -> (bt, bid) (Nt, TR). The key starts as KEY_MISS;
+    the segment table (run_segments), the counter and the key are its
+    scratch."""
+    n_tiles, tr = o4.shape[:2]
+    if tr * SLICES > 1024:
+        raise ValueError(f"tile of {tr} rays: the closest-hit kernels take {SLICES} threads a "
+                         f"ray and at most 1024 a block")
+    check_quads(w)
+    c, k_cap = w.shape[2] // 3, words.shape[1]
+    check_closest_key(c, k_cap, batch)
+    bt, bid = _closest_out(o4)
+    if n_tiles:
+        dev = o4.device
+        order, ends = run_segments(counts, SEG, k_cap)
+        next_seg = torch.zeros(1, dtype=torch.int32, device=dev)
+        key = torch.full((n_tiles, tr), KEY_MISS, dtype=torch.int64, device=dev)
+        _launch(name, entry, dev, words, counts, n_tiles, k_cap, tr, o4, d4, w, w.shape[0], c,
+                order, ends, ends.shape[0], next_seg, sm_count(dev.index) * BLOCKS_PER_SM, key,
+                bt, bid)
+    return bt, bid
+
+
 def closest_hit(o4, d4, w, words, counts):
-    """closest_hit_plain on CPU tensors; the CUDA kernel
-    closest_hit_kernel on CUDA tensors."""
+    """closest_hit_plain on CPU tensors; on CUDA tensors the kernels
+    closest_hit_kernel and, behind it on the stream, closest_hit_finish_kernel
+    (one call of the C entry point, counted as one launch)."""
     if o4.device.type == "cpu":
         return closest_hit_plain(o4, d4, w, words, counts)
     _check_cuda(o4, d4, w, words, counts)
-    bt, bid = _closest_out(o4)
-    if o4.shape[0]:
-        _launch("closest", "tt_closest", o4.device, words, counts, o4.shape[0],
-                words.shape[1], o4.shape[1], o4, d4, w, w.shape[0], w.shape[2] // 3, bt, bid)
-    return bt, bid
+    return launch_closest("closest", "tt_closest", BATCH, o4, d4, w, words, counts)
 
 
 def closest_fast(o4, d4, w, words, counts):
