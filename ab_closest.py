@@ -12,8 +12,8 @@ the bench100k kernels (phase 3, with the closest kernels' tail report and
 their run over the whole generic region), one profiled bench100k frame, the
 pod-1m stream kernels (phase 10, the same for closest_stream_kernel over
 all primary tiles), one profiled pod-1m frame and the pod-1m timing.
---no-table: the tree's closest-hit wrappers build no segment table (one
-block a tile), so the table's time is 0. --kernels-only: the two kernel
+--no-table: none of the tree's closest-hit wrappers builds a segment table
+(one block a tile), so the table's time is 0. --kernels-only: the two kernel
 phases alone, no profile and no timing.
 """
 import os
@@ -31,7 +31,7 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     if "--no-table" in sys.argv[2:]:
-        cs.closest_table = lambda counts, k_cap: None
+        cs.SEGMENTED_CLOSEST.clear()
     cs.log(f"[ab] tree {TREE}: {tracer_torch.__file__}")
     _, smi = cs.timed("device", cs.phase_device)
     cs.timed("build", cs.phase_build)

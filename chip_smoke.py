@@ -125,8 +125,7 @@ KERNELS = {
     "pair_anyhit": ("tracer_torch/kernels/csrc/traversal3.cu",
                     "tracer/kernels/traversal3.py:162"),
 }
-KERNEL_FUNCTIONS = ({"closest_hit_kernel", "closest_hit_finish_kernel",
-                     "closest_stream_finish_kernel"}
+KERNEL_FUNCTIONS = ({"closest_hit_kernel", "closest_hit_finish_kernel"}
                     | {f"{k}_kernel" for k in KERNELS if k != "closest"})
 # The kernels each tier's frame must launch; it must launch none of the others.
 TIERS = {"tiled": ("closest", "closest_fast", "anyhit"),
@@ -401,9 +400,16 @@ def sorted_tail_report(name, kernel, args, results):
                 f"{t2.BLOCKS_PER_SM} blocks an SM", args[5], call, table)
 
 
-def closest_table(counts, k_cap):
-    """The segment table a sorted closest-hit wrapper builds at every call,
-    as a function of no arguments."""
+# The sorted closest-hit kernels that walk segments (the others run one
+# block a tile and build no segment table).
+SEGMENTED_CLOSEST = {"closest"}
+
+
+def closest_table(name, counts, k_cap):
+    """The segment table the sorted closest-hit wrapper `name` builds at
+    every call, as a function of no arguments; None if it builds none."""
+    if name not in SEGMENTED_CLOSEST:
+        return None
     return lambda: _launch.run_segments(counts, t2.SEG, k_cap)
 
 
@@ -419,13 +425,13 @@ def closest_tail_report(name, kernel, args, results):
 
     def table(a, b):
         part = cut(a, b)
-        return closest_table(part[4], part[3].shape[1])
+        return closest_table(name, part[4], part[3].shape[1])
 
-    if closest_table(args[4], args[3].shape[1]) is None:
+    if name not in SEGMENTED_CLOSEST:
         tail_report(name, results, "one block a tile, one thread a ray", args[4], call, None)
     else:
-        tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES} threads a ray, "
-                    f"{t2.BLOCKS_PER_SM} blocks an SM", args[4], call, table)
+        tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES_CLOSEST} threads a ray, "
+                    f"{t2.BLOCKS_PER_SM_CLOSEST} blocks an SM", args[4], call, table)
 
 
 def closest_whole_pass(name, kernel, plain, args, what):
@@ -444,7 +450,7 @@ def closest_whole_pass(name, kernel, plain, args, what):
     again = sum(sum(bit_mismatches(out_k, kernel(*args))) for _ in range(2))
     torch.cuda.synchronize()
     cmp_s = time.perf_counter() - t0
-    table = closest_table(counts, words.shape[1])
+    table = closest_table(name, counts, words.shape[1])
     wrap = device_ms(lambda: kernel(*args), 10)
     tab = 0.0 if table is None else device_ms(table, 10)
     alone = wrap - tab

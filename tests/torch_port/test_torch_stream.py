@@ -183,20 +183,20 @@ def test_stream_kernels_and_plain_versions_share_b_and_nbuf():
     """The plain versions are traversal2's at B = STREAM_BATCH, whose tie
     rule they share with the kernels, and csrc/stream.cu is built for the
     same B and ring depth: both kernels hold a ring of NBUF stages, two
-    steps, in blocks of SLICES threads a ray, and the closest-hit key is
-    packed at that B (the kernels cannot run here: their constants are read
-    from the sources)."""
+    steps; the any-hit kernel's (sorted.cuh's Ring) is filled by bulk copies
+    and serves blocks of SLICES threads a ray, the closest-hit kernel runs
+    one block of TR threads a tile (the kernels cannot run here: their
+    constants are read from the sources)."""
     csrc = Path(ts.__file__).parent / "csrc"
     src = (csrc / "stream.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert (int(consts["kBatch"]), int(consts["kNBuf"])) == (ts.STREAM_BATCH, ts.NBUF) == (2, 4)
     assert ts.NBUF == 2 * ts.STREAM_BATCH
-    assert "Ring<kNBuf> ring{" in src and "closest_segments<kBatch, kNBuf>(" in src
-    assert "anyhit_stream_kernel<<<grid, kSlices * tr," in src
+    assert "Ring<kNBuf> ring{" in src and "anyhit_stream_kernel<<<grid, kSlices * tr," in src
+    assert "closest_stream_kernel<<<n_tiles, tr, smem," in src
+    assert "cp_async_wait<kNBuf - kBatch>();" in src
     common = dict(re.findall(r"constexpr int (k\w+) = (\d+);", (csrc / "common.cuh").read_text()))
     assert int(common["kSlices"]) == tt2.SLICES and tt2.SLICES * 64 == 256
-    assert "walk<<<grid, kSlices * tr, smem, s>>>" in (csrc / "sorted.cuh").read_text()
-    assert "cp.async.cg" not in src and "cp_async" not in src
     for plain, base in ((ts.closest_stream_plain, tt2.closest_hit_plain),
                         (ts.anyhit_stream_plain, tt2.anyhit_plain)):
         assert plain.func is base and plain.keywords == {"batch": ts.STREAM_BATCH}

@@ -193,14 +193,14 @@ def test_anyhit_plain_by_segments_equals_whole(case):
 
 
 def test_segment_constants_pinned_to_the_kernels():
-    """SEG and SLICES are csrc/common.cuh's kSeg and kSlices, a block of the
-    segmented kernels (both any-hit kernels, and the closest-hit walk of
-    sorted.cuh that closest_hit_kernel and closest_stream_kernel run) is
-    SLICES * 64 = 256 threads for a tile of 64 rays, both sources take the
-    header's constants and launch that block, and SEG is a whole number of
-    each closest-hit kernel's steps: B = BATCH in traversal2.cu, STREAM_BATCH
-    in stream.cu (the kernels cannot run here: their constants are read from
-    the sources)."""
+    """SEG and SLICES are csrc/common.cuh's kSeg and kSlices, and
+    SLICES_CLOSEST csrc/sorted.cuh's kSlicesClosest; a block of the any-hit
+    kernels is SLICES * 64 = 256 threads for a tile of 64 rays, one of the
+    closest-hit walk (closest_hit_kernel) SLICES_CLOSEST * 64 = 128; both
+    sources take the headers' constants and launch those blocks, and SEG is
+    a whole number of steps of each segmented kernel: B = BATCH in
+    traversal2.cu, STREAM_BATCH in stream.cu (the kernels cannot run here:
+    their constants are read from the sources)."""
     csrc = Path(tt2.__file__).parent / "csrc"
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", (csrc / "common.cuh").read_text()))
     assert (int(consts["kSeg"]), int(consts["kSlices"])) == (tt2.SEG, tt2.SLICES) == (8, 4)
@@ -208,10 +208,13 @@ def test_segment_constants_pinned_to_the_kernels():
     for name in ("traversal2.cu", "stream.cu"):
         src = (csrc / name).read_text()
         assert '#include "common.cuh"' in src and '#include "sorted.cuh"' in src
-        assert not re.search(r"constexpr int (kSeg|kSlices) =", src)
+        assert not re.search(r"constexpr int (kSeg|kSlices\w*) =", src)
         assert re.search(r"anyhit\w*kernel<<<grid, kSlices \* tr,", src)
     sorted_src = (csrc / "sorted.cuh").read_text()
-    assert "walk<<<grid, kSlices * tr, smem, s>>>" in sorted_src
+    closest = dict(re.findall(r"constexpr int (k\w+) = (\d+);", sorted_src))
+    assert int(closest["kSlicesClosest"]) == tt2.SLICES_CLOSEST == 2
+    assert tt2.SLICES_CLOSEST * 64 == 128 and 64 * tt2.SLICES <= 1024
+    assert "walk<<<grid, kSlicesClosest * tr, smem, s>>>" in sorted_src
     assert "static_assert(kSeg % kB == 0" in sorted_src
     src2, srcs = ((csrc / name).read_text() for name in ("traversal2.cu", "stream.cu"))
     batch = re.search(r"constexpr int kBatch = (\d+);", src2)
@@ -221,8 +224,6 @@ def test_segment_constants_pinned_to_the_kernels():
     assert "launch_closest(closest_hit_kernel, closest_hit_finish_kernel, kNBufClosest," in src2
     stream_batch = int(re.search(r"constexpr int kBatch = (\d+);", srcs).group(1))
     assert stream_batch == 2 and tt2.SEG % stream_batch == 0
-    assert "closest_segments<kBatch, kNBuf>(" in srcs
-    assert "launch_closest(closest_stream_kernel, closest_stream_finish_kernel, kNBuf," in srcs
 
 
 # ---------------------------------------------------------------------------

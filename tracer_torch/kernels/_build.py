@@ -42,7 +42,7 @@ _SIGNATURES = {
     "tt_closest": _CLOSEST_SEG,  # traversal2.cu
     "tt_closest_fast": _CLOSEST,
     "tt_anyhit": _ANYHIT,
-    "st_closest": _CLOSEST_SEG,  # stream.cu
+    "st_closest": _CLOSEST,      # stream.cu
     "st_anyhit": _ANYHIT,
     # traversal.cu. offs, clusters, counts, n_tiles, tr, o4, d4, w, tri_ids, c, order, ends,
     # n_ranks, next_seg, grid, key, bt, btri, bu, bv, stream

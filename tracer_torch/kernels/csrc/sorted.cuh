@@ -1,8 +1,9 @@
 // What the sorted-list kernels of traversal2.cu and stream.cu share: the
-// ring of cluster stages that TMA's bulk copies fill, the reads of a stage as
-// quads of 4 triangles, and the closest-hit walk over segments with its
-// finishing pass (closest_hit_kernel and closest_stream_kernel are this walk
-// at their own batch and ring depth).
+// ring of cluster stages that TMA's bulk copies fill (closest_hit_kernel,
+// anyhit_stream_kernel), the reads of a stage as quads of 4 triangles (those
+// two and closest_stream_kernel), and the closest-hit walk over segments
+// with its finishing pass (closest_hit_kernel is this walk at kB = 4 words a
+// step and a ring of 2 steps).
 //
 // The closest-hit walk. A tile's sorted candidate words are walked in steps
 // of kB words; the reference's rule (kernels/traversal2.py _batch_best): per
@@ -21,10 +22,11 @@
 //
 // The unit of work is a segment, kSeg consecutive words of one tile (the
 // table of kernels/_launch.py run_segments), pulled from a device counter by
-// a fixed grid of persistent blocks of kSlices * TR threads: kSlices threads
-// serve one ray, each taking every kSlices-th quad of 4 lanes of a staged
-// cluster and, for each of its lanes, every word of the step (a thread holds
-// all of a lane's j, so "earliest j wins its lane" is its own to apply). kSeg
+// a fixed grid of persistent blocks of kSlicesClosest * TR threads:
+// kSlicesClosest threads serve one ray, each taking every kSlicesClosest-th
+// quad of 4 lanes of a staged cluster and, for each of its lanes, every word
+// of the step (a thread holds all of a lane's j, so "earliest j wins its
+// lane" is its own to apply). kSeg
 // is a multiple of kB, so no step straddles two segments. A ray's slices fold
 // their keys into one key a ray in shared memory after every step (an
 // atomicMin there), and the segment ends with one atomicMin a ray into the
@@ -49,8 +51,13 @@
 #include "common.cuh"
 
 constexpr int kLanes = 4;  // triangles per 16-byte coefficient load
-// Threads a ray of the closest-hit walk: kSlices of common.cuh (SLICES).
-constexpr int kSlicesClosest = kSlices;
+// Threads a ray of the closest-hit walk (SLICES_CLOSEST of
+// kernels/traversal2.py). At 106 registers a thread, blocks of 2 * 64 threads
+// fit 4 an SM (the shared memory of their 2-step rings allows 4 too); 4
+// threads a ray, in blocks of 256, fit 2. Measured on all tiles of
+// bench100k's generic region, 2 threads a ray took 6 % less time than 4
+// (PERF.md).
+constexpr int kSlicesClosest = 2;
 
 // ---------------------------------------------------------------------------
 // The ring: a block's copies, numbered in the order of issue; copy i lands in
@@ -217,8 +224,8 @@ __device__ __forceinline__ int block_max_after_barrier(int v, int* s_red) {
 // ---------------------------------------------------------------------------
 // The closest-hit walk over segments (see the header): key[ray] = min(key[ray],
 // the key of every hit a step of the block's segments finds for the ray). A
-// block is kSlices * tr threads; thread tid serves ray tid % tr with the quads
-// l4 % kSlices == tid / tr of each cluster. The block holds `cur`, the
+// block is kSlicesClosest * tr threads; thread tid serves ray tid % tr with
+// the quads l4 % kSlicesClosest == tid / tr of each cluster. The block holds `cur`, the
 // segment it works on (kc: the next word to intersect, kf: the next to copy)
 // and, claimed when it starts on cur, `nxt` (kfn: its next word to copy); the
 // copies in flight are cur's words kc .. kf-1, then nxt's nxt.k0 .. kfn-1.
@@ -405,7 +412,7 @@ inline int lane_bits_of(int c) {
 }
 
 // One launch of a closest-hit walk and, behind it on the stream, its
-// finishing pass: grid persistent blocks of kSlices * tr threads; order
+// finishing pass: grid persistent blocks of kSlicesClosest * tr threads; order
 // (int64) and the n_ranks entries of ends are the segment table, *next_seg
 // is 0 and key holds the miss key at launch. Returns the first CUDA error.
 template <typename Walk, typename Finish>

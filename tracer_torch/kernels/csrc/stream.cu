@@ -28,47 +28,45 @@
 // matrix), the frame's exactness rests on fp32 products rounded one at a
 // time, and TF32 keeps 10 mantissa bits and would flip hits.
 //
-// What the design does about it. Each block keeps a ring of cluster stages
-// in shared memory (kNBuf = 4 stages of 6 KB at C = 128; sorted.cuh). A
-// cluster's (4, 3C) matrix is contiguous in tri_w and copies as it is: one
-// thread issues one cp.async.bulk (TMA's 1-D bulk copy) a cluster, which
-// completes on the stage's mbarrier, and the block reads the stage as it
-// landed, as 16-byte broadcast loads that each cover one coefficient of 4
-// consecutive triangles, so 4 triangles cost 12 loads, 3 a triangle (as
-// traversal2.cu's transposed stage), with no triangle-major copy of the
-// accel. The same ring filled by every thread's cp.async copies, one commit
-// group a candidate, was measured beside it and took 2 to 3 % longer on the
-// pod-1m shadow pass: it needs one more block barrier a step (a thread can
-// wait for its own chunks only) and 90 registers a thread against 80.
+// What the design does about it. Each block keeps a ring of kNBuf = 4
+// cluster stages in shared memory (4 x 6 KB at C = 128). A cluster's (4, 3C)
+// matrix is contiguous in tri_w and copies as it is; the block reads the
+// stage as it landed, as 16-byte broadcast loads that each cover one
+// coefficient of 4 consecutive triangles, so 4 triangles cost 12 loads, 3 a
+// triangle (as traversal2.cu's transposed stage), with no triangle-major copy
+// of the accel (the quad reads of sorted.cuh).
 //
-// Both kernels walk segments, kSeg consecutive words of one tile (the table
-// of kernels/_launch.py run_segments: every tile's first segment, then every
-// second one, heaviest tile first), pulled from a device counter by a fixed
-// grid of persistent blocks of kSlices * TR threads: kSlices threads serve
-// one ray, each testing every kSlices-th quad of 4 triangles of a cluster.
-// The lists have a long tail (primary pass: a mean of 18 words a tile, a
-// maximum of 128; shadow pass: a mean of 3, a maximum of some 400), which one
-// block a tile would walk alone while the card has drained. The ring runs on
-// across the segments a block walks: a block holds the segment it works on
-// and the next one it will, and copies the next one's first clusters while
-// this one finishes; a word whose entry bits already pass the tile's bound
-// is not copied at all.
+// closest_stream_kernel runs one block a tile, one thread a ray, and fills
+// its ring with cp.async 16-byte copies, one commit group per candidate: the
+// copies of candidates k+2 and k+3 are in flight while the block intersects
+// k and k+1, and a step's two stages are refilled with k+4 and k+5 once its
+// fold is done. The segmented closest-hit walk of sorted.cuh (the design of
+// closest_hit_kernel) was measured in its place at this B and was not faster
+// on all of the pod-1m primary pass: the heaviest tile alone is 2 % of that
+// pass, so there is no tail to win, and the walk's per-step folds cost what
+// its extra warps gain (PERF.md).
 //
-// closest_stream_kernel is the closest-hit walk of sorted.cuh at kBatch = 2
-// words a step and a ring of kNBuf = 2 steps: each slice applies the
-// reference's tie rule to its own lanes (it holds all of a lane's words of
-// a step), and hits merge across slices and blocks as one 64-bit key a ray,
-// bits(t) | step | rank | lane, under atomicMin: the lexicographic minimum
-// of (t, step, slot) is the walk's result whatever the order (the argument
-// is in sorted.cuh). A segment starts from the tile's keys as they stand and
-// stops once a step's first word lies strictly past the block max of its
-// rays' best t. closest_stream_finish_kernel decodes the keys.
-//
-// anyhit_stream_kernel ORs: occlusion over a tile's candidates, whatever the
-// order and whoever visits them. A segment starts from the tile's occlusion
+// anyhit_stream_kernel does not: occlusion is an OR over a tile's candidates,
+// whatever the order and whoever visits them, and the lists have a long tail
+// (a mean of 3 words a tile, a maximum of some 400), which one block a tile
+// would walk alone while the card has drained. Its unit of work is a segment,
+// kSeg consecutive words of one tile (the table of kernels/_launch.py
+// run_segments), pulled from a device counter by a fixed grid of
+// persistent blocks of kSlices * TR threads: kSlices threads serve one ray,
+// each testing every kSlices-th quad of 4 triangles of a cluster, the 4 tests
+// without a branch between them. A segment starts from the tile's occlusion
 // flags as they stand in device memory (possibly stale; flags are only ever
-// set, so a stale read costs work, never a result), the 4 tests of a quad
-// without a branch between them.
+// set, so a stale read costs work, never a result). The ring runs on across
+// the segments a block walks: a block holds the segment it works on and the
+// next one it will, and copies the next one's first clusters while this one
+// finishes; a word whose entry bits already reach the tile's bound is not
+// copied at all. One thread issues one cp.async.bulk (TMA's 1-D bulk copy) a
+// cluster, which completes on the stage's mbarrier (the Ring of sorted.cuh).
+// The same ring filled by every thread's cp.async copies, as
+// closest_stream_kernel's is, was measured beside it and took 2 to 3 % longer
+// on the pod-1m shadow pass: it needs one more block barrier a step (a thread
+// can wait for its own chunks only) and 90 registers a thread against 80,
+// which leaves room for 2 blocks an SM, not 3.
 #include "common.cuh"
 #include "sorted.cuh"
 
@@ -77,29 +75,107 @@ namespace {
 constexpr int kNBuf = 4;        // NBUF of kernels/stream.py
 constexpr int kBatch = 2;       // STREAM_BATCH of kernels/stream.py
 
-// Closest hit: key[ray] = min(key[ray], the key of each hit of the block's
-// segments); key holds the miss key at launch (sorted.cuh closest_segments).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's commit groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The cluster of candidate k of a tile's n words (k past the count replays
+// the last word, as the reference does).
+__device__ __forceinline__ int replay_cluster(const int* wt, int k, int n, int n_cl) {
+  return word_cluster(wt[min(k, n - 1)], n_cl);
+}
+
+// Issue the copy of candidate k's cluster into ring stage k % kNBuf: `per4`
+// 16-byte chunks, as one commit group.
+__device__ __forceinline__ void fetch(float4* ring, const float4* __restrict__ w, const int* wt,
+                                      int k, int n, int n_cl, int per4) {
+  const float4* src = w + (size_t)replay_cluster(wt, k, n, n_cl) * per4;
+  float4* dst = ring + (k % kNBuf) * per4;
+  for (int i = threadIdx.x; i < per4; i += blockDim.x) cp_async16(dst + i, src + i);
+  cp_async_commit();
+}
+
+// Closest hit over a tile's sorted candidates, kBatch clusters a step. Per
+// ray: within a step the earliest candidate j wins a lane (strict <), across
+// lanes the smallest t and on equal t the smaller slot cl*C + lane, and a
+// step replaces the running best only on a strict < (traversal2.py:_batch_best).
+// Stops once the next word's entry bits reach the block max of the best t.
 __global__ void closest_stream_kernel(const int* __restrict__ words,
-                                      const int* __restrict__ counts, int k_cap, int tr,
+                                      const int* __restrict__ counts, int k_cap,
                                       const float4* __restrict__ o4,
                                       const float4* __restrict__ d4,
                                       const float4* __restrict__ w, int n_cl, int c,
-                                      int lane_bits, const long long* __restrict__ order,
-                                      const int* __restrict__ ends, int n_ranks, int* next_seg,
-                                      unsigned long long* key) {
-  closest_segments<kBatch, kNBuf>(words, counts, k_cap, tr, o4, d4, w, n_cl, c, lane_bits, order,
-                                  ends, n_ranks, next_seg, key);
-}
-
-// The keys -> (bt, bid), one thread a ray (sorted.cuh closest_finish).
-__global__ void closest_stream_finish_kernel(const int* __restrict__ words,
-                                             const int* __restrict__ counts, int k_cap, int tr,
-                                             size_t n_rays, int n_cl, int c, int lane_bits,
-                                             const unsigned long long* __restrict__ key,
-                                             float* __restrict__ bt_out,
-                                             int* __restrict__ bid_out) {
-  closest_finish<kBatch>(words, counts, k_cap, tr, n_rays, n_cl, c, lane_bits, key, bt_out,
-                         bid_out);
+                                      float* __restrict__ bt_out, int* __restrict__ bid_out) {
+  extern __shared__ float4 ring[];
+  __shared__ int s_red[32];
+  const int tile = blockIdx.x;
+  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
+  const int n = counts[tile];
+  const int* wt = words + (size_t)tile * k_cap;
+  const int per4 = 3 * c;  // 16-byte chunks of one (4, 3C) cluster
+  const int c4 = c / kLanes;
+  const float4 o = o4[ray], d = d4[ray];
+  float bt = kTFar;
+  int bid = -1;
+  if (n > 0) {  // block-uniform
+    for (int b = 0; b < kNBuf; ++b) fetch(ring, w, wt, b, n, n_cl, per4);
+    int bound = __float_as_int(kTFar);
+    for (int k = 0; k < n; k += kBatch) {
+      if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform
+      cp_async_wait<kNBuf - kBatch>();          // this thread's part of k .. k+kBatch-1
+      __syncthreads();                          // everyone's part
+      int cl[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) cl[j] = replay_cluster(wt, k + j, n, n_cl);
+      float tb = kTFar;
+      int tbid = kIntMax;
+      for (int l4 = 0; l4 < c4; ++l4) {
+        float m[kLanes];
+        int mb[kLanes];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+          if (j > 0 && k + j >= n) break;  // candidate k is live inside the loop
+          Quad a;
+          load_quad(a, ring + ((k + j) % kNBuf) * per4, c4, l4);
+#pragma unroll
+          for (int i = 0; i < kLanes; ++i) {
+            const float tv = quad_tri_t(a, i, o, d, kTFar);
+            if (j == 0 || tv < m[i]) {
+              m[i] = tv;
+              mb[i] = cl[j] * c + l4 * kLanes + i;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kLanes; ++i) {
+          if (m[i] < tb || (m[i] == tb && mb[i] < tbid)) {
+            tb = m[i];
+            tbid = mb[i];
+          }
+        }
+      }
+      if (tb < bt) {
+        bt = tb;
+        bid = tbid;
+      }
+      bound = block_max(__float_as_int(bt), s_red);  // the two stages are read
+      for (int j = 0; j < kBatch; ++j) fetch(ring, w, wt, k + j + kNBuf, n, n_cl, per4);
+    }
+    cp_async_wait<0>();  // drain the copies still in flight
+  }
+  bt_out[ray] = bt;
+  bid_out[ray] = bid;
 }
 
 // Occlusion: a ray is occluded iff some candidate triangle has t in
@@ -228,16 +304,16 @@ size_t ring_bytes(int c) { return (size_t)kNBuf * 3 * c * sizeof(float4); }
 // guarantees c % 4 == 0 and 16-byte aligned w, o4 and d4.
 extern "C" {
 
-// grid persistent blocks of kSlices * tr threads; order (int64) and the n_ranks
-// entries of ends are the segment table, *next_seg is 0 and key holds the
-// miss key at launch; the finishing pass follows on the stream.
 int st_closest(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
-               const void* o4, const void* d4, const void* w, int n_cl, int c,
-               const void* order, const void* ends, int n_ranks, void* next_seg, int grid,
-               void* key, void* bt, void* bid, void* stream) {
-  return launch_closest(closest_stream_kernel, closest_stream_finish_kernel, kNBuf, words, counts,
-                        n_tiles, k_cap, tr, o4, d4, w, n_cl, c, order, ends, n_ranks, next_seg,
-                        grid, key, bt, bid, stream);
+               const void* o4, const void* d4, const void* w, int n_cl, int c, void* bt,
+               void* bid, void* stream) {
+  const size_t smem = ring_bytes(c);
+  cudaError_t e = launch_prep(closest_stream_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
+  closest_stream_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
+      (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
+      (const float4*)w, n_cl, c, (float*)bt, (int*)bid);
+  return (int)cudaGetLastError();
 }
 
 // grid persistent blocks of kSlices * tr threads; order (int64) and the n_ranks

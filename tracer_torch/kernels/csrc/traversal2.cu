@@ -42,9 +42,9 @@
 // words of one tile (the table of kernels/_launch.py run_segments: every
 // tile's first segment, then every second one, heaviest tile first), and a
 // fixed grid of persistent blocks pulls segments from a device counter
-// (claim_segment, common.cuh). A block is kSlices * TR threads: kSlices
-// threads serve one ray, each with every kSlices-th lane (or quad of lanes)
-// of a staged cluster.
+// (claim_segment, common.cuh). Several threads serve one ray, each with its
+// share of the lanes (or quads of lanes) of a staged cluster: kSlicesClosest
+// = 2 in closest_hit_kernel, kSlices = 4 in anyhit_kernel.
 //
 // closest_hit_kernel is the closest-hit walk of sorted.cuh at kBatch = 4
 // words a step: the step's clusters come through a ring of 2 * kBatch stages

@@ -3,12 +3,13 @@ not fit in L2 (torch counterpart of tracer/kernels/stream.py).
 
 The same per-tile sorted front-to-back candidate walk as kernels/traversal2,
 at STREAM_BATCH = 2 candidate clusters a step, with the cluster blocks
-streamed from device memory through an NBUF-deep ring of asynchronous bulk
-copies in shared memory (csrc/stream.cu). Both kernels work, as
+streamed from device memory through an NBUF-deep ring of asynchronous
+copies in shared memory (csrc/stream.cu: TMA's bulk copies in the any-hit
+kernel, every thread's cp.async in the closest-hit one). The any-hit kernel works, as
 traversal2's do, on segments of a tile's run (_launch.run_segments), and
-their ring runs on across the segments a block walks; closest hits merge
-through traversal2's key (pack_closest_key at B = STREAM_BATCH). Each
-kernel has:
+its ring runs on across the segments a block walks; the closest-hit kernel
+runs one block a tile (traversal2's segmented walk was measured in its place
+and was not faster over a whole pass: PERF.md). Each kernel has:
   * a plain version, closest_stream_plain / anyhit_stream_plain: the plain
     versions of kernels/traversal2.py at batch=STREAM_BATCH;
   * a wrapper, closest_stream / anyhit_stream: the plain version for CPU
@@ -29,8 +30,8 @@ from tracer_torch.bvh.cull import cull_clusters_sorted2
 from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels.traversal import _homog, tile_rays, tiled_tmax, untile
 from tracer_torch.kernels.traversal2 import (
-    _check_cuda, _launch_anyhit, anyhit_plain, check_quads, closest_hit_plain, launch_closest,
-    recover_hit)
+    _check_cuda, _closest_out, _launch, _launch_anyhit, anyhit_plain, check_quads,
+    closest_hit_plain, recover_hit)
 
 # Ring stages of cluster blocks in flight per tile (kNBuf of csrc/stream.cu).
 NBUF = 4
@@ -43,15 +44,17 @@ anyhit_stream_plain = functools.partial(anyhit_plain, batch=STREAM_BATCH)
 
 
 def closest_stream(o4, d4, w, words, counts):
-    """closest_stream_plain on CPU tensors; on CUDA tensors the kernels
-    closest_stream_kernel and, behind it on the stream,
-    closest_stream_finish_kernel (one call of the C entry point, counted as
-    one launch)."""
+    """closest_stream_plain on CPU tensors; the CUDA kernel
+    closest_stream_kernel on CUDA tensors."""
     if o4.device.type == "cpu":
         return closest_stream_plain(o4, d4, w, words, counts)
     _check_cuda(o4, d4, w, words, counts)
-    return launch_closest("closest_stream", "st_closest", STREAM_BATCH, o4, d4, w, words,
-                          counts)
+    check_quads(w)
+    bt, bid = _closest_out(o4)
+    if o4.shape[0]:
+        _launch("closest_stream", "st_closest", o4.device, words, counts, o4.shape[0],
+                words.shape[1], o4.shape[1], o4, d4, w, w.shape[0], w.shape[2] // 3, bt, bid)
+    return bt, bid
 
 
 def anyhit_stream(o4, d4, tmax, w, words, counts):

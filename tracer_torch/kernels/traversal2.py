@@ -50,18 +50,23 @@ _INT_MAX = 2147483647
 BATCH = 4
 FAST_BATCH = 1
 
-# The segmented kernels' (closest_hit_kernel, anyhit_kernel and the two of
-# csrc/stream.cu) unit of work is a segment, SEG consecutive candidate words
-# of one tile, a whole number of steps of B words, and SLICES threads serve
-# one ray of it, each with its share of a cluster's triangles (kSeg, kSlices
-# of csrc/common.cuh): a block is SLICES * TR threads, 256 for a tile of 64
-# rays. Their grid is BLOCKS_PER_SM persistent blocks for every SM of the
-# card, 32 of the 64 warps an SM holds. Of anyhit_stream_kernel, at 80
-# registers a thread, three blocks fit at a time; its fourth starts when the
-# counter has run out and ends at once.
+# The segmented kernels' (closest_hit_kernel, anyhit_kernel,
+# anyhit_stream_kernel) unit of work is a segment, SEG consecutive candidate
+# words of one tile, a whole number of steps of B words, and several threads
+# serve one ray of it, each with its share of a cluster's triangles (kSeg,
+# kSlices of csrc/common.cuh). The any-hit kernels take SLICES threads a ray,
+# a block of 256 for a tile of 64 rays, in a grid of BLOCKS_PER_SM persistent
+# blocks for every SM of the card, 32 of the 64 warps an SM holds (of
+# anyhit_stream_kernel, at 80 registers a thread, three blocks fit at a time;
+# its fourth starts when the counter has run out and ends at once).
+# closest_hit_kernel takes SLICES_CLOSEST threads a ray (kSlicesClosest of
+# csrc/sorted.cuh), a block of 128, in a grid of BLOCKS_PER_SM_CLOSEST blocks
+# an SM, of which 4 fit at a time.
 SEG = 8
 SLICES = 4
 BLOCKS_PER_SM = 4
+SLICES_CLOSEST = 2
+BLOCKS_PER_SM_CLOSEST = 8
 
 # Bytes of (tiles, B, TR, 3C) temporaries a plain version holds at once.
 _PLAIN_BYTES = 1 << 30
@@ -271,28 +276,26 @@ def check_quads(w):
                          f"got C = {c}, address {w.data_ptr():#x}")
 
 
-def launch_closest(name: str, entry: str, batch: int, o4, d4, w, words, counts):
-    """One launch of a segmented closest-hit kernel (closest_hit_kernel at
-    B = BATCH, closest_stream_kernel at B = 2) and its finishing pass over
-    checked CUDA tensors -> (bt, bid) (Nt, TR). The key starts as KEY_MISS;
-    the segment table (run_segments), the counter and the key are its
-    scratch."""
+def _launch_closest(o4, d4, w, words, counts):
+    """One launch of closest_hit_kernel and its finishing pass over checked
+    CUDA tensors -> (bt, bid) (Nt, TR). The key starts as KEY_MISS; the
+    segment table (run_segments), the counter and the key are its scratch."""
     n_tiles, tr = o4.shape[:2]
     if tr * SLICES > 1024:
-        raise ValueError(f"tile of {tr} rays: the closest-hit kernels take {SLICES} threads a "
-                         f"ray and at most 1024 a block")
+        raise ValueError(f"tile of {tr} rays: the closest-hit kernel keeps at most "
+                         f"{1024 // SLICES} rays a block")
     check_quads(w)
     c, k_cap = w.shape[2] // 3, words.shape[1]
-    check_closest_key(c, k_cap, batch)
+    check_closest_key(c, k_cap, BATCH)
     bt, bid = _closest_out(o4)
     if n_tiles:
         dev = o4.device
         order, ends = run_segments(counts, SEG, k_cap)
         next_seg = torch.zeros(1, dtype=torch.int32, device=dev)
         key = torch.full((n_tiles, tr), KEY_MISS, dtype=torch.int64, device=dev)
-        _launch(name, entry, dev, words, counts, n_tiles, k_cap, tr, o4, d4, w, w.shape[0], c,
-                order, ends, ends.shape[0], next_seg, sm_count(dev.index) * BLOCKS_PER_SM, key,
-                bt, bid)
+        _launch("closest", "tt_closest", dev, words, counts, n_tiles, k_cap, tr, o4, d4, w,
+                w.shape[0], c, order, ends, ends.shape[0], next_seg,
+                sm_count(dev.index) * BLOCKS_PER_SM_CLOSEST, key, bt, bid)
     return bt, bid
 
 
@@ -303,7 +306,7 @@ def closest_hit(o4, d4, w, words, counts):
     if o4.device.type == "cpu":
         return closest_hit_plain(o4, d4, w, words, counts)
     _check_cuda(o4, d4, w, words, counts)
-    return launch_closest("closest", "tt_closest", BATCH, o4, d4, w, words, counts)
+    return _launch_closest(o4, d4, w, words, counts)
 
 
 def closest_fast(o4, d4, w, words, counts):
