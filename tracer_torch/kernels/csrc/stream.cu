@@ -37,10 +37,10 @@
 // of the accel (the quad reads of sorted.cuh).
 //
 // closest_stream_kernel runs one block a tile, one thread a ray, and fills
-// its ring with cp.async 16-byte copies, one commit group per candidate: the
-// copies of candidates k+2 and k+3 are in flight while the block intersects
-// k and k+1, and a step's two stages are refilled with k+4 and k+5 once its
-// fold is done. The segmented closest-hit walk of sorted.cuh (the design of
+// its ring with TMA's bulk copies, one a candidate (the Ring of sorted.cuh):
+// the copies of candidates k+2 and k+3 are in flight while the block
+// intersects k and k+1, and a step's two stages are refilled with k+4 and k+5
+// once its fold is done. The segmented closest-hit walk of sorted.cuh (the design of
 // closest_hit_kernel) was measured in its place at this B and was not faster
 // on all of the pod-1m primary pass: the heaviest tile alone is 2 % of that
 // pass, so there is no tail to win, and the walk's per-step folds cost what
@@ -62,9 +62,8 @@
 // finishes; a word whose entry bits already reach the tile's bound is not
 // copied at all. One thread issues one cp.async.bulk (TMA's 1-D bulk copy) a
 // cluster, which completes on the stage's mbarrier (the Ring of sorted.cuh).
-// The same ring filled by every thread's cp.async copies, as
-// closest_stream_kernel's is, was measured beside it and took 2 to 3 % longer
-// on the pod-1m shadow pass: it needs one more block barrier a step (a thread
+// The same ring filled by every thread's cp.async copies was measured beside
+// it and took 2 to 3 % longer on the pod-1m shadow pass: it needs one more block barrier a step (a thread
 // can wait for its own chunks only) and 90 registers a thread against 80,
 // which leaves room for 2 blocks an SM, not 3.
 #include "common.cuh"
@@ -75,49 +74,22 @@ namespace {
 constexpr int kNBuf = 4;        // NBUF of kernels/stream.py
 constexpr int kBatch = 2;       // STREAM_BATCH of kernels/stream.py
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's commit groups are still in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The cluster of candidate k of a tile's n words (k past the count replays
-// the last word, as the reference does).
-__device__ __forceinline__ int replay_cluster(const int* wt, int k, int n, int n_cl) {
-  return word_cluster(wt[min(k, n - 1)], n_cl);
-}
-
-// Issue the copy of candidate k's cluster into ring stage k % kNBuf: `per4`
-// 16-byte chunks, as one commit group.
-__device__ __forceinline__ void fetch(float4* ring, const float4* __restrict__ w, const int* wt,
-                                      int k, int n, int n_cl, int per4) {
-  const float4* src = w + (size_t)replay_cluster(wt, k, n, n_cl) * per4;
-  float4* dst = ring + (k % kNBuf) * per4;
-  for (int i = threadIdx.x; i < per4; i += blockDim.x) cp_async16(dst + i, src + i);
-  cp_async_commit();
-}
-
 // Closest hit over a tile's sorted candidates, kBatch clusters a step. Per
 // ray: within a step the earliest candidate j wins a lane (strict <), across
 // lanes the smallest t and on equal t the smaller slot cl*C + lane, and a
 // step replaces the running best only on a strict < (traversal2.py:_batch_best).
 // Stops once the next word's entry bits reach the block max of the best t.
+// Ring item k is candidate k: the first kNBuf are issued before the walk, a
+// step's stages are issued to again, with candidates k + kNBuf on, once its
+// fold is done.
 __global__ void closest_stream_kernel(const int* __restrict__ words,
                                       const int* __restrict__ counts, int k_cap,
                                       const float4* __restrict__ o4,
                                       const float4* __restrict__ d4,
                                       const float4* __restrict__ w, int n_cl, int c,
                                       float* __restrict__ bt_out, int* __restrict__ bid_out) {
-  extern __shared__ float4 ring[];
+  extern __shared__ __align__(128) float4 ring_mem[];
+  __shared__ __align__(8) uint64_t s_bar[kNBuf];
   __shared__ int s_red[32];
   const int tile = blockIdx.x;
   const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
@@ -126,54 +98,61 @@ __global__ void closest_stream_kernel(const int* __restrict__ words,
   const int per4 = 3 * c;  // 16-byte chunks of one (4, 3C) cluster
   const int c4 = c / kLanes;
   const float4 o = o4[ray], d = d4[ray];
+  Ring<kNBuf> ring{ring_mem, s_bar, per4, 0};
+  ring.init();
+  __syncthreads();  // the barriers are published
   float bt = kTFar;
   int bid = -1;
-  if (n > 0) {  // block-uniform
-    for (int b = 0; b < kNBuf; ++b) fetch(ring, w, wt, b, n, n_cl, per4);
-    int bound = __float_as_int(kTFar);
-    for (int k = 0; k < n; k += kBatch) {
-      if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform
-      cp_async_wait<kNBuf - kBatch>();          // this thread's part of k .. k+kBatch-1
-      __syncthreads();                          // everyone's part
-      int cl[kBatch];
+  // Only the issuing thread reads the word of a copy.
+  auto issue = [&](int item) {
+    ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(wt[item], n_cl) * per4 : w);
+  };
+  for (int k = 0; k < min(kNBuf, n); ++k) issue(k);
+  int bound = __float_as_int(kTFar);
+  int k = 0;
+  for (; k < n; k += kBatch) {
+    if ((wt[k] & ~kClMask) >= bound) break;  // block-uniform
+    const int n_live = min(kBatch, n - k);
+    for (int j = 0; j < n_live; ++j) ring.wait(k + j);
+    int cl[kBatch];
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j) cl[j] = replay_cluster(wt, k + j, n, n_cl);
-      float tb = kTFar;
-      int tbid = kIntMax;
-      for (int l4 = 0; l4 < c4; ++l4) {
-        float m[kLanes];
-        int mb[kLanes];
+    for (int j = 0; j < kBatch; ++j) cl[j] = word_cluster(wt[k + min(j, n_live - 1)], n_cl);
+    float tb = kTFar;
+    int tbid = kIntMax;
+    for (int l4 = 0; l4 < c4; ++l4) {
+      float m[kLanes];
+      int mb[kLanes];
 #pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-          if (j > 0 && k + j >= n) break;  // candidate k is live inside the loop
-          Quad a;
-          load_quad(a, ring + ((k + j) % kNBuf) * per4, c4, l4);
-#pragma unroll
-          for (int i = 0; i < kLanes; ++i) {
-            const float tv = quad_tri_t(a, i, o, d, kTFar);
-            if (j == 0 || tv < m[i]) {
-              m[i] = tv;
-              mb[i] = cl[j] * c + l4 * kLanes + i;
-            }
-          }
-        }
+      for (int j = 0; j < kBatch; ++j) {
+        if (j > 0 && j >= n_live) break;  // candidate k is live inside the loop
+        Quad a;
+        load_quad(a, ring.stage(k + j), c4, l4);
 #pragma unroll
         for (int i = 0; i < kLanes; ++i) {
-          if (m[i] < tb || (m[i] == tb && mb[i] < tbid)) {
-            tb = m[i];
-            tbid = mb[i];
+          const float tv = quad_tri_t(a, i, o, d, kTFar);
+          if (j == 0 || tv < m[i]) {
+            m[i] = tv;
+            mb[i] = cl[j] * c + l4 * kLanes + i;
           }
         }
       }
-      if (tb < bt) {
-        bt = tb;
-        bid = tbid;
+#pragma unroll
+      for (int i = 0; i < kLanes; ++i) {
+        if (m[i] < tb || (m[i] == tb && mb[i] < tbid)) {
+          tb = m[i];
+          tbid = mb[i];
+        }
       }
-      bound = block_max(__float_as_int(bt), s_red);  // the two stages are read
-      for (int j = 0; j < kBatch; ++j) fetch(ring, w, wt, k + j + kNBuf, n, n_cl, per4);
     }
-    cp_async_wait<0>();  // drain the copies still in flight
+    if (tb < bt) {
+      bt = tb;
+      bid = tbid;
+    }
+    bound = block_max(__float_as_int(bt), s_red);  // the step's stages are read
+    for (int j = 0; j < n_live && k + j + kNBuf < n; ++j) issue(k + j + kNBuf);
   }
+  // The walk stopped early: the copies still in flight are waited for, unread.
+  for (; k < ring.issued; ++k) ring.wait(k);
   bt_out[ray] = bt;
   bid_out[ray] = bid;
 }

@@ -4,8 +4,8 @@ not fit in L2 (torch counterpart of tracer/kernels/stream.py).
 The same per-tile sorted front-to-back candidate walk as kernels/traversal2,
 at STREAM_BATCH = 2 candidate clusters a step, with the cluster blocks
 streamed from device memory through an NBUF-deep ring of asynchronous
-copies in shared memory (csrc/stream.cu: TMA's bulk copies in the any-hit
-kernel, every thread's cp.async in the closest-hit one). The any-hit kernel works, as
+bulk copies in shared memory (csrc/stream.cu, the Ring of csrc/sorted.cuh).
+The any-hit kernel works, as
 traversal2's do, on segments of a tile's run (_launch.run_segments), and
 its ring runs on across the segments a block walks; the closest-hit kernel
 runs one block a tile (traversal2's segmented walk was measured in its place

@@ -10,9 +10,10 @@ Each of the three kernels of the pass has three pieces here:
     ray's t_max);
   * a wrapper (closest_hit, closest_fast, anyhit) that runs the plain
     version for CPU tensors and launches the CUDA kernel of
-    csrc/traversal2.cu for CUDA tensors, or raises. The closest-hit and
-    any-hit kernels do not walk a tile in one block: their unit of work is
-    a segment of a tile's candidate run (_launch.run_segments). Occlusion is
+    csrc/traversal2.cu for CUDA tensors, or raises. The generic closest-hit
+    kernel and the any-hit kernel do not walk a tile in one block: their
+    unit of work is a segment of a tile's candidate run
+    (_launch.run_segments). Occlusion is
     an OR over the candidates, in any order; closest hits merge through a
     64-bit key a ray (pack_closest_key) under an atomic minimum, exact
     because the walk's tie rule is the lexicographic minimum of (t, step,
