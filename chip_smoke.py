@@ -400,15 +400,11 @@ def sorted_tail_report(name, kernel, args, results):
                 f"{t2.BLOCKS_PER_SM} blocks an SM", args[5], call, table)
 
 
-# The sorted closest-hit kernels that walk segments (the others run one
-# block a tile and build no segment table).
-SEGMENTED_CLOSEST = {"closest"}
-
-
 def closest_table(name, counts, k_cap):
     """The segment table the sorted closest-hit wrapper `name` builds at
-    every call, as a function of no arguments; None if it builds none."""
-    if name not in SEGMENTED_CLOSEST:
+    every call, as a function of no arguments; None for closest_stream,
+    which walks a tile in one block and builds none."""
+    if name != "closest":
         return None
     return lambda: _launch.run_segments(counts, t2.SEG, k_cap)
 
@@ -427,7 +423,7 @@ def closest_tail_report(name, kernel, args, results):
         part = cut(a, b)
         return closest_table(name, part[4], part[3].shape[1])
 
-    if name not in SEGMENTED_CLOSEST:
+    if name != "closest":
         tail_report(name, results, "one block a tile, one thread a ray", args[4], call, None)
     else:
         tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES_CLOSEST} threads a ray, "

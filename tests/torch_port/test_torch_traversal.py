@@ -491,7 +491,7 @@ def test_worklist_constants_pinned_to_the_kernels():
     assert len(re.findall(r"kernel<decltype\(size\)::value><<<grid, tr, 0,", src)) == 2
     assert len(re.findall(r"with_cluster_size\(c, walk\)", src)) == 2
     assert len(re.findall(r"claim_segment<kSegWL>\(", src)) == 2
-    for name in ("traversal2.cu", "stream.cu", "sorted.cuh"):
+    for name in ("traversal2.cu", "stream.cu"):
         other = (csrc / name).read_text()
         assert "claim_segment<kSeg>(" in other and "claim_segment(" not in other
     far = re.search(r"constexpr float kTFar = (\S+)f;", (csrc / "common.cuh").read_text())

@@ -193,41 +193,41 @@ def test_anyhit_plain_by_segments_equals_whole(case):
 
 
 def test_segment_constants_pinned_to_the_kernels():
-    """SEG and SLICES are csrc/common.cuh's kSeg and kSlices, and
-    SLICES_CLOSEST csrc/sorted.cuh's kSlicesClosest; a block of the any-hit
-    kernels is SLICES * 64 = 256 threads for a tile of 64 rays, one of the
-    closest-hit walk (closest_hit_kernel) SLICES_CLOSEST * 64 = 128; both
-    sources take the headers' constants and launch those blocks, and SEG is
-    a whole number of steps of each segmented kernel: B = BATCH in
+    """SEG and SLICES are csrc/common.cuh's kSeg and kSlices, MAX_RAYS its
+    kMaxRays, and SLICES_CLOSEST csrc/traversal2.cu's kSlicesClosest; a block
+    of the any-hit kernels is SLICES * 64 = 256 threads for a tile of 64
+    rays, one of closest_hit_kernel SLICES_CLOSEST * 64 = 128; both sources
+    take the headers' kSeg and kSlices and launch those blocks, and SEG is a
+    whole number of steps of each segmented kernel: B = BATCH in
     traversal2.cu, STREAM_BATCH in stream.cu (the kernels cannot run here:
     their constants are read from the sources)."""
     csrc = Path(tt2.__file__).parent / "csrc"
-    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", (csrc / "common.cuh").read_text()))
+    common = (csrc / "common.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", common))
     assert (int(consts["kSeg"]), int(consts["kSlices"])) == (tt2.SEG, tt2.SLICES) == (8, 4)
+    assert "constexpr int kMaxRays = 1024 / kSlices;" in common and tt2.MAX_RAYS == 256
     assert tt2.SLICES * 64 == 256
     for name in ("traversal2.cu", "stream.cu"):
         src = (csrc / name).read_text()
         assert '#include "common.cuh"' in src and '#include "sorted.cuh"' in src
-        assert not re.search(r"constexpr int (kSeg|kSlices\w*) =", src)
+        assert not re.search(r"constexpr int (kSeg|kSlices) =", src)
         assert re.search(r"anyhit\w*kernel<<<grid, kSlices \* tr,", src)
-    sorted_src = (csrc / "sorted.cuh").read_text()
-    closest = dict(re.findall(r"constexpr int (k\w+) = (\d+);", sorted_src))
+    src2, srcs = ((csrc / name).read_text() for name in ("traversal2.cu", "stream.cu"))
+    closest = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src2))
     assert int(closest["kSlicesClosest"]) == tt2.SLICES_CLOSEST == 2
     assert tt2.SLICES_CLOSEST * 64 == 128 and 64 * tt2.SLICES <= 1024
-    assert "walk<<<grid, kSlicesClosest * tr, smem, s>>>" in sorted_src
-    assert "static_assert(kSeg % kB == 0" in sorted_src
-    src2, srcs = ((csrc / name).read_text() for name in ("traversal2.cu", "stream.cu"))
-    batch = re.search(r"constexpr int kBatch = (\d+);", src2)
-    assert int(batch.group(1)) == tt2.BATCH and tt2.SEG % tt2.BATCH == 0
+    assert "closest_hit_kernel<<<grid, kSlicesClosest * tr, smem, s>>>" in src2
+    assert int(closest["kBatch"]) == tt2.BATCH and tt2.SEG % tt2.BATCH == 0
+    assert 1 << int(closest["kBatchBits"]) == tt2.BATCH
+    assert "static_assert(kSeg % kBatch == 0" in src2
     assert "constexpr int kNBufClosest = 2 * kBatch;" in src2
-    assert "closest_segments<kBatch, kNBufClosest>(" in src2
-    assert "launch_closest(closest_hit_kernel, closest_hit_finish_kernel, kNBufClosest," in src2
+    assert "Ring<kNBufClosest> ring{" in src2 and "kSlicesClosest" not in srcs
     stream_batch = int(re.search(r"constexpr int kBatch = (\d+);", srcs).group(1))
     assert stream_batch == 2 and tt2.SEG % stream_batch == 0
 
 
 # ---------------------------------------------------------------------------
-# The segmented closest-hit walk (csrc/sorted.cuh), modelled in plain torch:
+# The segmented closest-hit walk (csrc/traversal2.cu), modelled in plain torch:
 # segments of run_segments, each walked step by step from the keys merged so
 # far (its early-out bound), its hits merged into one key a ray by the
 # minimum, the keys decoded by closest_finish_plain. The kernels' blocks meet

@@ -1,63 +1,11 @@
 // What the sorted-list kernels of traversal2.cu and stream.cu share: the
-// ring of cluster stages that TMA's bulk copies fill (closest_hit_kernel,
-// anyhit_stream_kernel), the reads of a stage as quads of 4 triangles (those
-// two and closest_stream_kernel), and the closest-hit walk over segments
-// with its finishing pass (closest_hit_kernel is this walk at kB = 4 words a
-// step and a ring of 2 steps).
-//
-// The closest-hit walk. A tile's sorted candidate words are walked in steps
-// of kB words; the reference's rule (kernels/traversal2.py _batch_best): per
-// ray and lane the earliest word j of the step wins (strict <), across lanes
-// the least t and on equal t the least slot cl*C + lane, and a step replaces
-// the running best only on a strict <. So the winner over a tile's list is
-// the lexicographic minimum of (t, step, slot), taken over each step's
-// per-lane winners; within a step the slot orders as (rank, lane), rank the
-// place of the lane's cluster among the step's live clusters by id (lane <
-// C). Every hit has kTMin < t < kTFar, so t's bits order as the floats do,
-// and the key
-//     bits(t) << 32 | step << (log2 kB + lane_bits) | rank << lane_bits | lane
-// orders as the rule does; the low word fits for any list the cull emits
-// (kernels/traversal2.py check_closest_key). Keys merge by a 64-bit atomicMin
-// in any order: exact, and the same minimum whatever order the atomics land.
-//
-// The unit of work is a segment, kSeg consecutive words of one tile (the
-// table of kernels/_launch.py run_segments), pulled from a device counter by
-// a fixed grid of persistent blocks of kSlicesClosest * TR threads:
-// kSlicesClosest threads serve one ray, each taking every kSlicesClosest-th
-// quad of 4 lanes of a staged cluster and, for each of its lanes, every word
-// of the step (a thread holds all of a lane's j, so "earliest j wins its
-// lane" is its own to apply). kSeg
-// is a multiple of kB, so no step straddles two segments. A ray's slices fold
-// their keys into one key a ray in shared memory after every step (an
-// atomicMin there), and the segment ends with one atomicMin a ray into the
-// key in device memory, which the caller fills with the miss key.
-//
-// Early out. A segment starts from the tile's keys as they stand in device
-// memory (possibly stale: other segments may still lower them) and stops
-// once the next step's first word has entry bits strictly above the block
-// max of its rays' best t. The cull's entry bits are a lower bound of the t
-// of every triangle of the word's cluster for every ray of the tile (the
-// entry distance, truncated down), and the words are sorted, so a step not
-// walked holds only hits with t strictly above every ray's best as it stood,
-// hence above its final best: it can neither win nor tie. A stale bound is
-// larger and costs work, never a result.
-//
-// The ring runs on across the segments a block walks, as anyhit_stream_kernel's
-// does: the block copies the next segment's first clusters while this one
-// finishes, and a step's first word at or past the bound is not copied.
-// A finishing pass, one thread a ray, decodes the key into (bt, bid): a miss
-// key leaves (kTFar, -1), as a walk with no hit does.
+// ring of cluster stages that TMA's bulk copies fill, and the reads of a
+// stage as quads of 4 triangles (closest_hit_kernel, closest_stream_kernel
+// and anyhit_stream_kernel use both).
 #pragma once
 #include "common.cuh"
 
 constexpr int kLanes = 4;  // triangles per 16-byte coefficient load
-// Threads a ray of the closest-hit walk (SLICES_CLOSEST of
-// kernels/traversal2.py). At 106 registers a thread, blocks of 2 * 64 threads
-// fit 4 an SM (the shared memory of their 2-step rings allows 4 too); 4
-// threads a ray, in blocks of 256, fit 2. Measured on all tiles of
-// bench100k's generic region, 2 threads a ray took 6 % less time than 4
-// (PERF.md).
-constexpr int kSlicesClosest = 2;
 
 // ---------------------------------------------------------------------------
 // The ring: a block's copies, numbered in the order of issue; copy i lands in
@@ -184,258 +132,4 @@ __device__ __forceinline__ float quad_tri_t(const Quad& a, int i, float4 o, floa
 
 __device__ __forceinline__ int word_cluster(int word, int n_cl) {
   return min(word & kClMask, n_cl - 1);
-}
-
-// The miss key: kTFar's bits over all ones, above every hit's key.
-__device__ __forceinline__ unsigned long long miss_key() {
-  return ((unsigned long long)__float_as_uint(kTFar) << 32) | 0xFFFFFFFFull;
-}
-
-template <int kB>
-__host__ __device__ constexpr int batch_bits() {
-  static_assert(kB == 1 || kB == 2 || kB == 4 || kB == 8, "a step of 1, 2, 4 or 8 words");
-  return kB == 1 ? 0 : kB == 2 ? 1 : kB == 4 ? 2 : 3;
-}
-
-// rank[j]: how many of the step's n_live clusters have an id below cl[j].
-template <int kB>
-__device__ __forceinline__ void cluster_ranks(unsigned (&rank)[kB], const int (&cl)[kB],
-                                              int n_live) {
-#pragma unroll
-  for (int j = 0; j < kB; ++j) {
-    rank[j] = 0;
-#pragma unroll
-    for (int i = 0; i < kB; ++i) rank[j] += (i < n_live && cl[i] < cl[j]) ? 1u : 0u;
-  }
-}
-
-// Max of v over the block (blockDim.x a multiple of 32), for a caller that
-// has passed a __syncthreads since the block last read s_red; every thread
-// gets it. block_max (common.cuh) without its first barrier.
-__device__ __forceinline__ int block_max_after_barrier(int v, int* s_red) {
-  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = s_red[0];
-  for (int i = 1; i < (int)(blockDim.x >> 5); ++i) v = max(v, s_red[i]);
-  return v;
-}
-
-// ---------------------------------------------------------------------------
-// The closest-hit walk over segments (see the header): key[ray] = min(key[ray],
-// the key of every hit a step of the block's segments finds for the ray). A
-// block is kSlicesClosest * tr threads; thread tid serves ray tid % tr with
-// the quads l4 % kSlicesClosest == tid / tr of each cluster. The block holds `cur`, the
-// segment it works on (kc: the next word to intersect, kf: the next to copy)
-// and, claimed when it starts on cur, `nxt` (kfn: its next word to copy); the
-// copies in flight are cur's words kc .. kf-1, then nxt's nxt.k0 .. kfn-1.
-// cur's words are read from device memory once, into shared memory; a step
-// then waits on device memory only for its stages, and has two barriers.
-// ---------------------------------------------------------------------------
-template <int kB, int kN>
-__device__ __forceinline__ void closest_segments(
-    const int* __restrict__ words, const int* __restrict__ counts, int k_cap, int tr,
-    const float4* __restrict__ o4, const float4* __restrict__ d4,
-    const float4* __restrict__ w, int n_cl, int c, int lane_bits,
-    const long long* __restrict__ order, const int* __restrict__ ends, int n_ranks,
-    int* next_seg, unsigned long long* key) {
-  static_assert(kSeg % kB == 0, "a segment is a whole number of steps");
-  static_assert(kN >= kB, "the ring holds a step");
-  extern __shared__ __align__(128) float4 ring_mem[];
-  __shared__ __align__(8) uint64_t s_bar[kN];
-  __shared__ int s_red[32];
-  __shared__ int s_claim[2][3];
-  __shared__ int s_words[2][kSeg];
-  __shared__ unsigned long long s_key[kMaxRays];
-  const int per4 = 3 * c;
-  const int c4 = c / kLanes;
-  const int r = threadIdx.x % tr;
-  const int slice = threadIdx.x / tr;
-  const int step_shift = batch_bits<kB>() + lane_bits;
-  int rank = 0;  // thread 0's cursor into ends
-  Ring<kN> ring{ring_mem, s_bar, per4, 0};
-  ring.init();
-  if (threadIdx.x == 0)
-    claim_segment<kSeg>(s_claim[1], next_seg, rank, order, ends, n_ranks, counts);
-  __syncthreads();  // the barriers and the claim are published
-  Segment cur = read_segment(s_claim[1]);
-  int consumed = 0;
-  int kf = cur.k0;
-  for (int it = 0; cur.tile >= 0; ++it) {  // block-uniform
-    // The segment after this one: claimed here, read after the barriers of
-    // block_max, its slot of s_claim claimed into again two segments on; the
-    // same for the slot of s_words that holds cur's words.
-    if (threadIdx.x == 0)
-      claim_segment<kSeg>(s_claim[it & 1], next_seg, rank, order, ends, n_ranks, counts);
-    int* s_cur = s_words[it & 1];
-    if (threadIdx.x < cur.k1 - cur.k0)
-      s_cur[threadIdx.x] = words[(size_t)cur.tile * k_cap + cur.k0 + threadIdx.x];
-    const size_t ray = (size_t)cur.tile * tr + r;
-    const float4 o = o4[ray], d = d4[ray];
-    const unsigned long long key_in = ((const volatile unsigned long long*)key)[ray];
-    if (slice == 0) s_key[r] = key_in;
-    // The barriers of block_max publish s_key, s_cur and s_claim, and order
-    // the last segment's reads of the ring and of s_key before this one's
-    // writes.
-    int bound = block_max(slice == 0 ? (int)(key_in >> 32) : 0, s_red);
-    const Segment nxt = read_segment(s_claim[it & 1]);
-    const int* wtn = words + (size_t)max(nxt.tile, 0) * k_cap;
-    int kc = cur.k0, k1 = cur.k1, kfn = nxt.k0;
-    auto word = [&](int k) { return s_cur[k - cur.k0]; };
-
-    // Fill the ring: cur's words first, as far as the bound lets the walk go
-    // (a step whose first word is past the bound ends the segment there: the
-    // bound only falls), then nxt's, whose words only the issuing thread reads.
-    auto top_up = [&]() {
-      while (ring.issued - consumed < kN) {
-        if (kf < k1) {
-          if (kf % kB == 0 && (word(kf) & ~kClMask) > bound) {
-            k1 = kf;
-            continue;
-          }
-          ring.issue(w + (size_t)word_cluster(word(kf), n_cl) * per4);
-          ++kf;
-        } else if (nxt.tile >= 0 && kfn < nxt.k1) {
-          ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(wtn[kfn], n_cl) * per4 : w);
-          ++kfn;
-        } else {
-          break;
-        }
-      }
-    };
-
-    top_up();
-    unsigned long long best = miss_key();  // this thread's least key in the segment
-    while (kc < k1) {
-      if ((word(kc) & ~kClMask) > bound) break;  // block-uniform
-      const int n_live = min(kB, k1 - kc);       // all copied or in flight: kf >= kc + n_live
-      for (int j = 0; j < n_live; ++j) ring.wait(consumed + j);
-      int cl[kB];
-#pragma unroll
-      for (int j = 0; j < kB; ++j) cl[j] = word_cluster(word(kc + min(j, n_live - 1)), n_cl);
-      unsigned rk[kB];
-      cluster_ranks<kB>(rk, cl, n_live);
-      float tb = kTFar;           // this thread's best of the step: t,
-      unsigned tp = 0xFFFFFFFFu;  // and rank << lane_bits | lane
-      for (int l4 = slice; l4 < c4; l4 += kSlicesClosest) {
-        float m[kLanes];
-        unsigned mr[kLanes];
-#pragma unroll
-        for (int j = 0; j < kB; ++j) {
-          if (j > 0 && j >= n_live) break;  // word kc is live inside the loop
-          Quad a;
-          load_quad(a, ring.stage(consumed + j), c4, l4);
-#pragma unroll
-          for (int i = 0; i < kLanes; ++i) {
-            const float tv = quad_tri_t(a, i, o, d, kTFar);
-            if (j == 0 || tv < m[i]) {
-              m[i] = tv;
-              mr[i] = rk[j];
-            }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kLanes; ++i) {
-          const unsigned p = mr[i] << lane_bits | (unsigned)(l4 * kLanes + i);
-          if (m[i] < tb || (m[i] == tb && p < tp)) {
-            tb = m[i];
-            tp = p;
-          }
-        }
-      }
-      if (tb < kTFar) {
-        const unsigned long long k = ((unsigned long long)__float_as_uint(tb) << 32) |
-                                     ((unsigned)(kc / kB) << step_shift | tp);
-        if (k < best) best = k;
-      }
-      consumed += n_live;
-      kc += n_live;
-      if (best < key_in) atomicMin(s_key + r, best);  // the slices of a ray fold here
-      // The slices' keys are in, the step's stages are read (top_up may issue
-      // to them), and the last fold's reads of s_red are done.
-      __syncthreads();
-      bound = block_max_after_barrier(slice == 0 ? (int)(s_key[r] >> 32) : 0, s_red);
-      top_up();
-    }
-    // The segment stopped early: its copies still in flight are waited for,
-    // unread, so that their stages can be issued to again.
-    for (; kc < kf; ++kc) ring.wait(consumed++);
-    if (slice == 0 && s_key[r] < key_in) atomicMin(key + ray, s_key[r]);
-    cur = nxt;
-    kf = kfn;
-  }
-}
-
-// The finishing pass, one thread a ray: bt the key's t, bid the slot cl*C +
-// lane of the key's (step, rank, lane), or (kTFar, -1) for the miss key.
-template <int kB>
-__device__ __forceinline__ void closest_finish(const int* __restrict__ words,
-                                               const int* __restrict__ counts, int k_cap,
-                                               int tr, size_t n_rays, int n_cl, int c,
-                                               int lane_bits,
-                                               const unsigned long long* __restrict__ key,
-                                               float* __restrict__ bt_out,
-                                               int* __restrict__ bid_out) {
-  const size_t ray = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (ray >= n_rays) return;
-  const unsigned long long best = key[ray];
-  const float t = __uint_as_float((unsigned)(best >> 32));
-  int bid = -1;
-  if (t < kTFar) {
-    const unsigned low = (unsigned)best;
-    const int lane = (int)(low & ((1u << lane_bits) - 1));
-    const unsigned want = (low >> lane_bits) & (kB - 1);
-    const int k = (int)(low >> (batch_bits<kB>() + lane_bits)) * kB;
-    const size_t tile = ray / tr;
-    const int* wt = words + tile * k_cap;
-    const int n_live = min(kB, counts[tile] - k);
-    int cl[kB];
-#pragma unroll
-    for (int j = 0; j < kB; ++j) cl[j] = word_cluster(wt[k + min(j, n_live - 1)], n_cl);
-    unsigned rk[kB];
-    cluster_ranks<kB>(rk, cl, n_live);
-    int hit = cl[0];
-#pragma unroll
-    for (int j = kB - 1; j >= 0; --j)
-      if (j < n_live && rk[j] == want) hit = cl[j];
-    bid = hit * c + lane;
-  }
-  bt_out[ray] = t;
-  bid_out[ray] = bid;
-}
-
-// Bits of a lane of a cluster of c triangles.
-inline int lane_bits_of(int c) {
-  int b = 0;
-  while ((1 << b) < c) ++b;
-  return b;
-}
-
-// One launch of a closest-hit walk and, behind it on the stream, its
-// finishing pass: grid persistent blocks of kSlicesClosest * tr threads; order
-// (int64) and the n_ranks entries of ends are the segment table, *next_seg
-// is 0 and key holds the miss key at launch. Returns the first CUDA error.
-template <typename Walk, typename Finish>
-inline int launch_closest(Walk walk, Finish finish, int n_stages, const void* words,
-                          const void* counts, int n_tiles, int k_cap, int tr, const void* o4,
-                          const void* d4, const void* w, int n_cl, int c, const void* order,
-                          const void* ends, int n_ranks, void* next_seg, int grid, void* key,
-                          void* bt, void* bid, void* stream) {
-  if (tr > kMaxRays || c % kLanes) return (int)cudaErrorInvalidValue;
-  const int lb = lane_bits_of(c);
-  const size_t smem = (size_t)n_stages * 3 * c * sizeof(float4);
-  cudaError_t e = launch_prep(walk, smem);
-  if (e != cudaSuccess) return (int)e;
-  const cudaStream_t s = (cudaStream_t)stream;
-  walk<<<grid, kSlicesClosest * tr, smem, s>>>((const int*)words, (const int*)counts, k_cap, tr,
-                                         (const float4*)o4, (const float4*)d4, (const float4*)w,
-                                         n_cl, c, lb, (const long long*)order, (const int*)ends,
-                                         n_ranks, (int*)next_seg, (unsigned long long*)key);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const size_t n_rays = (size_t)n_tiles * tr;
-  finish<<<(unsigned)((n_rays + 255) / 256), 256, 0, s>>>(
-      (const int*)words, (const int*)counts, k_cap, tr, n_rays, n_cl, c, lb,
-      (const unsigned long long*)key, (float*)bt, (int*)bid);
-  return (int)cudaGetLastError();
 }

@@ -40,8 +40,8 @@
 // its ring with TMA's bulk copies, one a candidate (the Ring of sorted.cuh):
 // the copies of candidates k+2 and k+3 are in flight while the block
 // intersects k and k+1, and a step's two stages are refilled with k+4 and k+5
-// once its fold is done. The segmented closest-hit walk of sorted.cuh (the design of
-// closest_hit_kernel) was measured in its place at this B and was not faster
+// once its fold is done. The segmented walk of closest_hit_kernel
+// (traversal2.cu) was measured in its place at this B and was not faster
 // on all of the pod-1m primary pass: the heaviest tile alone is 2 % of that
 // pass, so there is no tail to win, and the walk's per-step folds cost what
 // its extra warps gain (PERF.md).

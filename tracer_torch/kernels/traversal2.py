@@ -61,13 +61,16 @@ FAST_BATCH = 1
 # anyhit_stream_kernel, at 80 registers a thread, three blocks fit at a time;
 # its fourth starts when the counter has run out and ends at once).
 # closest_hit_kernel takes SLICES_CLOSEST threads a ray (kSlicesClosest of
-# csrc/sorted.cuh), a block of 128, in a grid of BLOCKS_PER_SM_CLOSEST blocks
+# csrc/traversal2.cu), a block of 128, in a grid of BLOCKS_PER_SM_CLOSEST blocks
 # an SM, of which 4 fit at a time.
 SEG = 8
 SLICES = 4
 BLOCKS_PER_SM = 4
 SLICES_CLOSEST = 2
 BLOCKS_PER_SM_CLOSEST = 8
+# Rays a block of the segmented kernels holds state for in shared memory
+# (kMaxRays of csrc/common.cuh).
+MAX_RAYS = 1024 // SLICES
 
 # Bytes of (tiles, B, TR, 3C) temporaries a plain version holds at once.
 _PLAIN_BYTES = 1 << 30
@@ -178,7 +181,7 @@ def anyhit_plain(o4, d4, tmax, w, words, counts, batch: int = BATCH):
 # ---------------------------------------------------------------------------
 # The closest-hit key: bits(t) << 32 | step << (log2 B + lane bits) | rank <<
 # lane bits | lane, where step is the word index over B, and rank the place of
-# the lane's cluster among the step's live clusters by id (csrc/sorted.cuh).
+# the lane's cluster among the step's live clusters by id (csrc/traversal2.cu).
 # Within a step (rank, lane) orders as the slot cl*C + lane does, so keys
 # order as the walk's tie rule: (t, step, slot).
 # ---------------------------------------------------------------------------
@@ -282,9 +285,9 @@ def _launch_closest(o4, d4, w, words, counts):
     CUDA tensors -> (bt, bid) (Nt, TR). The key starts as KEY_MISS; the
     segment table (run_segments), the counter and the key are its scratch."""
     n_tiles, tr = o4.shape[:2]
-    if tr * SLICES > 1024:
-        raise ValueError(f"tile of {tr} rays: the closest-hit kernel keeps at most "
-                         f"{1024 // SLICES} rays a block")
+    if tr > MAX_RAYS:
+        raise ValueError(f"tile of {tr} rays: the closest-hit kernel folds its slices' keys "
+                         f"in shared memory for at most {MAX_RAYS} rays a block")
     check_quads(w)
     c, k_cap = w.shape[2] // 3, words.shape[1]
     check_closest_key(c, k_cap, BATCH)
