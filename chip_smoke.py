@@ -241,6 +241,19 @@ def closest_bound(words, counts, final_bits, tr, c):
                   32, 8), f"{tests} cluster tests x {tr} x {c} x {FLOPS_TRI}")
 
 
+def sorted_closest_bound(name, words, counts, bt, tr, c):
+    """closest_bound of the sorted closest-hit kernel `name` on its output bt
+    -> (bound, its text, the (ray, triangle) tests it counts). The fast
+    kernel's walk is its first word, whatever the bound."""
+    if name == "closest_fast":
+        words, counts = words[:, :1], counts.clamp_max(1)
+        final = torch.full_like(counts, 2**31 - 1)
+    else:
+        final = float_bits(bt).amax(1)
+    bnd, tests = closest_bound(words, counts, final, tr, c)
+    return bnd, tests, int(needed_words(words, counts, final).sum()) * tr * c
+
+
 def open_rays(occ, tmax):
     """The rays an OR must follow to the end: not occluded, and with a
     non-empty interval (T_MIN, t_max)."""
@@ -296,14 +309,7 @@ def compare_closest(name, kernel, plain, o4, d4, w, words, counts, results):
     err = float((bt_k - bt_p).abs().max()) if bt_k.numel() else 0.0
     ms = cuda_ms(lambda: kernel(o4, d4, w, words, counts), 20)
     plain_ms = cuda_ms(lambda: plain(o4, d4, w, words, counts), 1)
-    # The fast kernel's walk is its first word, whatever the bound.
-    if name == "closest_fast":
-        bnd, tests = closest_bound(words[:, :1], counts.clamp_max(1),
-                                   torch.full_like(counts, 2**31 - 1), o4.shape[1],
-                                   w.shape[2] // 3)
-    else:
-        bnd, tests = closest_bound(words, counts, float_bits(bt_k).amax(1), o4.shape[1],
-                                   w.shape[2] // 3)
+    bnd, tests, _ = sorted_closest_bound(name, words, counts, bt_k, o4.shape[1], w.shape[2] // 3)
     report(name, results, o4.shape[0],
            f"{count_stats(counts)}: gid mismatches {bad_bid}, bt bit mismatches {bad_bt}, "
            f"max |dbt| {err:.3g}", ms, plain_ms, err, bnd, tests)
@@ -423,11 +429,11 @@ def closest_tail_report(name, kernel, args, results):
         part = cut(a, b)
         return closest_table(name, part[4], part[3].shape[1])
 
-    if name != "closest":
-        tail_report(name, results, "one block a tile, one thread a ray", args[4], call, None)
-    else:
-        tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES_CLOSEST} threads a ray, "
-                    f"{t2.BLOCKS_PER_SM_CLOSEST} blocks an SM", args[4], call, table)
+    geometry = {"closest": f"of {t2.SEG} words, {t2.SLICES_CLOSEST} threads a ray, "
+                           f"{t2.BLOCKS_PER_SM_CLOSEST} blocks an SM",
+                "closest_fast": "one block a tile, one thread a ray",
+                "closest_stream": "one block a tile, one thread a ray"}[name]
+    tail_report(name, results, geometry, args[4], call, None if name != "closest" else table)
 
 
 def closest_whole_pass(name, kernel, plain, args, what):
@@ -450,8 +456,7 @@ def closest_whole_pass(name, kernel, plain, args, what):
     wrap = device_ms(lambda: kernel(*args), 10)
     tab = 0.0 if table is None else device_ms(table, 10)
     alone = wrap - tab
-    bnd, tests = closest_bound(words, counts, float_bits(out_k[0]).amax(1), tr, c)
-    n_tests = int(needed_words(words, counts, float_bits(out_k[0]).amax(1)).sum()) * tr * c
+    bnd, tests, n_tests = sorted_closest_bound(name, words, counts, out_k[0], tr, c)
     mhz = clock_under_load(lambda: kernel(*args), wrap)
     sms = _launch.sm_count(0)
     log(f"[kernels] {name} on every tile of its pass ({what}: {counts.shape[0]} tiles, "
@@ -507,16 +512,23 @@ def phase_kernels(results: dict, cfg, dev):
         gen_args = (o4[gen], d4[gen], w, w_s[gen].contiguous(), c_s[gen].contiguous())
         compare_closest("closest", t2.closest_hit, t2.closest_hit_plain, *gen_args, results)
         closest_tail_report("closest", t2.closest_hit, gen_args, results)
-        compare_closest("closest_fast", t2.closest_fast, t2.closest_fast_plain,
-                        o4[one], d4[one], w, w_s[one].contiguous(), c_s[one].contiguous(),
+        fast_args = (o4[one], d4[one], w, w_s[one].contiguous(), c_s[one].contiguous())
+        compare_closest("closest_fast", t2.closest_fast, t2.closest_fast_plain, *fast_args,
                         results)
-        # The frame's generic region: every tile with count > 1, by descending
-        # count, as trace_tiles_split hands it to the kernel.
+        closest_tail_report("closest_fast", t2.closest_fast, fast_args, results)
+        # The frame's generic and fast regions: the tiles with count > 1 and
+        # those with count 1, by descending count, as trace_tiles_split hands
+        # them to the kernels.
         order = torch.argsort(-counts, stable=True)
-        region = order[:int((counts > t2.FAST_BATCH).sum())]
-        closest_whole_pass("closest", t2.closest_hit, t2.closest_hit_plain,
-                           (*_homog(o_t[region], d_t[region]), w, words[region].contiguous(),
-                            counts[region].contiguous()), "the generic region")
+        n_gen, n_fast = int((counts > t2.FAST_BATCH).sum()), int((counts > 0).sum())
+        for name, kernel, plain, region, what in (
+                ("closest", t2.closest_hit, t2.closest_hit_plain, order[:n_gen],
+                 "the generic region"),
+                ("closest_fast", t2.closest_fast, t2.closest_fast_plain, order[n_gen:n_fast],
+                 "the fast region")):
+            closest_whole_pass(name, kernel, plain,
+                               (*_homog(o_t[region], d_t[region]), w,
+                                words[region].contiguous(), counts[region].contiguous()), what)
 
         # The frame's shadow pass: segments from the light to the primary hits.
         gid, rows, _, _, _ = tiled._trace_rows(accel, o_t, d_t)
@@ -695,6 +707,44 @@ def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
     check(not any(bad), f"{name}: kernel disagrees with its plain version on the whole pass")
 
 
+def pair_closest_bound(o4, d4, w, lo, hi, words, counts, bt):
+    """bound() of pair_closest_kernel on its output bt: every word under the
+    tile's final bound is slab-tested by every ray; those that some ray
+    enters before its final best t are tested by every ray (the vote against
+    the final state passes only where the walk's own did). Inputs o4, d4 (32
+    B a ray), outputs bt, bid (8 B); a visited cluster's box is 24 B, a
+    tested one's matrix 48 C."""
+    tr, c = o4.shape[1], w.shape[2] // 3
+    need = needed_words(words, counts, float_bits(bt).amax(1))
+    t, cl, enter = pair_enter(o4, d4, lo, hi, words, need)
+    voted = (enter < bt[t]).any(1)
+    n_vis, n_tst = int(need.sum()), int(voted.sum())
+    bnd = bound(n_tst * tr * c * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, o4.shape[0], tr, n_vis,
+                torch.unique(cl).numel() * 24 + torch.unique(cl[voted]).numel() * 48 * c, 32, 8)
+    return bnd, (f"{n_tst} cluster tests x {tr} x {c} x {FLOPS_TRI} + {n_vis} slab tests x "
+                 f"{tr} x {FLOPS_SLAB}")
+
+
+def pair_anyhit_bound(o4, d4, tm, w, lo, hi, words, counts, occ):
+    """bound() of pair_anyhit_kernel on its output occ: every word under the
+    tile's final bound is slab-tested by every ray. Per ray: one left
+    unoccluded needs every such cluster it enters before its t_max, one that
+    ends occluded one triangle test. Inputs o4, d4, tmax (36 B a ray), output
+    occ (1 B a ray)."""
+    tr, c = o4.shape[1], w.shape[2] // 3
+    open_ = open_rays(occ, tm)
+    need = needed_words(words, counts, float_bits(torch.where(occ, 0.0, tm)).amax(1))
+    t, cl, enter = pair_enter(o4, d4, lo, hi, words, need)
+    reach = (enter < tm[t]) & open_[t]
+    n_vis, n_tst = int(need.sum()), int(reach.sum()) * c + int(occ.sum())
+    items = int(torch.maximum(need.sum(1), occ.any(1).long()).sum())
+    used = reach.any(1)
+    bnd = bound(n_tst * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, o4.shape[0], tr, items,
+                torch.unique(cl).numel() * 24 + torch.unique(cl[used]).numel() * 48 * c, 36, 1)
+    return bnd, (f"{n_tst} (ray, triangle) tests x {FLOPS_TRI} + {n_vis} slab tests x {tr} x "
+                 f"{FLOPS_SLAB}")
+
+
 def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
     """One pair kernel against its plain version on the selected tiles:
     closest hit when tmax_t is None, else any-hit (t_max 0 for d == 0)."""
@@ -718,20 +768,7 @@ def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
         bad = [int((bid_k != bid_p).sum()), int((float_bits(bt_k) != float_bits(bt_p)).sum())]
         err = float((bt_k - bt_p).abs().max())
         what = f"gid mismatches {bad[0]}, bt bit mismatches {bad[1]}, max |dbt| {err:.3g}"
-        # Every word under the tile's final bound is slab-tested by every
-        # ray; those that some ray enters before its final best t are tested
-        # by every ray (the vote against the final state passes only where
-        # the walk's own did). Inputs o4, d4 (32 B a ray), outputs bt, bid (8 B);
-        # a visited cluster's box is 24 B, a tested one's matrix 48 C.
-        need = needed_words(w_s, c_s, float_bits(bt_k).amax(1))
-        t, cl, enter = pair_enter(o4, d4, lo, hi, w_s, need)
-        voted = (enter < bt_k[t]).any(1)
-        n_vis, n_tst = int(need.sum()), int(voted.sum())
-        bnd = bound(n_tst * tr * c * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, sel.numel(), tr, n_vis,
-                    torch.unique(cl).numel() * 24 + torch.unique(cl[voted]).numel() * 48 * c,
-                    32, 8)
-        tests = (f"{n_tst} cluster tests x {tr} x {c} x {FLOPS_TRI} + {n_vis} slab tests x "
-                 f"{tr} x {FLOPS_SLAB}")
+        bnd, tests = pair_closest_bound(o4, d4, w, lo, hi, w_s, c_s, bt_k)
     else:
         name = "pair_anyhit"
         tm = torch.where((d_t[sel] != 0.0).any(-1), tmax_t[sel], 0.0).contiguous()
@@ -742,22 +779,7 @@ def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
         bad = [int((occ_k != occ_p).sum())]
         err = float(bad[0] > 0)
         what = f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad[0]}"
-        # Every word under the tile's final bound is slab-tested by every
-        # ray. Per ray: one left unoccluded needs every such cluster it
-        # enters before its t_max, one that ends occluded one triangle test.
-        # Inputs o4, d4, tmax (36 B a ray), output occ (1 B a ray).
-        open_ = open_rays(occ_k, tm)
-        need = needed_words(w_s, c_s, float_bits(torch.where(occ_k, 0.0, tm)).amax(1))
-        t, cl, enter = pair_enter(o4, d4, lo, hi, w_s, need)
-        reach = (enter < tm[t]) & open_[t]
-        n_vis, n_tst = int(need.sum()), int(reach.sum()) * c + int(occ_k.sum())
-        items = int(torch.maximum(need.sum(1), occ_k.any(1).long()).sum())
-        used = reach.any(1)
-        bnd = bound(n_tst * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, sel.numel(), tr, items,
-                    torch.unique(cl).numel() * 24 + torch.unique(cl[used]).numel() * 48 * c,
-                    36, 1)
-        tests = (f"{n_tst} (ray, triangle) tests x {FLOPS_TRI} + {n_vis} slab tests x {tr} x "
-                 f"{FLOPS_SLAB}")
+        bnd, tests = pair_anyhit_bound(o4, d4, tm, w, lo, hi, w_s, c_s, occ_k)
     ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 1)
     report(name, results, sel.numel(), f"{count_stats(c_s)}: {what}", ms, plain_ms, err, bnd,
            tests)
@@ -834,6 +856,7 @@ def pair_kernels(results: dict, cfg, scene, accel, rays):
     log(f"[wavefront] pair primary cull: {o_t.shape[0]} tiles of 64, {count_stats(counts)}, "
         f"total {int(counts.sum())}")
     compare_pairs(results, accel, o_t, d_t, None, words, counts)
+    pair_closest_pass(accel, o_t, d_t, words, counts)
     trace_fn, _ = t3.make_pair_tracers(scene, accel)
     so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, 64)
     words, counts, excess = cull_clusters_sorted(accel, so, sd, tm)
@@ -841,7 +864,111 @@ def pair_kernels(results: dict, cfg, scene, accel, rays):
     log(f"[wavefront] pair shadow cull (light 0): {so.shape[0]} tiles, "
         f"{count_stats(counts)}, total {int(counts.sum())}")
     compare_pairs(results, accel, so, sd, tm, words, counts)
+    pair_anyhit_pass(results, accel, so, sd, tm, words, counts)
     compare_shadow_lists(accel, so, sd, tm, words, counts)
+
+
+def pair_case(accel, o_t, d_t, tmax_t, words, counts, idx):
+    """A pair wrapper's arguments on tiles idx (closest hit when tmax_t is
+    None, else any-hit with t_max 0 for d == 0), as the tile passes build
+    them."""
+    offs, pwords, overflow = t3._tile_stream(words[idx].contiguous(), counts[idx].contiguous(),
+                                             None)
+    check(not overflow, "an exact pair stream overflowed")
+    o4, d4 = _homog(o_t[idx], d_t[idx])
+    lo, hi = accel.cluster_lo.contiguous(), accel.cluster_hi.contiguous()
+    if tmax_t is None:
+        return o4, d4, accel.tri_w, lo, hi, offs, pwords
+    tm = torch.where((d_t[idx] != 0.0).any(-1), tmax_t[idx], 0.0).contiguous()
+    return o4, d4, tm, accel.tri_w, lo, hi, offs, pwords
+
+
+def pair_closest_pass(accel, o_t, d_t, words, counts):
+    """pair_closest_kernel on every tile of the pair tier's primary pass:
+    its kernel-alone time and the bound on these tiles (untimed against
+    its plain version here: the comparison tiles hold it to that)."""
+    args = pair_case(accel, o_t, d_t, None, words, counts, torch.arange(counts.shape[0],
+                                                                         device=counts.device))
+    bt, _ = t3.pair_closest(*args)
+    alone = device_ms(lambda: t3.pair_closest(*args), 10)
+    bnd, tests = pair_closest_bound(*args[:5], words, counts, bt)
+    log(f"[kernels] pair_closest on every tile of its pass (the primary rays: "
+        f"{counts.shape[0]} tiles, {count_stats(counts)}): kernel alone {alone:.4f} ms; bound "
+        f"{bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), kernel alone / bound "
+        f"{alone / bnd['bound_ms']:.2f}")
+
+
+def pair_anyhit_walk(o4, d4, tm, w, lo, hi, offs, pwords):
+    """pair_anyhit_plain's walk, replayed to count edge pairs: (ray, cluster)
+    with a hit at t < t_max whose rounded slab entry is >= t_max. Such a ray
+    is occluded by the cluster only if another ray votes for it, so its
+    result depends on the other rays' state when the word is visited ->
+    (occ, edge pairs of the clusters the walk tests, edge pairs of every
+    word under the tile's first bound, which is what a walk from other
+    start states may test)."""
+    n_tiles, tr, _ = o4.shape
+    n_cl, c = w.shape[0], w.shape[2] // 3
+    occ_all = torch.zeros((n_tiles, tr), dtype=torch.bool, device=o4.device)
+    tested = reached = 0
+    for a, b in t1._tile_chunks(n_tiles, tr, c):
+        o4c, d4c, tmc, occ = o4[a:b], d4[a:b], tm[a:b], occ_all[a:b]
+        rt = t3._ray_rows(o4c[..., :3], d4c[..., :3])
+        first = float_bits(tmc).amax(1)
+        bnd = first.clone()
+        start, runs = offs[a:b].long(), (offs[a + 1:b + 1] - offs[a:b]).long()
+        for j in range(int(runs.max()) if runs.numel() else 0):
+            t = torch.nonzero(runs > j)[:, 0]
+            entry = pwords[start[t] + j] & ~_CL_MASK
+            under = entry < first[t]
+            t, entry = t[under], entry[under]
+            cl = (pwords[start[t] + j] & _CL_MASK).clamp_max(n_cl - 1).long()
+            enter = t3._slab_enter(rt[t], lo[cl], hi[cl])
+            hit = t2._cluster_t(o4c[t], d4c[t], w[cl], tmc[t][..., None]).amin(-1) < T_FAR
+            edge = hit & (enter >= tmc[t])
+            reached += int(edge.sum())
+            test = (entry < bnd[t]) & ((enter < tmc[t]) & ~occ[t]).any(1)
+            tested += int(edge[test].sum())
+            tt = t[test]
+            occ[tt] |= hit[test]
+            bnd[tt] = float_bits(torch.where(occ[tt], 0.0, tmc[tt])).amax(1)
+    return occ_all, tested, reached
+
+
+def pair_anyhit_pass(results, accel, so, sd, tm, words, counts):
+    """pair_anyhit_kernel's tail report on the comparison tiles, then the
+    kernel on every tile of the pair tier's shadow pass: occlusion against
+    its plain version and against pair_anyhit_walk's replay, three runs
+    identical, kernel-alone time, the bound on these tiles, and the edge
+    pairs of the pass."""
+    sel = select_tiles(counts)
+    sel = sel[counts[sel] > 0]
+    def call(a, b):
+        part = pair_case(accel, so, sd, tm, words, counts, sel[a:b])
+        return lambda: t3.pair_anyhit(*part)
+
+    tail_report("pair_anyhit", results, "one block a tile, one thread a ray", counts[sel], call,
+                None)
+    args = pair_case(accel, so, sd, tm, words, counts, torch.arange(counts.shape[0],
+                                                                    device=counts.device))
+    t0 = time.perf_counter()
+    occ_k, occ_p = t3.pair_anyhit(*args), t3.pair_anyhit_plain(*args)
+    walk, tested, reached = pair_anyhit_walk(*args)
+    again = sum(int((occ_k != t3.pair_anyhit(*args)).sum()) for _ in range(2))
+    bad, bad_walk = int((occ_k != occ_p).sum()), int((walk != occ_p).sum())
+    cmp_s = time.perf_counter() - t0
+    alone = device_ms(lambda: t3.pair_anyhit(*args), 10)
+    bnd, tests = pair_anyhit_bound(*args[:6], words, counts, occ_k)
+    log(f"[kernels] pair_anyhit on every tile of its pass (the first light's shadow rays: "
+        f"{counts.shape[0]} tiles, {count_stats(counts)}, total {int(counts.sum())}): occ "
+        f"mismatches {bad}, elements that differ between three runs {again}, the replayed "
+        f"walk against the plain version {bad_walk} ({cmp_s:.1f} s, untimed); edge pairs "
+        f"(a hit under t_max, a slab entry at or past it) in the clusters the walk tests "
+        f"{tested}, in every word under a tile's first bound {reached}; kernel alone "
+        f"{alone:.4f} ms; bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), "
+        f"kernel alone / bound {alone / bnd['bound_ms']:.2f}")
+    check(not bad and not again and not bad_walk,
+          "pair_anyhit: kernel disagrees with its plain version, or with itself, on the whole "
+          "pass")
 
 
 def phase_wavefront_kernels(results: dict, cfg, scene, camera, accel):
