@@ -431,7 +431,8 @@ def closest_tail_report(name, kernel, args, results):
 
     geometry = {"closest": f"of {t2.SEG} words, {t2.SLICES_CLOSEST} threads a ray, "
                            f"{t2.BLOCKS_PER_SM_CLOSEST} blocks an SM",
-                "closest_fast": "one block a tile, one thread a ray",
+                "closest_fast": f"{t2.SLICES_FAST} threads a ray, blocks of up to "
+                                f"{t2.FAST_THREADS} threads",
                 "closest_stream": "one block a tile, one thread a ray"}[name]
     tail_report(name, results, geometry, args[4], call, None if name != "closest" else table)
 
@@ -946,8 +947,9 @@ def pair_anyhit_pass(results, accel, so, sd, tm, words, counts):
         part = pair_case(accel, so, sd, tm, words, counts, sel[a:b])
         return lambda: t3.pair_anyhit(*part)
 
-    tail_report("pair_anyhit", results, "one block a tile, one thread a ray", counts[sel], call,
-                None)
+    tail_report("pair_anyhit", results, f"one block a tile, {t3.SLICES_PAIR} threads a ray, "
+                f"windows of {t3.WINDOW} words, a ring of {t3.NBUF_PAIR} stages", counts[sel],
+                call, None)
     args = pair_case(accel, so, sd, tm, words, counts, torch.arange(counts.shape[0],
                                                                     device=counts.device))
     t0 = time.perf_counter()

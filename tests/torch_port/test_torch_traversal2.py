@@ -194,7 +194,8 @@ def test_anyhit_plain_by_segments_equals_whole(case):
 
 def test_segment_constants_pinned_to_the_kernels():
     """SEG and SLICES are csrc/common.cuh's kSeg and kSlices, MAX_RAYS its
-    kMaxRays, and SLICES_CLOSEST csrc/traversal2.cu's kSlicesClosest; a block
+    kMaxRays, SLICES_CLOSEST, SLICES_FAST and FAST_THREADS
+    csrc/traversal2.cu's kSlicesClosest, kSlicesFast and kFastThreads; a block
     of the any-hit kernels is SLICES * 64 = 256 threads for a tile of 64
     rays, one of closest_hit_kernel SLICES_CLOSEST * 64 = 128; both sources
     take the headers' kSeg and kSlices and launch those blocks, and SEG is a
@@ -224,6 +225,13 @@ def test_segment_constants_pinned_to_the_kernels():
     assert "Ring<kNBufClosest> ring{" in src2 and "kSlicesClosest" not in srcs
     stream_batch = int(re.search(r"constexpr int kBatch = (\d+);", srcs).group(1))
     assert stream_batch == 2 and tt2.SEG % stream_batch == 0
+    # closest_fast_kernel: SLICES_FAST threads a ray, blocks of FAST_THREADS
+    # holding FAST_THREADS // (SLICES_FAST * TR) tiles, 1 at a tile of 64.
+    assert (int(closest["kSlicesFast"]), int(closest["kFastThreads"])) == (
+        tt2.SLICES_FAST, tt2.FAST_THREADS) == (4, 256)
+    assert "const int tiles = max(1, kFastThreads / (kSlicesFast * tr));" in src2
+    assert "closest_fast_kernel<<<(n_tiles + tiles - 1) / tiles, tiles * kSlicesFast * tr," in src2
+    assert max(1, tt2.FAST_THREADS // (tt2.SLICES_FAST * 64)) == 1
 
 
 # ---------------------------------------------------------------------------
@@ -387,3 +395,107 @@ def test_closest_key_packing_and_limits(batch):
     words, counts = torch.zeros((2, 3), dtype=torch.int32), torch.tensor([3, 0], dtype=torch.int32)
     bt, bid = tt2.closest_finish_plain(miss, words, counts, 5, 32, batch)
     assert bool((bt == T_FAR).all()) and bool((bid == -1).all()) and bid.dtype == torch.int32
+
+
+# ---------------------------------------------------------------------------
+# closest_fast_kernel's fold (csrc/traversal2.cu), modelled in plain torch:
+# SLICES_FAST threads a ray, each with every SLICES_FAST-th quad of 4 lanes of
+# the tile's one cluster, keeping the first lane of its least t; the slices
+# then fold the least (t, lane). The kernels cannot run here: the model holds
+# the fold rule, in several orders, to closest_fast_plain.
+# ---------------------------------------------------------------------------
+
+def _fast_slices(o4, d4, w, words, counts, slices):
+    """Each slice's best of the one-word walk: (t (S, Nt, TR), lane (S, Nt,
+    TR)), the first lane of the least t over the slice's quads (T_FAR and
+    lane 0 where the slice has no hit or the tile no word)."""
+    c = w.shape[2] // 3
+    cl = torch.clamp_max(words[:, 0] & tt2._CL_MASK, w.shape[0] - 1).long()
+    tv = tt2._cluster_t(o4, d4, w[cl], T_FAR)
+    tv = torch.where((counts > 0)[:, None, None], tv, T_FAR)              # (Nt, TR, C)
+    lane = torch.arange(c)
+    ts, ls = [], []
+    for s in range(slices):
+        mine = (lane // 4) % slices == s
+        tm = torch.where(mine, tv, T_FAR)
+        t = tm.amin(-1)
+        first = torch.where((tm == t[..., None]) & mine, lane, c).amin(-1)
+        ts.append(t)
+        ls.append(torch.where(t < T_FAR, first, 0))
+    return torch.stack(ts), torch.stack(ls)
+
+
+def _fold(a, b):
+    """The least (t, lane) of two slices' bests."""
+    take = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+    return torch.where(take, b[0], a[0]), torch.where(take, b[1], a[1])
+
+
+def _fold_orders(ts, ls, seed):
+    """The slices' bests folded by the kernel's shuffles (xor offsets S/2
+    .. 1, read at slice 0), forward, backward and in two random orders."""
+    slices = ts.shape[0]
+    xor = [(ts[s], ls[s]) for s in range(slices)]
+    off = slices // 2
+    while off:
+        xor = [_fold(xor[s], xor[s ^ off]) for s in range(slices)]
+        off //= 2
+    rng = np.random.default_rng(seed)
+    orders = [list(range(slices)), list(range(slices))[::-1],
+              list(rng.permutation(slices)), list(rng.permutation(slices))]
+    out = [xor[0]]
+    for order in orders:
+        acc = (ts[order[0]], ls[order[0]])
+        for s in order[1:]:
+            acc = _fold(acc, (ts[s], ls[s]))
+        out.append(acc)
+    return out
+
+
+def _assert_fast_folds(o4, d4, w, words, counts, slices):
+    c = w.shape[2] // 3
+    want = tt2.closest_fast_plain(o4, d4, w, words, counts)
+    cl = torch.clamp_max(words[:, 0] & tt2._CL_MASK, w.shape[0] - 1)[:, None]
+    for t, lane in _fold_orders(*_fast_slices(o4, d4, w, words, counts, slices), slices):
+        hit = t < T_FAR
+        _assert_bits((torch.where(hit, t, T_FAR), torch.where(hit, cl * c + lane, -1).int()),
+                     want)
+    return want
+
+
+@pytest.mark.parametrize("slices", [2, 4, 8])
+def test_closest_fast_fold_equals_the_plain_walk(case, slices):
+    """Per-slice bests of the one-word walk, folded by shuffles and in four
+    other orders: bt and bid bit for bit those of closest_fast_plain."""
+    _, t_accel, o_t, d_t, _, words, counts = case
+    words, counts = torch.from_numpy(np.array(words)), torch.from_numpy(np.array(counts))
+    o4, d4 = _homog_np(o_t, d_t)
+    want = _assert_fast_folds(o4, d4, t_accel.tri_w, words, counts, slices)
+    lanes = want[1][want[1] >= 0] % (t_accel.tri_w.shape[2] // 3)
+    assert set(((lanes // 4) % slices).tolist()) == set(range(slices)), \
+        "every slice must hold some ray's winning lane"
+
+
+@pytest.mark.parametrize("slices", [2, 4, 8])
+def test_closest_fast_fold_keeps_the_tie_rule(slices):
+    """A hand-made tie across slices: the soup's most-hit triangle copied to
+    the lane 4 away (the next or the previous quad, so another slice), so
+    two lanes of one cluster give the same t. The lower lane wins, in every
+    fold order."""
+    scene, o_t, d_t = soup_rays()
+    j_accel = jax.jit(build_clusters, static_argnums=2)(scene.verts, scene.tris, 32)
+    w = accel_from_arrays(leaves(j_accel), "cpu").tri_w.clone()
+    n_cl, c = w.shape[0], w.shape[2] // 3
+    o4, d4 = _homog_np(o_t, d_t)
+    n_tiles = o4.shape[0]
+    every = torch.arange(n_cl, dtype=torch.int32).expand(n_tiles, n_cl).contiguous()
+    bid = tt2.closest_hit_plain(o4, d4, w, every, torch.full((n_tiles,), n_cl, dtype=torch.int32))[1]
+    y, lane = divmod(int(torch.mode(bid[bid >= 0]).values), c)
+    other = lane + 4 if lane + 4 < c else lane - 4
+    for f in range(3):
+        w[y, :, f * c + other] = w[y, :, f * c + lane]
+    words = torch.full((n_tiles, 2), y, dtype=torch.int32)
+    counts = torch.ones(n_tiles, dtype=torch.int32)
+    want = _assert_fast_folds(o4, d4, w, words, counts, slices)
+    assert (want[1] == y * c + min(lane, other)).any()
+    assert not (want[1] == y * c + max(lane, other)).any()

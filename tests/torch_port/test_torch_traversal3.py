@@ -9,7 +9,9 @@ and one cull's words feed both tile passes. The pair stream, the selected slot
 the slab test's entry distance to rtol 1e-6 (XLA contracts products into
 FMAs, the port rounds each)."""
 import functools
+import re
 import warnings
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +25,7 @@ from tracer.core.types import T_FAR
 from tracer.kernels import traversal2 as jt2
 from tracer.kernels import traversal3 as jt3
 from tracer_torch.bridge import accel_from_arrays, scene_from_arrays
-from tracer_torch.bvh.cull import WORD_INVALID
+from tracer_torch.bvh.cull import CLUSTER_BITS, WORD_INVALID, cull_clusters_sorted
 from tracer_torch.core.intersect import any_hit_brute, intersect_brute
 from tracer_torch.core.types import Ray
 from tracer_torch.kernels import traversal2 as tt2
@@ -242,3 +244,131 @@ def test_pair_wrappers_dispatch_by_device(case, kernel):
     assert LAUNCHES == before
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         getattr(tt3, kernel)(*(x.to("meta") for x in args))
+
+
+# ---------------------------------------------------------------------------
+# pair_anyhit_kernel's walk (csrc/traversal3.cu), modelled in plain torch: a
+# tile's run in windows of W words, a ray's slab votes over a window as one
+# mask (its slices' bits OR-ed), the next tested word the first bit of the
+# OR of the unoccluded rays' masks under the stop, a tested cluster's lanes
+# split among the slices; the next voted clusters copied ahead into a ring
+# of NBUF_PAIR stages, a skipped word's copy waited for unread. The kernels
+# cannot run here: the model holds the walk to pair_anyhit_plain.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def shadow_pass(case):
+    """Surface-like shadow rays of the fixture (those of
+    test_any_hit_tiles_pairs_matches_pallas) and the port's single-stage
+    cull of them, as the pair kernels take them."""
+    o_t, d_t = case["o_t"], case["d_t"]
+    light = np.array([0.3, 1.4, 0.2], np.float32)
+    so = (o_t + 2.5 * d_t).astype(np.float32)
+    sd = light - so
+    dist = np.linalg.norm(sd, axis=-1, keepdims=True)
+    sd = (sd / dist).astype(np.float32)
+    sd[:, ::7] = 0.0
+    tm = _t((dist[..., 0] - 1e-3).astype(np.float32))
+    words, counts, _ = cull_clusters_sorted(case["accel"], _t(so), _t(sd), tm)
+    offs, pwords, _ = tt3._tile_stream(words, counts, None)
+    o4, d4 = tt3._homog(_t(so), _t(sd))
+    tmz = torch.where((_t(sd) != 0).any(-1), tm, 0.0)
+    accel = case["accel"]
+    return (o4, d4, tmz, accel.tri_w, accel.cluster_lo, accel.cluster_hi, offs, pwords)
+
+
+def _pair_anyhit_windows(o4, d4, tmax, w, lo, hi, offs, pwords, slices, window, nbuf):
+    """The kernel's walk, tile by tile -> (occ (Nt, TR) bool, clusters
+    tested, copies issued, times every stage held a skipped word's copy)."""
+    n_tiles, tr, _ = o4.shape
+    n_cl, c = w.shape[0], w.shape[2] // 3
+    mask_cl = (1 << CLUSTER_BITS) - 1
+    rt = tt3._ray_rows(o4[..., :3], d4[..., :3])
+    lane_slice = (torch.arange(c) // 4) % slices
+    occ_all = torch.zeros((n_tiles, tr), dtype=torch.bool)
+    tested = issued = stale_full = 0
+    for tile in range(n_tiles):
+        run = pwords[offs[tile]:offs[tile + 1]]
+        tm, occ = tmax[tile], occ_all[tile]
+        for k0 in range(0, run.shape[0], window):
+            win = run[k0:k0 + window]
+            n = win.shape[0]
+            cl = (win & mask_cl).clamp_max(n_cl - 1).long()
+            enter = tt3._slab_enter(rt[tile].expand(n, 8, tr), lo[cl], hi[cl])       # (n, TR)
+            j_slice = torch.arange(n) % slices
+            mask = torch.zeros((tr, n), dtype=torch.bool)
+            for s in range(slices):                     # each slice's words, OR-ed
+                mask |= ((enter < tm).T & (j_slice == s))
+            assert torch.equal(mask, (enter < tm).T)
+            inflight, pos, f, stop = [], 0, 0, False
+            while True:
+                bound = tt3._bits(torch.where(occ, 0.0, tm)).amax()
+                votes = (mask & ~occ[:, None]).any(0)
+                under = (win & ~mask_cl) < bound
+                stop |= not bool(under.all())
+                cand = votes & under & (torch.arange(n) >= pos)
+                if not cand.any():
+                    break
+                j = int(torch.nonzero(cand)[0])
+                top_up = lambda: [b for b in torch.nonzero(cand & (torch.arange(n) >= f))[:, 0]
+                                  .tolist()][:nbuf - len(inflight)]
+                new = top_up()
+                inflight += new
+                f = new[-1] + 1 if new else f
+                inflight = [b for b in inflight if b >= j]      # skipped words' copies
+                if j not in inflight:
+                    stale_full += 1
+                    new = top_up()
+                    inflight += new
+                    f = new[-1] + 1 if new else f
+                assert inflight[0] == j and inflight == sorted(inflight)
+                issued += len(new)
+                inflight.pop(0)
+                tv = tt2._cluster_t(o4[tile], d4[tile], w[cl[j]], tm[:, None])           # (TR, C)
+                hit = torch.zeros(tr, dtype=torch.bool)
+                for s in range(slices):                 # each slice's quads, OR-ed
+                    hit |= (tv[:, lane_slice == s] < T_FAR).any(-1)
+                occ |= hit
+                tested += 1
+                pos = j + 1
+            if stop:
+                break
+    return occ_all, tested, issued, stale_full
+
+
+@pytest.mark.parametrize("slices,window", [(4, 32), (2, 32), (8, 32), (4, 4)])
+def test_pair_anyhit_windowed_walk_equals_the_plain_walk(case, shadow_pass, slices, window):
+    """The kernel's walk (_pair_anyhit_windows) gives pair_anyhit_plain's
+    occlusion on every ray: the slices' OR-ed votes are the ray's votes, the
+    first voted word under the stop is the step-by-step walk's next tested
+    word, and the ring always holds its copy once the skipped words' copies
+    are waited for. Windows of 32 (the kernel's) and of 4 (many window
+    changes); ring of NBUF_PAIR stages."""
+    want = tt3.pair_anyhit_plain(*shadow_pass)
+    occ, tested, issued, _ = _pair_anyhit_windows(*shadow_pass, slices, window, tt3.NBUF_PAIR)
+    np.testing.assert_array_equal(occ.numpy(), want.numpy())
+    assert 0.0 < want.float().mean() < 1.0 and tested > 0 and issued >= tested
+
+
+def test_pair_anyhit_ring_holds_the_next_tested_word(shadow_pass):
+    """A ring of one stage: every tested word's copy is issued, whatever was
+    skipped, and the walk still equals pair_anyhit_plain."""
+    want = tt3.pair_anyhit_plain(*shadow_pass)
+    occ, tested, issued, stale_full = _pair_anyhit_windows(*shadow_pass, 4, 32, 1)
+    np.testing.assert_array_equal(occ.numpy(), want.numpy())
+    assert issued >= tested > 0
+
+
+def test_pair_constants_pinned_to_the_kernel():
+    """SLICES_PAIR, WINDOW and NBUF_PAIR are csrc/traversal3.cu's
+    kSlicesPair, kWindow and kNBufPair; a window is one 32-bit vote mask
+    (one word a lane of a warp), a block of pair_anyhit_kernel SLICES_PAIR *
+    64 = 256 threads for a tile of 64 rays (the kernels cannot run here:
+    their constants are read from the source)."""
+    src = (Path(tt3.__file__).parent / "csrc" / "traversal3.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kSlicesPair"]), int(consts["kWindow"]), int(consts["kNBufPair"])) == (
+        tt3.SLICES_PAIR, tt3.WINDOW, tt3.NBUF_PAIR) == (4, 32, 4)
+    assert "pair_anyhit_kernel<<<n_tiles, kSlicesPair * tr, smem," in src
+    assert "Ring<kNBufPair> ring{" in src and '#include "sorted.cuh"' in src
+    assert tt3.SLICES_PAIR * 64 == 256 and 32 % tt3.SLICES_PAIR == 0

@@ -96,8 +96,14 @@
 // a tile's candidates, whatever the order and whoever visits them: a segment
 // starts from the tile's occlusion flags as they stand in device memory
 // (possibly stale; flags are only ever set, so a stale read costs work, never
-// a result) and sets the flags of the rays it occludes. closest_fast_kernel
-// runs one block a tile: one cluster, no loop.
+// a result) and sets the flags of the rays it occludes.
+//
+// closest_fast_kernel takes the tiles with one candidate: one cluster, no
+// walk, so no tail to balance. A tile of 64 rays and 128 lanes is 8,192
+// tests, which one thread a ray would run 128 deep in series; kSlicesFast
+// threads a ray cut that depth, and a block holds as many tiles as fit in
+// kFastThreads threads. Each tile's cluster comes by one bulk copy into a
+// stage of its own, issued before the rays are read.
 #include "common.cuh"
 #include "sorted.cuh"
 
@@ -141,6 +147,14 @@ static_assert(kSeg % kBatch == 0, "a segment is a whole number of steps");
 // bench100k's generic region, 2 threads a ray took 6 % less time than 4
 // (PERF.md).
 constexpr int kSlicesClosest = 2;
+
+// Threads a ray of closest_fast_kernel (SLICES_FAST of kernels/traversal2.py),
+// and the threads a block holds when a tile takes fewer (FAST_THREADS): at a
+// tile of 64 rays, one tile a block.
+constexpr int kSlicesFast = 4;
+constexpr int kFastThreads = 256;
+constexpr int kMaxTilesFast = kFastThreads / (kSlicesFast * 32);
+static_assert(kSlicesFast <= 32 && 32 % kSlicesFast == 0, "a ray's slices share a warp");
 
 // The miss key: kTFar's bits over all ones, above every hit's key.
 __device__ __forceinline__ unsigned long long miss_key() {
@@ -347,34 +361,77 @@ __global__ void closest_hit_finish_kernel(const int* __restrict__ words,
 }
 
 // Closest hit for tiles with at most one candidate: one unconditional
-// cluster, no loop and no bound.
+// cluster, no loop over words and no bound. A block holds
+// kFastThreads / (kSlicesFast * tr) tiles (at least one), each served by
+// kSlicesFast * tr threads: thread u of a tile's group serves ray u /
+// kSlicesFast with the quads l4 % kSlicesFast == u % kSlicesFast of the
+// tile's cluster, so the slices of a ray are neighbouring lanes of one warp.
+// Thread 0 issues the bulk copy of each tile's (4, 3C) matrix into a stage
+// of its own before the rays are read. A thread keeps the first lane of the
+// least t over its quads, walked in ascending lane order; the slices fold
+// the least (t, lane) by shuffles, an order that is total, so the result is
+// the serial loop's: least t, then least slot cl*C + lane.
 __global__ void closest_fast_kernel(const int* __restrict__ words, const int* __restrict__ counts,
-                                    int k_cap, const float4* __restrict__ o4,
-                                    const float4* __restrict__ d4, const float* __restrict__ w,
+                                    int n_tiles, int k_cap, int tr,
+                                    const float4* __restrict__ o4,
+                                    const float4* __restrict__ d4, const float4* __restrict__ w,
                                     int n_cl, int c, float* __restrict__ bt_out,
                                     int* __restrict__ bid_out) {
-  extern __shared__ float4 s_w[];
-  const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
-  const bool live = 0 < counts[tile];
-  const int* wt = words + (size_t)tile * k_cap;
+  extern __shared__ __align__(128) float4 ring_mem[];
+  __shared__ __align__(8) uint64_t s_bar[kMaxTilesFast];
+  const int per4 = 3 * c;
+  const int c4 = c / kLanes;
+  const int group = kSlicesFast * tr;
+  const int tiles = blockDim.x / group;
+  const int g = threadIdx.x / group;
+  const int r = threadIdx.x % group / kSlicesFast;
+  const int slice = threadIdx.x % kSlicesFast;
+  const int tile0 = blockIdx.x * tiles;
+  Ring<kMaxTilesFast> ring{ring_mem, s_bar, per4, 0};
+  ring.init();
+  for (int i = 0; i < tiles; ++i) {  // a tile past the last copies the last one's cluster
+    const size_t tile = min(tile0 + i, n_tiles - 1);
+    ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(words[tile * k_cap], n_cl) * per4 : w);
+  }
+  const int tile = min(tile0 + g, n_tiles - 1);
+  const bool own = tile0 + g < n_tiles;
+  const bool live = own && 0 < counts[tile];
+  const size_t ray = (size_t)tile * tr + r;
   const float4 o = o4[ray], d = d4[ray];
-  stage_clusters(s_w, w, wt, 0, 1, k_cap, n_cl, c);
-  __syncthreads();
-  const int cl = min(wt[0] & kClMask, n_cl - 1);
+  const int cl = word_cluster(words[(size_t)tile * k_cap], n_cl);
+  __syncthreads();  // the stages' barriers are initialised
+  ring.wait(g);     // every stage is waited for before the block ends
   float tb = kTFar;
-  int tbid = kIntMax;
-  for (int lane = 0; lane < c; ++lane) {
-    const float tv = live ? tri_t(s_w + lane * 3, o, d, kTFar) : kTFar;
-    const int b = cl * c + lane;
-    if (tv < tb || (tv == tb && b < tbid)) {
-      tb = tv;
-      tbid = b;
+  int lb = 0;
+  if (live) {
+    const float4* stage = ring.stage(g);
+    for (int l4 = slice; l4 < c4; l4 += kSlicesFast) {
+      Quad a;
+      load_quad(a, stage, c4, l4);
+#pragma unroll
+      for (int i = 0; i < kLanes; ++i) {
+        const float tv = quad_tri_t(a, i, o, d, kTFar);
+        if (tv < tb) {
+          tb = tv;
+          lb = l4 * kLanes + i;
+        }
+      }
     }
   }
-  const bool hit = tb < kTFar;
-  bt_out[ray] = hit ? tb : kTFar;
-  bid_out[ray] = hit ? tbid : -1;
+#pragma unroll
+  for (int off = kSlicesFast / 2; off > 0; off >>= 1) {
+    const float t2 = __shfl_xor_sync(0xffffffffu, tb, off);
+    const int l2 = __shfl_xor_sync(0xffffffffu, lb, off);
+    if (t2 < tb || (t2 == tb && l2 < lb)) {
+      tb = t2;
+      lb = l2;
+    }
+  }
+  if (own && slice == 0) {
+    const bool hit = tb < kTFar;
+    bt_out[ray] = hit ? tb : kTFar;
+    bid_out[ray] = hit ? cl * c + lb : -1;
+  }
 }
 
 // Occlusion: a ray is occluded iff some candidate triangle has t in
@@ -482,15 +539,20 @@ int tt_closest(const void* words, const void* counts, int n_tiles, int k_cap, in
   return (int)cudaGetLastError();
 }
 
+// Blocks of fast_tiles(tr) tiles of kSlicesFast * tr threads; the caller
+// guarantees C % 4 == 0 and 16-byte aligned w.
 int tt_closest_fast(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
                     const void* o4, const void* d4, const void* w, int n_cl, int c, void* bt,
                     void* bid, void* stream) {
-  const size_t smem = stage_bytes(1, c);
+  if (kSlicesFast * tr > 1024 || c % kLanes) return (int)cudaErrorInvalidValue;
+  const int tiles = max(1, kFastThreads / (kSlicesFast * tr));
+  const size_t smem = stage_bytes(tiles, c);
   cudaError_t e = launch_prep(closest_fast_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  closest_fast_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
-      (const int*)words, (const int*)counts, k_cap, (const float4*)o4, (const float4*)d4,
-      (const float*)w, n_cl, c, (float*)bt, (int*)bid);
+  closest_fast_kernel<<<(n_tiles + tiles - 1) / tiles, tiles * kSlicesFast * tr, smem,
+                        (cudaStream_t)stream>>>(
+      (const int*)words, (const int*)counts, n_tiles, k_cap, tr, (const float4*)o4,
+      (const float4*)d4, (const float4*)w, n_cl, c, (float*)bt, (int*)bid);
   return (int)cudaGetLastError();
 }
 

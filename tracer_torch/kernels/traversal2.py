@@ -71,6 +71,12 @@ BLOCKS_PER_SM_CLOSEST = 8
 # Rays a block of the segmented kernels holds state for in shared memory
 # (kMaxRays of csrc/common.cuh).
 MAX_RAYS = 1024 // SLICES
+# closest_fast_kernel serves a ray with SLICES_FAST threads, each with every
+# SLICES_FAST-th quad of 4 lanes of the tile's one cluster, and puts
+# FAST_THREADS // (SLICES_FAST * TR) tiles (at least one) in a block
+# (kSlicesFast, kFastThreads of csrc/traversal2.cu).
+SLICES_FAST = 4
+FAST_THREADS = 256
 
 # Bytes of (tiles, B, TR, 3C) temporaries a plain version holds at once.
 _PLAIN_BYTES = 1 << 30
@@ -271,7 +277,8 @@ def _closest_out(o4):
 
 def check_quads(w):
     """What the kernels that read a cluster as quads of 4 triangles
-    (closest_hit_kernel and the two of csrc/stream.cu) take beyond
+    (closest_hit_kernel, closest_fast_kernel and the two of csrc/stream.cu)
+    take beyond
     _check_cuda: 16-byte loads of 4 triangles' coefficients need C % 4 == 0
     and an aligned matrix."""
     c = w.shape[2] // 3
@@ -315,10 +322,15 @@ def closest_hit(o4, d4, w, words, counts):
 
 def closest_fast(o4, d4, w, words, counts):
     """closest_fast_plain on CPU tensors; the CUDA kernel
-    closest_fast_kernel on CUDA tensors."""
+    closest_fast_kernel on CUDA tensors (C % 4 == 0 and an aligned w, as
+    check_quads)."""
     if o4.device.type == "cpu":
         return closest_fast_plain(o4, d4, w, words, counts)
     _check_cuda(o4, d4, w, words, counts)
+    check_quads(w)
+    if o4.shape[1] * SLICES_FAST > 1024:
+        raise ValueError(f"tile of {o4.shape[1]} rays: the fast kernel takes {SLICES_FAST} "
+                         f"threads a ray and at most 1024 a block")
     bt, bid = _closest_out(o4)
     if o4.shape[0]:
         _launch("closest_fast", "tt_closest_fast", o4.device, words, counts, o4.shape[0],

@@ -38,10 +38,19 @@ from tracer_torch.core.types import T_FAR, Hit, Ray
 from tracer_torch.kernels._launch import check_dense, check_rays, launch
 from tracer_torch.kernels.traversal import (
     _homog, _tile_chunks, tile_rays, tile_runs, tiled_tmax, untile)
-from tracer_torch.kernels.traversal2 import _closest_out, _cluster_t, recover_hit
+from tracer_torch.kernels.traversal2 import _closest_out, _cluster_t, check_quads, recover_hit
 
 _CL_MASK = (1 << CLUSTER_BITS) - 1
 _BIG = T_FAR
+
+# pair_anyhit_kernel serves a ray with SLICES_PAIR threads (a block of 256
+# for a tile of 64 rays), takes a tile's run in windows of WINDOW words (one
+# bit of a 32-bit vote mask each) and copies the next voted clusters into a
+# ring of NBUF_PAIR stages (kSlicesPair, kWindow, kNBufPair of
+# csrc/traversal3.cu).
+SLICES_PAIR = 4
+WINDOW = 32
+NBUF_PAIR = 4
 
 
 def build_pair_stream(words, counts, p_cap: int | None = None):
@@ -221,12 +230,17 @@ def pair_closest(o4, d4, w, lo, hi, offs, pwords):
 
 def pair_anyhit(o4, d4, tmax, w, lo, hi, offs, pwords):
     """pair_anyhit_plain on CPU tensors; the CUDA kernel pair_anyhit_kernel
-    on CUDA tensors."""
+    on CUDA tensors (C % 4 == 0 and an aligned w, as
+    traversal2.check_quads)."""
     if o4.device.type == "cpu":
         return pair_anyhit_plain(o4, d4, tmax, w, lo, hi, offs, pwords)
     _check_pairs(o4, d4, w, lo, hi, offs, pwords, (tmax, torch.float32))
     if tmax.shape != o4.shape[:2]:
         raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
+    check_quads(w)
+    if o4.shape[1] * SLICES_PAIR > 1024:
+        raise ValueError(f"tile of {o4.shape[1]} rays: the pair any-hit kernel takes "
+                         f"{SLICES_PAIR} threads a ray and at most 1024 a block")
     occ = torch.empty(o4.shape[:2], dtype=torch.uint8, device=o4.device)
     if o4.shape[0]:
         launch("pair_anyhit", "pr_anyhit", o4.device, offs, pwords, o4.shape[0], o4.shape[1],
