@@ -82,8 +82,10 @@ def main():
         for what, idx in (("comparison", sel), ("all", every)):
             o4, d4 = _homog(o_t[idx], d_t[idx])
             args = (o4, d4, w, words[idx].contiguous(), counts[idx].contiguous())
+            bad = cs.bit_mismatches(t2.closest_fast(*args), t2.closest_fast_plain(*args))
             ms = [cs.device_ms(lambda: t2.closest_fast(*args), 20) for _ in range(3)]
-            log(f"closest_fast {what} ({idx.numel()} tiles): kernel alone {ms}")
+            log(f"closest_fast {what} ({idx.numel()} tiles): bit mismatches {bad}, kernel "
+                f"alone {ms}")
         # pair_anyhit: the pair tier's shadow pass.
         rays = generate_rays(camera, cfg.height, cfg.width)
         trace_fn, _ = t3.make_pair_tracers(scene, accel)
@@ -94,8 +96,11 @@ def main():
         every = torch.arange(counts.shape[0], device=counts.device)
         for what, idx in (("comparison", sel), ("heaviest", sel[:1]), ("all", every)):
             args = cs.pair_case(accel, so, sd, tm, words, counts, idx)
+            bad = ("not compared" if what == "all" else
+                   int((t3.pair_anyhit(*args) != t3.pair_anyhit_plain(*args)).sum()))
             ms = [cs.device_ms(lambda: t3.pair_anyhit(*args), 10) for _ in range(3)]
-            log(f"pair_anyhit {what} ({idx.numel()} tiles): kernel alone {ms}")
+            log(f"pair_anyhit {what} ({idx.numel()} tiles): occ mismatches {bad}, kernel "
+                f"alone {ms}")
     if KERNELS_ONLY:
         return
     # Frames.

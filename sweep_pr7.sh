@@ -12,17 +12,21 @@ variant() {  # name, file, sed expression
   sed -i "$3" "$d/tracer_torch/kernels/csrc/$2"
 }
 T2=traversal2.cu; T3=traversal3.cu
-variant fast_s2 $T2 's/constexpr int kSlicesFast = 4;/constexpr int kSlicesFast = 2;/'
-variant fast_s8 $T2 's/constexpr int kSlicesFast = 4;/constexpr int kSlicesFast = 8;/'
-variant fast_t512 $T2 's/constexpr int kFastThreads = 256;/constexpr int kFastThreads = 512;/'
-variant fast_lb4 $T2 's/^__global__ void closest_fast_kernel(/__global__ void __launch_bounds__(256, 4) closest_fast_kernel(/'
-variant pair_s1 $T3 's/constexpr int kSlicesPair = 4;/constexpr int kSlicesPair = 1;/'
-variant pair_s2 $T3 's/constexpr int kSlicesPair = 4;/constexpr int kSlicesPair = 2;/'
-variant pair_s8 $T3 's/constexpr int kSlicesPair = 4;/constexpr int kSlicesPair = 8;/'
-variant pair_b2 $T3 's/constexpr int kNBufPair = 4;/constexpr int kNBufPair = 2;/'
-variant pair_lb3 $T3 's/^__global__ void pair_anyhit_kernel(/__global__ void __launch_bounds__(256, 3) pair_anyhit_kernel(/'
-for t in build/ab/parent . build/sweep/fast_s2 build/sweep/fast_s8 build/sweep/fast_t512 \
-         build/sweep/fast_lb4 build/sweep/pair_s1 build/sweep/pair_s2 build/sweep/pair_s8 \
-         build/sweep/pair_b2 build/sweep/pair_lb3 .; do
+SF='s/constexpr int kSlicesFast = 4;/constexpr int kSlicesFast'
+TF='s/constexpr int kFastThreads = 256;/constexpr int kFastThreads'
+SP='s/constexpr int kSlicesPair = 4;/constexpr int kSlicesPair'
+LP='s/^__global__ void pair_anyhit_kernel(/__global__ void __launch_bounds__'
+variant fast_s2 $T2 "$SF = 2;/"
+variant fast_s2_t128 $T2 "$SF = 2;/;$TF = 128;/"
+variant fast_s1 $T2 "$SF = 1;/"
+variant fast_s1_t128 $T2 "$SF = 1;/;$TF = 128;/"
+variant pair_s1 $T3 "$SP = 1;/"
+variant pair_s2 $T3 "$SP = 2;/"
+variant pair_s2_b2 $T3 "$SP = 2;/;s/constexpr int kNBufPair = 4;/constexpr int kNBufPair = 2;/"
+variant pair_s2_lb8 $T3 "$SP = 2;/;$LP(128, 8) pair_anyhit_kernel(/"
+variant pair_s4_lb4 $T3 "$LP(256, 4) pair_anyhit_kernel(/"
+for t in build/ab/parent . build/sweep/fast_s2 build/sweep/fast_s2_t128 build/sweep/fast_s1 \
+         build/sweep/fast_s1_t128 build/sweep/pair_s1 build/sweep/pair_s2 build/sweep/pair_s2_b2 \
+         build/sweep/pair_s2_lb8 build/sweep/pair_s4_lb4 .; do
   python3 "$root/ab_pr7.py" "$t" --kernels 2>&1 | grep -E "^\[ab|Error|Traceback"
 done

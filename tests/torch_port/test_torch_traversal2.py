@@ -226,12 +226,13 @@ def test_segment_constants_pinned_to_the_kernels():
     stream_batch = int(re.search(r"constexpr int kBatch = (\d+);", srcs).group(1))
     assert stream_batch == 2 and tt2.SEG % stream_batch == 0
     # closest_fast_kernel: SLICES_FAST threads a ray, blocks of FAST_THREADS
-    # holding FAST_THREADS // (SLICES_FAST * TR) tiles, 1 at a tile of 64.
+    # holding FAST_THREADS // (SLICES_FAST * TR) tiles, 2 at a tile of 64.
     assert (int(closest["kSlicesFast"]), int(closest["kFastThreads"])) == (
-        tt2.SLICES_FAST, tt2.FAST_THREADS) == (4, 256)
+        tt2.SLICES_FAST, tt2.FAST_THREADS) == (2, 256)
     assert "const int tiles = max(1, kFastThreads / (kSlicesFast * tr));" in src2
     assert "closest_fast_kernel<<<(n_tiles + tiles - 1) / tiles, tiles * kSlicesFast * tr," in src2
-    assert max(1, tt2.FAST_THREADS // (tt2.SLICES_FAST * 64)) == 1
+    assert max(1, tt2.FAST_THREADS // (tt2.SLICES_FAST * 64)) == 2
+    assert "constexpr int kMaxTilesFast = kFastThreads / (kSlicesFast * 32);" in src2
 
 
 # ---------------------------------------------------------------------------

@@ -279,14 +279,15 @@ def shadow_pass(case):
 
 def _pair_anyhit_windows(o4, d4, tmax, w, lo, hi, offs, pwords, slices, window, nbuf):
     """The kernel's walk, tile by tile -> (occ (Nt, TR) bool, clusters
-    tested, copies issued, times every stage held a skipped word's copy)."""
+    tested, copies issued); asserts that the ring holds the copy of every
+    word the walk tests."""
     n_tiles, tr, _ = o4.shape
     n_cl, c = w.shape[0], w.shape[2] // 3
     mask_cl = (1 << CLUSTER_BITS) - 1
     rt = tt3._ray_rows(o4[..., :3], d4[..., :3])
     lane_slice = (torch.arange(c) // 4) % slices
     occ_all = torch.zeros((n_tiles, tr), dtype=torch.bool)
-    tested = issued = stale_full = 0
+    tested = issued = 0
     for tile in range(n_tiles):
         run = pwords[offs[tile]:offs[tile + 1]]
         tm, occ = tmax[tile], occ_all[tile]
@@ -310,19 +311,13 @@ def _pair_anyhit_windows(o4, d4, tmax, w, lo, hi, offs, pwords, slices, window, 
                 if not cand.any():
                     break
                 j = int(torch.nonzero(cand)[0])
-                top_up = lambda: [b for b in torch.nonzero(cand & (torch.arange(n) >= f))[:, 0]
-                                  .tolist()][:nbuf - len(inflight)]
-                new = top_up()
-                inflight += new
-                f = new[-1] + 1 if new else f
+                assert len(inflight) < nbuf        # a stage is free
+                new = torch.nonzero(cand & (torch.arange(n) >= f))[:nbuf - len(inflight), 0]
+                inflight += new.tolist()
+                f = int(new[-1]) + 1 if new.numel() else f
+                issued += new.numel()
                 inflight = [b for b in inflight if b >= j]      # skipped words' copies
-                if j not in inflight:
-                    stale_full += 1
-                    new = top_up()
-                    inflight += new
-                    f = new[-1] + 1 if new else f
                 assert inflight[0] == j and inflight == sorted(inflight)
-                issued += len(new)
                 inflight.pop(0)
                 tv = tt2._cluster_t(o4[tile], d4[tile], w[cl[j]], tm[:, None])           # (TR, C)
                 hit = torch.zeros(tr, dtype=torch.bool)
@@ -333,10 +328,10 @@ def _pair_anyhit_windows(o4, d4, tmax, w, lo, hi, offs, pwords, slices, window, 
                 pos = j + 1
             if stop:
                 break
-    return occ_all, tested, issued, stale_full
+    return occ_all, tested, issued
 
 
-@pytest.mark.parametrize("slices,window", [(4, 32), (2, 32), (8, 32), (4, 4)])
+@pytest.mark.parametrize("slices,window", [(2, 32), (1, 32), (4, 32), (8, 32), (2, 4)])
 def test_pair_anyhit_windowed_walk_equals_the_plain_walk(case, shadow_pass, slices, window):
     """The kernel's walk (_pair_anyhit_windows) gives pair_anyhit_plain's
     occlusion on every ray: the slices' OR-ed votes are the ray's votes, the
@@ -345,30 +340,32 @@ def test_pair_anyhit_windowed_walk_equals_the_plain_walk(case, shadow_pass, slic
     are waited for. Windows of 32 (the kernel's) and of 4 (many window
     changes); ring of NBUF_PAIR stages."""
     want = tt3.pair_anyhit_plain(*shadow_pass)
-    occ, tested, issued, _ = _pair_anyhit_windows(*shadow_pass, slices, window, tt3.NBUF_PAIR)
+    occ, tested, issued = _pair_anyhit_windows(*shadow_pass, slices, window, tt3.NBUF_PAIR)
     np.testing.assert_array_equal(occ.numpy(), want.numpy())
     assert 0.0 < want.float().mean() < 1.0 and tested > 0 and issued >= tested
 
 
 def test_pair_anyhit_ring_holds_the_next_tested_word(shadow_pass):
-    """A ring of one stage: every tested word's copy is issued, whatever was
-    skipped, and the walk still equals pair_anyhit_plain."""
+    """Rings of one and two stages: every tested word's copy is in flight
+    when the walk reaches it, whatever was skipped, and the walk still
+    equals pair_anyhit_plain."""
     want = tt3.pair_anyhit_plain(*shadow_pass)
-    occ, tested, issued, stale_full = _pair_anyhit_windows(*shadow_pass, 4, 32, 1)
-    np.testing.assert_array_equal(occ.numpy(), want.numpy())
-    assert issued >= tested > 0
+    for nbuf in (1, 2):
+        occ, tested, issued = _pair_anyhit_windows(*shadow_pass, 2, 32, nbuf)
+        np.testing.assert_array_equal(occ.numpy(), want.numpy())
+        assert issued >= tested > 0
 
 
 def test_pair_constants_pinned_to_the_kernel():
     """SLICES_PAIR, WINDOW and NBUF_PAIR are csrc/traversal3.cu's
     kSlicesPair, kWindow and kNBufPair; a window is one 32-bit vote mask
     (one word a lane of a warp), a block of pair_anyhit_kernel SLICES_PAIR *
-    64 = 256 threads for a tile of 64 rays (the kernels cannot run here:
+    64 = 128 threads for a tile of 64 rays (the kernels cannot run here:
     their constants are read from the source)."""
     src = (Path(tt3.__file__).parent / "csrc" / "traversal3.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert (int(consts["kSlicesPair"]), int(consts["kWindow"]), int(consts["kNBufPair"])) == (
-        tt3.SLICES_PAIR, tt3.WINDOW, tt3.NBUF_PAIR) == (4, 32, 4)
+        tt3.SLICES_PAIR, tt3.WINDOW, tt3.NBUF_PAIR) == (2, 32, 4)
     assert "pair_anyhit_kernel<<<n_tiles, kSlicesPair * tr, smem," in src
     assert "Ring<kNBufPair> ring{" in src and '#include "sorted.cuh"' in src
-    assert tt3.SLICES_PAIR * 64 == 256 and 32 % tt3.SLICES_PAIR == 0
+    assert tt3.SLICES_PAIR * 64 == 128 and 32 % tt3.SLICES_PAIR == 0

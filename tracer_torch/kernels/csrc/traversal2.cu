@@ -150,8 +150,9 @@ constexpr int kSlicesClosest = 2;
 
 // Threads a ray of closest_fast_kernel (SLICES_FAST of kernels/traversal2.py),
 // and the threads a block holds when a tile takes fewer (FAST_THREADS): at a
-// tile of 64 rays, one tile a block.
-constexpr int kSlicesFast = 4;
+// tile of 64 rays, two tiles a block. Over all of bench100k's count-1 tiles 2
+// threads a ray took 7 % less time than 4, and half of 8 (PERF.md).
+constexpr int kSlicesFast = 2;
 constexpr int kFastThreads = 256;
 constexpr int kMaxTilesFast = kFastThreads / (kSlicesFast * 32);
 static_assert(kSlicesFast <= 32 && 32 % kSlicesFast == 0, "a ray's slices share a warp");

@@ -54,8 +54,11 @@
 namespace {
 
 // Threads a ray of pair_anyhit_kernel (SLICES_PAIR of kernels/traversal3.py):
-// a block of 256 for a tile of 64 rays.
-constexpr int kSlicesPair = 4;
+// a block of 128 for a tile of 64 rays. Over the whole pair shadow pass of
+// bench100k, 2 threads a ray took 18 % less time than 4 (more blocks fit an
+// SM; 4 is 27 % faster at the heavy comparison tiles) and 13 % less than 1
+// (PERF.md).
+constexpr int kSlicesPair = 2;
 static_assert(kSlicesPair <= 32 && 32 % kSlicesPair == 0, "a ray's slices share a warp");
 // Words of a run whose slab votes pair_anyhit_kernel takes at once: one a
 // lane of a warp, one bit of a mask.
@@ -226,18 +229,22 @@ __global__ void pair_anyhit_kernel(const int* __restrict__ offs, const int* __re
   const int per4 = 3 * c;
   const int c4 = c / kLanes;
   const size_t ray = (size_t)tile * tr + threadIdx.x / kSlicesPair;
+  const int k_begin = offs[tile], k_end = offs[tile + 1];
+  if (k_begin == k_end) {  // block-uniform: an empty run leaves every ray unoccluded
+    if (slice == 0) occ_out[ray] = 0;
+    return;
+  }
+  Ring<kNBufPair> ring{ring_mem, s_bar, per4, 0};
+  ring.init();  // published by the first barrier below, before any wait
   const float4 o = o4[ray], d = d4[ray];
   const SlabRay sr = slab_ray(o, d);
   const float tm = tmax[ray];
   const bool dead = !(tm > kTMin);  // no t lies in (kTMin, tm): nothing to test
-  Ring<kNBufPair> ring{ring_mem, s_bar, per4, 0};
-  ring.init();  // published by the first barrier below, before any wait
   bool occ = false;
   int turn = 0, consumed = 0, bound;
   unsigned votes;
-  const int k_end = offs[tile + 1];
   bool walking = true;
-  for (int k0 = offs[tile]; walking && k0 < k_end; k0 += kWindow) {  // block-uniform
+  for (int k0 = k_begin; walking && k0 < k_end; k0 += kWindow) {  // block-uniform
     const int n = min(kWindow, k_end - k0);
     const unsigned in_window = n == 32 ? 0xffffffffu : (1u << n) - 1;
     const int word = lane < n ? pwords[k0 + lane] : 0;
@@ -264,26 +271,21 @@ __global__ void pair_anyhit_kernel(const int* __restrict__ offs, const int* __re
       const unsigned cand = votes & under & (pos < 32 ? ~0u << pos : 0u);
       if (!cand) break;
       const int j = __ffs(cand) - 1;
-      // Copy the next voted words into free stages (freed by an earlier barrier).
-      auto top_up = [&]() {
-        unsigned next = cand & (f < 32 ? ~0u << f : 0u);
-        while (next && __popc(inflight) < kNBufPair) {
-          const int b = __ffs(next) - 1;
-          ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(pwords[k0 + b], n_cl) * per4
-                                      : w);
-          inflight |= 1u << b;
-          next &= next - 1;
-          f = b + 1;
-        }
-      };
-      top_up();
+      // Copy the next voted words into the free stages (freed by the last
+      // barrier). A stage is free here (none is in flight at a window's start,
+      // and the last test consumed one), so j's copy is in flight after this:
+      // it is the first voted word past those copied, or was copied before.
+      unsigned next = cand & (f < 32 ? ~0u << f : 0u);
+      while (next && __popc(inflight) < kNBufPair) {
+        const int b = __ffs(next) - 1;
+        ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(pwords[k0 + b], n_cl) * per4 : w);
+        inflight |= 1u << b;
+        next &= next - 1;
+        f = b + 1;
+      }
       while (inflight && __ffs(inflight) - 1 < j) {  // copies of words skipped since
         ring.wait(consumed++);
         inflight &= inflight - 1;
-      }
-      if (!(inflight & (1u << j))) {  // every stage held a skipped word's copy
-        __syncthreads();              // every thread has waited for them
-        top_up();
       }
       ring.wait(consumed);
       if (!occ && !dead) {

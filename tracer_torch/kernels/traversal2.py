@@ -75,7 +75,7 @@ MAX_RAYS = 1024 // SLICES
 # SLICES_FAST-th quad of 4 lanes of the tile's one cluster, and puts
 # FAST_THREADS // (SLICES_FAST * TR) tiles (at least one) in a block
 # (kSlicesFast, kFastThreads of csrc/traversal2.cu).
-SLICES_FAST = 4
+SLICES_FAST = 2
 FAST_THREADS = 256
 
 # Bytes of (tiles, B, TR, 3C) temporaries a plain version holds at once.

@@ -43,12 +43,12 @@ from tracer_torch.kernels.traversal2 import _closest_out, _cluster_t, check_quad
 _CL_MASK = (1 << CLUSTER_BITS) - 1
 _BIG = T_FAR
 
-# pair_anyhit_kernel serves a ray with SLICES_PAIR threads (a block of 256
+# pair_anyhit_kernel serves a ray with SLICES_PAIR threads (a block of 128
 # for a tile of 64 rays), takes a tile's run in windows of WINDOW words (one
 # bit of a 32-bit vote mask each) and copies the next voted clusters into a
 # ring of NBUF_PAIR stages (kSlicesPair, kWindow, kNBufPair of
 # csrc/traversal3.cu).
-SLICES_PAIR = 4
+SLICES_PAIR = 2
 WINDOW = 32
 NBUF_PAIR = 4
 
