@@ -12,12 +12,14 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   3. kernels: at the frame's own shapes (its primary-ray cull and its
      shadow-segment cull; the 256 heaviest tiles plus every 16th tile), each
      traversal2.cu kernel against its plain PyTorch version on the card: slot
-     ids and occlusion equal, best t bit-equal; times by CUDA events; for the
-     any-hit kernel also the number of segments its work is cut into, the
-     kernel's own device time (its wrapper's less its segment table's, by
-     CUDA events behind a spin that hides the host) beside the table's, and its time on the heaviest tile alone and on the
-     selection without its 256 heaviest tiles (what is left of the tail of
-     long candidate lists);
+     ids and occlusion equal, best t bit-equal; times by CUDA events; for
+     each also the kernel's own device time (its wrapper's less its segment
+     table's, by CUDA events behind a spin that hides the host), its time on
+     the heaviest tile alone and on the selection without its 256 heaviest
+     tiles (what is left of the tail of long candidate lists), and for the
+     segmented ones the number of segments; the two closest-hit kernels also
+     on every tile of their region (9,675 generic and 12,461 count-1 tiles):
+     bits, three identical runs, time, bound and tests a second;
   4. frame: the frame through tracer_torch.api.make_render_fn on the card:
      overflow 0, a finite, lit image, every kernel of the tier launched and
      no kernel of the streamed tier;
@@ -57,6 +59,12 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      128 lanes x the SM clock nvidia-smi reports under the load), one
      comparison on every tile of the pass, untimed, and for closest hit,
      whose blocks merge by atomics, three runs that must be bit-identical;
+     pair_closest_kernel's time and bound over all primary tiles;
+     pair_anyhit_kernel's tail report and its whole shadow pass: occlusion
+     against the plain version and a replay of its walk, three identical
+     runs, time, bound, and its edge pairs (a ray with a hit under t_max in
+     a cluster whose rounded slab entry is not, which only another ray's
+     vote gets tested);
      then, on the pair tier's shadow rays, anyhit_kernel over the two-stage cull's lists
      against pair_anyhit_kernel over the single-stage cull's, on the same
      tiles and on all tiles: occlusion equal on every ray;
@@ -708,6 +716,21 @@ def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
     check(not any(bad), f"{name}: kernel disagrees with its plain version on the whole pass")
 
 
+def pair_case(accel, o_t, d_t, tmax_t, words, counts, idx):
+    """A pair wrapper's arguments on tiles idx (closest hit when tmax_t is
+    None, else any-hit with t_max 0 for d == 0), as the tile passes build
+    them."""
+    offs, pwords, overflow = t3._tile_stream(words[idx].contiguous(), counts[idx].contiguous(),
+                                             None)
+    check(not overflow, "an exact pair stream overflowed")
+    o4, d4 = _homog(o_t[idx], d_t[idx])
+    lo, hi = accel.cluster_lo.contiguous(), accel.cluster_hi.contiguous()
+    if tmax_t is None:
+        return o4, d4, accel.tri_w, lo, hi, offs, pwords
+    tm = torch.where((d_t[idx] != 0.0).any(-1), tmax_t[idx], 0.0).contiguous()
+    return o4, d4, tm, accel.tri_w, lo, hi, offs, pwords
+
+
 def pair_closest_bound(o4, d4, w, lo, hi, words, counts, bt):
     """bound() of pair_closest_kernel on its output bt: every word under the
     tile's final bound is slab-tested by every ray; those that some ray
@@ -753,34 +776,26 @@ def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
     if tmax_t is not None:
         sel = sel[counts[sel] > 0]
     check(sel.numel() > 0, "pair comparison: the selection holds no tile")
-    w_s, c_s = words[sel].contiguous(), counts[sel].contiguous()
-    offs, pwords, overflow = t3._tile_stream(w_s, c_s, None)
-    check(not overflow, "an exact pair stream overflowed")
-    o4, d4 = _homog(o_t[sel], d_t[sel])
-    w = accel.tri_w
-    lo, hi = accel.cluster_lo.contiguous(), accel.cluster_hi.contiguous()
-    tr, c = o4.shape[1], w.shape[2] // 3
+    args = pair_case(accel, o_t, d_t, tmax_t, words, counts, sel)
+    w_s, c_s = words[sel], counts[sel]
     if tmax_t is None:
         name = "pair_closest"
-        run_k = lambda: t3.pair_closest(o4, d4, w, lo, hi, offs, pwords)
-        run_p = lambda: t3.pair_closest_plain(o4, d4, w, lo, hi, offs, pwords)
+        run_k, run_p = (lambda: t3.pair_closest(*args)), (lambda: t3.pair_closest_plain(*args))
         (bt_k, bid_k), (bt_p, bid_p) = run_k(), run_p()
         torch.cuda.synchronize()
         bad = [int((bid_k != bid_p).sum()), int((float_bits(bt_k) != float_bits(bt_p)).sum())]
         err = float((bt_k - bt_p).abs().max())
         what = f"gid mismatches {bad[0]}, bt bit mismatches {bad[1]}, max |dbt| {err:.3g}"
-        bnd, tests = pair_closest_bound(o4, d4, w, lo, hi, w_s, c_s, bt_k)
+        bnd, tests = pair_closest_bound(*args[:5], w_s, c_s, bt_k)
     else:
         name = "pair_anyhit"
-        tm = torch.where((d_t[sel] != 0.0).any(-1), tmax_t[sel], 0.0).contiguous()
-        run_k = lambda: t3.pair_anyhit(o4, d4, tm, w, lo, hi, offs, pwords)
-        run_p = lambda: t3.pair_anyhit_plain(o4, d4, tm, w, lo, hi, offs, pwords)
+        run_k, run_p = (lambda: t3.pair_anyhit(*args)), (lambda: t3.pair_anyhit_plain(*args))
         occ_k, occ_p = run_k(), run_p()
         torch.cuda.synchronize()
         bad = [int((occ_k != occ_p).sum())]
         err = float(bad[0] > 0)
         what = f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad[0]}"
-        bnd, tests = pair_anyhit_bound(o4, d4, tm, w, lo, hi, w_s, c_s, occ_k)
+        bnd, tests = pair_anyhit_bound(*args[:6], w_s, c_s, occ_k)
     ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 1)
     report(name, results, sel.numel(), f"{count_stats(c_s)}: {what}", ms, plain_ms, err, bnd,
            tests)
@@ -867,21 +882,6 @@ def pair_kernels(results: dict, cfg, scene, accel, rays):
     compare_pairs(results, accel, so, sd, tm, words, counts)
     pair_anyhit_pass(results, accel, so, sd, tm, words, counts)
     compare_shadow_lists(accel, so, sd, tm, words, counts)
-
-
-def pair_case(accel, o_t, d_t, tmax_t, words, counts, idx):
-    """A pair wrapper's arguments on tiles idx (closest hit when tmax_t is
-    None, else any-hit with t_max 0 for d == 0), as the tile passes build
-    them."""
-    offs, pwords, overflow = t3._tile_stream(words[idx].contiguous(), counts[idx].contiguous(),
-                                             None)
-    check(not overflow, "an exact pair stream overflowed")
-    o4, d4 = _homog(o_t[idx], d_t[idx])
-    lo, hi = accel.cluster_lo.contiguous(), accel.cluster_hi.contiguous()
-    if tmax_t is None:
-        return o4, d4, accel.tri_w, lo, hi, offs, pwords
-    tm = torch.where((d_t[idx] != 0.0).any(-1), tmax_t[idx], 0.0).contiguous()
-    return o4, d4, tm, accel.tri_w, lo, hi, offs, pwords
 
 
 def pair_closest_pass(accel, o_t, d_t, words, counts):

@@ -1,7 +1,8 @@
-// What the sorted-list kernels of traversal2.cu and stream.cu share: the
-// ring of cluster stages that TMA's bulk copies fill, and the reads of a
-// stage as quads of 4 triangles (closest_hit_kernel, closest_stream_kernel
-// and anyhit_stream_kernel use both).
+// What the sorted-list kernels of traversal2.cu, stream.cu and traversal3.cu
+// share: the ring of cluster stages that TMA's bulk copies fill, and the
+// reads of a stage as quads of 4 triangles (closest_hit_kernel,
+// closest_fast_kernel, closest_stream_kernel, anyhit_stream_kernel and
+// pair_anyhit_kernel use both).
 #pragma once
 #include "common.cuh"
 
@@ -9,9 +10,10 @@ constexpr int kLanes = 4;  // triangles per 16-byte coefficient load
 
 // ---------------------------------------------------------------------------
 // The ring: a block's copies, numbered in the order of issue; copy i lands in
-// stage i % kN. Every thread calls issue() and wait() with the same
-// arguments, and waits for every copy once, in order, before the stage is
-// issued to again.
+// stage i % kN. Every thread calls issue() with the same arguments; a
+// thread waits for a copy at most once, in order, and before the stage is
+// issued to again (closest_fast_kernel's threads wait for their own tile's
+// copy only, and no stage is issued to twice there).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ unsigned smem_u32(const void* p) {

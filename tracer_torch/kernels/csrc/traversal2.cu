@@ -151,7 +151,7 @@ constexpr int kSlicesClosest = 2;
 // Threads a ray of closest_fast_kernel (SLICES_FAST of kernels/traversal2.py),
 // and the threads a block holds when a tile takes fewer (FAST_THREADS): at a
 // tile of 64 rays, two tiles a block. Over all of bench100k's count-1 tiles 2
-// threads a ray took 7 % less time than 4, and half of 8 (PERF.md).
+// threads a ray took 7 % less time than 4, and 39 % less than 8 (PERF.md).
 constexpr int kSlicesFast = 2;
 constexpr int kFastThreads = 256;
 constexpr int kMaxTilesFast = kFastThreads / (kSlicesFast * 32);
@@ -540,8 +540,8 @@ int tt_closest(const void* words, const void* counts, int n_tiles, int k_cap, in
   return (int)cudaGetLastError();
 }
 
-// Blocks of fast_tiles(tr) tiles of kSlicesFast * tr threads; the caller
-// guarantees C % 4 == 0 and 16-byte aligned w.
+// Blocks of max(1, kFastThreads / (kSlicesFast * tr)) tiles of kSlicesFast *
+// tr threads each; the caller guarantees C % 4 == 0 and 16-byte aligned w.
 int tt_closest_fast(const void* words, const void* counts, int n_tiles, int k_cap, int tr,
                     const void* o4, const void* d4, const void* w, int n_cl, int c, void* bt,
                     void* bid, void* stream) {

@@ -277,10 +277,9 @@ def _closest_out(o4):
 
 def check_quads(w):
     """What the kernels that read a cluster as quads of 4 triangles
-    (closest_hit_kernel, closest_fast_kernel and the two of csrc/stream.cu)
-    take beyond
-    _check_cuda: 16-byte loads of 4 triangles' coefficients need C % 4 == 0
-    and an aligned matrix."""
+    (closest_hit_kernel, closest_fast_kernel, the two of csrc/stream.cu and
+    pair_anyhit_kernel) take beyond _check_cuda: 16-byte loads of 4
+    triangles' coefficients need C % 4 == 0 and an aligned matrix."""
     c = w.shape[2] // 3
     if c % 4 or w.data_ptr() % 16:
         raise ValueError(f"the quad-reading kernels take C % 4 == 0 and a 16-byte aligned w, "
