@@ -59,7 +59,13 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      128 lanes x the SM clock nvidia-smi reports under the load), one
      comparison on every tile of the pass, untimed, and for closest hit,
      whose blocks merge by atomics, three runs that must be bit-identical;
-     pair_closest_kernel's time and bound over all primary tiles;
+     pair_closest_kernel's tail report and its whole primary pass: bt bits
+     and bid against the plain version and a replay of its walk, three
+     identical runs, time, bound, tests a second beside the issue rate, its
+     edge pairs (a ray with a hit below its best t in a cluster whose
+     rounded slab entry is not) and its tiles of one origin (where it
+     computes the origin's products once a warp); pair_closest_kernel on the
+     first light's shadow rays (many origins: its general path), bits;
      pair_anyhit_kernel's tail report and its whole shadow pass: occlusion
      against the plain version and a replay of its walk, three identical
      runs, time, bound, and its edge pairs (a ray with a hit under t_max in
@@ -737,7 +743,8 @@ def pair_closest_bound(o4, d4, w, lo, hi, words, counts, bt):
     enters before its final best t are tested by every ray (the vote against
     the final state passes only where the walk's own did). Inputs o4, d4 (32
     B a ray), outputs bt, bid (8 B); a visited cluster's box is 24 B, a
-    tested one's matrix 48 C."""
+    tested one's matrix 48 C. Returns (bound, its text, the (ray, triangle)
+    tests it counts)."""
     tr, c = o4.shape[1], w.shape[2] // 3
     need = needed_words(words, counts, float_bits(bt).amax(1))
     t, cl, enter = pair_enter(o4, d4, lo, hi, words, need)
@@ -746,7 +753,7 @@ def pair_closest_bound(o4, d4, w, lo, hi, words, counts, bt):
     bnd = bound(n_tst * tr * c * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, o4.shape[0], tr, n_vis,
                 torch.unique(cl).numel() * 24 + torch.unique(cl[voted]).numel() * 48 * c, 32, 8)
     return bnd, (f"{n_tst} cluster tests x {tr} x {c} x {FLOPS_TRI} + {n_vis} slab tests x "
-                 f"{tr} x {FLOPS_SLAB}")
+                 f"{tr} x {FLOPS_SLAB}"), n_tst * tr * c
 
 
 def pair_anyhit_bound(o4, d4, tm, w, lo, hi, words, counts, occ):
@@ -786,7 +793,7 @@ def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
         bad = [int((bid_k != bid_p).sum()), int((float_bits(bt_k) != float_bits(bt_p)).sum())]
         err = float((bt_k - bt_p).abs().max())
         what = f"gid mismatches {bad[0]}, bt bit mismatches {bad[1]}, max |dbt| {err:.3g}"
-        bnd, tests = pair_closest_bound(*args[:5], w_s, c_s, bt_k)
+        bnd, tests, _ = pair_closest_bound(*args[:5], w_s, c_s, bt_k)
     else:
         name = "pair_anyhit"
         run_k, run_p = (lambda: t3.pair_anyhit(*args)), (lambda: t3.pair_anyhit_plain(*args))
@@ -864,39 +871,144 @@ def worklist_cluster_size(cfg, scene, rays, c: int = 32):
 
 def pair_kernels(results: dict, cfg, scene, accel, rays):
     """The two pair kernels vs their plain versions at the frame's own
-    shapes, 8x8 tiles, as worklist_kernels; then the two shadow-ray any-hit
-    kernels against each other (compare_shadow_lists)."""
+    shapes, 8x8 tiles, as worklist_kernels, each also over its whole pass,
+    and the closest-hit kernel on the shadow rays; then the two shadow-ray
+    any-hit kernels against each other (compare_shadow_lists)."""
     o_t, d_t, _ = tile_rays(rays.o, rays.d, 64)
     words, counts, excess = cull_clusters_sorted(accel, o_t, d_t, T_FAR)
     check(int(excess) == 0, "pair primary cull dropped candidates")
     log(f"[wavefront] pair primary cull: {o_t.shape[0]} tiles of 64, {count_stats(counts)}, "
         f"total {int(counts.sum())}")
     compare_pairs(results, accel, o_t, d_t, None, words, counts)
-    pair_closest_pass(accel, o_t, d_t, words, counts)
+    pair_closest_pass(results, accel, o_t, d_t, words, counts)
     trace_fn, _ = t3.make_pair_tracers(scene, accel)
     so, sd, tm = first_shadow_rays(scene, cfg, rays, trace_fn, 64)
     words, counts, excess = cull_clusters_sorted(accel, so, sd, tm)
     check(int(excess) == 0, "pair shadow cull dropped candidates")
     log(f"[wavefront] pair shadow cull (light 0): {so.shape[0]} tiles, "
         f"{count_stats(counts)}, total {int(counts.sum())}")
+    pair_closest_general(accel, so, sd, words, counts)
     compare_pairs(results, accel, so, sd, tm, words, counts)
     pair_anyhit_pass(results, accel, so, sd, tm, words, counts)
     compare_shadow_lists(accel, so, sd, tm, words, counts)
 
 
-def pair_closest_pass(accel, o_t, d_t, words, counts):
-    """pair_closest_kernel on every tile of the pair tier's primary pass:
-    its kernel-alone time and the bound on these tiles (untimed against
-    its plain version here: the comparison tiles hold it to that)."""
+def shared_origin_tiles(o4, d4) -> int:
+    """Tiles whose live rays (some d != 0) all start at ray 0's origin, bit
+    for bit: those on which pair_closest_kernel computes the origin's
+    products once a cluster."""
+    live = (d4[..., :3] != 0.0).any(-1)
+    same = (float_bits(o4[..., :3]) == float_bits(o4[:, :1, :3])).all(-1) | ~live
+    return int(same.all(1).sum())
+
+
+def pair_closest_walk(o4, d4, w, lo, hi, offs, pwords):
+    """pair_closest_plain's walk, replayed to count edge pairs: (ray, cluster)
+    with a hit below the ray's best t at the step where the word is visited
+    whose rounded slab entry is not below it. Such a ray gets the hit only
+    if another ray votes for the cluster, so its result depends on the other
+    rays' state at that step -> (bt, bid, clusters the walk tests, edge
+    pairs of those clusters, edge pairs of every word under the tile's
+    first bound, which is what a walk from other start states may test;
+    past a tile's stop the best t is the final one)."""
+    n_tiles, tr, _ = o4.shape
+    n_cl, c = w.shape[0], w.shape[2] // 3
+    bt_all = o4.new_full((n_tiles, tr), T_FAR)
+    bid_all = torch.full((n_tiles, tr), -1, dtype=torch.int32, device=o4.device)
+    lanes = torch.arange(c, dtype=torch.int32, device=o4.device)
+    walked = tested = reached = 0
+    for a, b in t1._tile_chunks(n_tiles, tr, c):
+        o4c, d4c, bt, bid = o4[a:b], d4[a:b], bt_all[a:b], bid_all[a:b]
+        rt = t3._ray_rows(o4c[..., :3], d4c[..., :3])
+        first = float_bits(bt).amax(1)
+        bnd = first.clone()
+        start, runs = offs[a:b].long(), (offs[a + 1:b + 1] - offs[a:b]).long()
+        for j in range(int(runs.max()) if runs.numel() else 0):
+            t = torch.nonzero(runs > j)[:, 0]
+            word = pwords[start[t] + j]
+            under = (word & ~_CL_MASK) < first[t]
+            t, word = t[under], word[under]
+            cl = (word & _CL_MASK).clamp_max(n_cl - 1).long()
+            enter = t3._slab_enter(rt[t], lo[cl], hi[cl])
+            tv = t2._cluster_t(o4c[t], d4c[t], w[cl], T_FAR)
+            tmin = tv.amin(-1)
+            edge = (tmin < bt[t]) & (enter >= bt[t])
+            reached += int(edge.sum())
+            test = ((word & ~_CL_MASK) < bnd[t]) & (enter < bt[t]).any(1)
+            tested += int(edge[test].sum())
+            walked += int(test.sum())
+            t, cl, tv, tmin = t[test], cl[test], tv[test], tmin[test]
+            lane = torch.where(tv == tmin[..., None], lanes, c).amin(-1)
+            better = tmin < bt[t]
+            bid[t] = torch.where(better, cl[:, None].to(torch.int32) * c + lane, bid[t])
+            bt[t] = torch.where(better, tmin, bt[t])
+            bnd[t] = float_bits(bt[t]).amax(1)
+    return bt_all, bid_all, walked, tested, reached
+
+
+def pair_closest_pass(results, accel, o_t, d_t, words, counts):
+    """pair_closest_kernel's tail report on the comparison tiles, then the
+    kernel on every tile of the pair tier's primary pass: bt bits and bid
+    against its plain version and against pair_closest_walk's replay, three
+    runs identical, the kernel-alone time, the bound on these tiles, the
+    (ray, triangle) tests a second that the bound counts beside the SM clock
+    under the load, the edge pairs of the pass and its shared-origin
+    tiles."""
+    sel = select_tiles(counts)
+
+    def call(a, b):
+        part = pair_case(accel, o_t, d_t, None, words, counts, sel[a:b])
+        return lambda: t3.pair_closest(*part)
+
+    tail_report("pair_closest", results, f"one block a tile, {t3.SLICES_PAIR_CLOSEST} threads "
+                f"a ray, windows of {t3.WINDOW} words, a ring of {t3.NBUF_PAIR_CLOSEST} stages",
+                counts[sel], call, None)
     args = pair_case(accel, o_t, d_t, None, words, counts, torch.arange(counts.shape[0],
                                                                          device=counts.device))
-    bt, _ = t3.pair_closest(*args)
+    t0 = time.perf_counter()
+    out_k, out_p = t3.pair_closest(*args), t3.pair_closest_plain(*args)
+    walk_bt, walk_bid, walked, tested, reached = pair_closest_walk(*args)
+    bad = bit_mismatches(out_k, out_p)
+    bad_walk = bit_mismatches((walk_bt, walk_bid), out_p)
+    again = sum(sum(bit_mismatches(out_k, t3.pair_closest(*args))) for _ in range(2))
+    torch.cuda.synchronize()
+    cmp_s = time.perf_counter() - t0
     alone = device_ms(lambda: t3.pair_closest(*args), 10)
-    bnd, tests = pair_closest_bound(*args[:5], words, counts, bt)
+    bnd, tests, n_tests = pair_closest_bound(*args[:5], words, counts, out_k[0])
+    mhz = clock_under_load(lambda: t3.pair_closest(*args), alone)
+    sms = _launch.sm_count(0)
     log(f"[kernels] pair_closest on every tile of its pass (the primary rays: "
-        f"{counts.shape[0]} tiles, {count_stats(counts)}): kernel alone {alone:.4f} ms; bound "
-        f"{bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), kernel alone / bound "
-        f"{alone / bnd['bound_ms']:.2f}")
+        f"{counts.shape[0]} tiles, {count_stats(counts)}, total {int(counts.sum())}; "
+        f"{shared_origin_tiles(*args[:2])} tiles of one origin): bit mismatches bt {bad[0]}, "
+        f"bid {bad[1]}, elements that differ between three runs {again}, the replayed walk "
+        f"against the plain version {bad_walk} ({cmp_s:.1f} s, untimed), the walk tests "
+        f"{walked} clusters; edge pairs (a hit "
+        f"below the ray's best t, a slab entry not below it) in the clusters the walk tests "
+        f"{tested}, in every word under a tile's first bound {reached}; kernel alone "
+        f"{alone:.4f} ms; bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), "
+        f"kernel alone / bound {alone / bnd['bound_ms']:.2f}; {n_tests / alone / 1e6:.1f} G "
+        f"(ray, triangle) tests/s of those the bound counts, beside {sms} SMs x 128 lanes x "
+        f"{mhz} MHz (nvidia-smi, under this load) = {sms * 128 * mhz / 1e6:.2f} T "
+        f"instructions/s")
+    check(not any(bad) and not again and not any(bad_walk),
+          "pair_closest: kernel disagrees with its plain version, or with itself, on the whole "
+          "pass")
+
+
+def pair_closest_general(accel, so, sd, words, counts):
+    """pair_closest_kernel on the first light's shadow rays (origins on the
+    surfaces, so the kernel's general path, which computes every ray's own
+    origin products), every tile: bt bits and bid against its plain
+    version."""
+    args = pair_case(accel, so, sd, None, words, counts, torch.arange(counts.shape[0],
+                                                                       device=counts.device))
+    bad = bit_mismatches(t3.pair_closest(*args), t3.pair_closest_plain(*args))
+    torch.cuda.synchronize()
+    log(f"[kernels] pair_closest on the first light's shadow rays ({counts.shape[0]} tiles, "
+        f"{shared_origin_tiles(*args[:2])} of them of one origin or none live, "
+        f"{count_stats(counts)}): bit mismatches bt {bad[0]}, bid {bad[1]}")
+    check(not any(bad), "pair_closest: kernel disagrees with its plain version on rays of "
+                        "many origins")
 
 
 def pair_anyhit_walk(o4, d4, tm, w, lo, hi, offs, pwords):

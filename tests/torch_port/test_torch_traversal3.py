@@ -356,16 +356,208 @@ def test_pair_anyhit_ring_holds_the_next_tested_word(shadow_pass):
         assert issued >= tested > 0
 
 
+# ---------------------------------------------------------------------------
+# pair_closest_kernel's walk (csrc/traversal3.cu), modelled in plain torch:
+# windows of W words whose slab entries a thread computes once (its slices'
+# share), a ray's votes the entries below its best t, recomputed after every
+# tested cluster; the next tested word the first bit of the OR of the votes
+# under the bound; a tested cluster's quads split among the slices, each
+# keeping the first lane of its least t, the slices' bests folded by the
+# kernel's shuffles; the ring of pair_anyhit_kernel; and on a tile whose live
+# rays share ray 0's origin bit for bit, every ray's origin side taken from
+# ray 0. The model holds the walk to pair_closest_plain.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def primary_pass(case):
+    """The fixture's primary rays (one origin) and the port's single-stage
+    cull of them, as pair_closest takes them."""
+    o_t, d_t = _t(case["o_t"]), _t(case["d_t"])
+    words, counts, _ = cull_clusters_sorted(case["accel"], o_t, d_t, T_FAR)
+    offs, pwords, _ = tt3._tile_stream(words, counts, None)
+    o4, d4 = tt3._homog(o_t, d_t)
+    accel = case["accel"]
+    return o4, d4, accel.tri_w, accel.cluster_lo, accel.cluster_hi, offs, pwords
+
+
+def _one_origin(o4, d4):
+    """Per tile: every live ray (some d != 0) starts at ray 0's origin, bit
+    for bit -> (Nt,) bool."""
+    live = (d4[..., :3] != 0.0).any(-1)
+    same = (tt3._bits(o4[..., :3]) == tt3._bits(o4[:, :1, :3])).all(-1)
+    return (same | ~live).all(1)
+
+
+def _slice_fold(tv, slices):
+    """A tested cluster's (TR, C) t's: each slice's first lane of its least t
+    over its quads (lane // 4 % slices), folded as the kernel's shuffles do
+    (xor offsets slices/2 .. 1, smaller t, on equal t the smaller lane), read
+    at slice 0 -> (t (TR,), lane (TR,))."""
+    c = tv.shape[-1]
+    lane = torch.arange(c)
+    best = []
+    for s in range(slices):
+        mine = (lane // 4) % slices == s
+        t = torch.where(mine, tv, T_FAR).amin(-1)
+        first = torch.where(mine & (tv == t[:, None]), lane, c).amin(-1)
+        best.append((t, torch.where(t < T_FAR, first, 0)))
+    off = slices // 2
+    while off:
+        nxt = []
+        for s in range(slices):
+            (ta, la), (tb, lb) = best[s], best[s ^ off]
+            take = (tb < ta) | ((tb == ta) & (lb < la))
+            nxt.append((torch.where(take, tb, ta), torch.where(take, lb, la)))
+        best, off = nxt, off // 2
+    return best[0]
+
+
+def _pair_closest_windows(o4, d4, w, lo, hi, offs, pwords, slices, window, nbuf,
+                          shared=None):
+    """The kernel's walk, tile by tile -> (bt (Nt, TR), bid (Nt, TR),
+    clusters tested, copies issued, tiles that took the shared origin).
+    `shared` None decides per tile as the kernel does (_one_origin); True
+    forces ray 0's origin on every tile. Asserts that the slices' masks
+    make up the ray's votes and that the ring holds the copy of every word
+    the walk tests."""
+    n_tiles, tr, _ = o4.shape
+    n_cl, c = w.shape[0], w.shape[2] // 3
+    mask_cl = (1 << CLUSTER_BITS) - 1
+    rt = tt3._ray_rows(o4[..., :3], d4[..., :3])
+    one = _one_origin(o4, d4) if shared is None else torch.full((n_tiles,), shared)
+    bt_all = torch.full((n_tiles, tr), T_FAR)
+    bid_all = torch.full((n_tiles, tr), -1, dtype=torch.int32)
+    tested = issued = 0
+    for tile in range(n_tiles):
+        run = pwords[offs[tile]:offs[tile + 1]]
+        bt, bid = bt_all[tile], bid_all[tile]
+        o_side = o4[tile, :1].expand(tr, 4) if bool(one[tile]) else o4[tile]
+        for k0 in range(0, run.shape[0], window):
+            win = run[k0:k0 + window]
+            n = win.shape[0]
+            cl = (win & mask_cl).clamp_max(n_cl - 1).long()
+            enter = tt3._slab_enter(rt[tile].expand(n, 8, tr), lo[cl], hi[cl]).T      # (TR, n)
+            j_slice = torch.arange(n) % slices
+            inflight, pos, f, stop = [], 0, 0, False
+            while True:
+                mask = torch.zeros((tr, n), dtype=torch.bool)
+                for s in range(slices):                 # each slice's words, OR-ed
+                    mask |= (enter < bt[:, None]) & (j_slice == s)
+                assert torch.equal(mask, enter < bt[:, None])
+                votes, bound = mask.any(0), tt3._bits(bt).amax()
+                under = (win & ~mask_cl) < bound
+                stop |= not bool(under.all())
+                cand = votes & under & (torch.arange(n) >= pos)
+                if not cand.any():
+                    break
+                j = int(torch.nonzero(cand)[0])
+                assert len(inflight) < nbuf        # a stage is free
+                new = torch.nonzero(cand & (torch.arange(n) >= f))[:nbuf - len(inflight), 0]
+                inflight += new.tolist()
+                f = int(new[-1]) + 1 if new.numel() else f
+                issued += new.numel()
+                inflight = [b for b in inflight if b >= j]      # skipped words' copies
+                assert inflight[0] == j and inflight == sorted(inflight)
+                inflight.pop(0)
+                t, lane = _slice_fold(tt2._cluster_t(o_side, d4[tile], w[cl[j]], T_FAR), slices)
+                better = t < bt
+                bid[:] = torch.where(better, int(cl[j]) * c + lane.int(), bid)
+                bt[:] = torch.where(better, t, bt)
+                tested += 1
+                pos = j + 1
+            if stop:
+                break
+    return bt_all, bid_all, tested, issued, int(one.sum())
+
+
+def _ulp_origin(primary_pass):
+    """The primary pass with one ray of every tile started one ulp away in
+    each coordinate (the first ray with a hit in its tile, so that the
+    change can show; a coordinate of 0 moves to a denormal, which rounds
+    away)."""
+    o4, d4, w, lo, hi, offs, pwords = primary_pass
+    bid = tt3.pair_closest_plain(*primary_pass)[1]
+    r = (bid >= 0).int().argmax(1)
+    o4 = o4.clone()
+    rows = torch.arange(o4.shape[0])
+    xyz = o4[rows, r, :3].numpy()
+    o4[rows, r, :3] = torch.from_numpy(np.nextafter(xyz, np.float32(np.inf)).astype(np.float32))
+    return (o4, d4, w, lo, hi, offs, pwords)
+
+
+def _slice_tie(primary_pass):
+    """The primary pass with the most-hit triangle of its most-hit cluster
+    copied to the lane 4 away (the next or the previous quad, so another
+    slice): two lanes of one cluster give the same t -> (the pass, the lane
+    that must win, the lane that must not)."""
+    o4, d4, w, lo, hi, offs, pwords = primary_pass
+    c = w.shape[2] // 3
+    bid = tt3.pair_closest_plain(*primary_pass)[1]
+    y, lane = divmod(int(torch.mode(bid[bid >= 0]).values), c)
+    other = lane + 4 if lane + 4 < c else lane - 4
+    w = w.clone()
+    for f in range(3):
+        w[y, :, f * c + other] = w[y, :, f * c + lane]
+    return (o4, d4, w, lo, hi, offs, pwords), y * c + min(lane, other), y * c + max(lane, other)
+
+
+@pytest.mark.parametrize("slices,window", [(2, 32), (1, 32), (4, 32), (2, 4), (1, 4), (4, 4)])
+@pytest.mark.parametrize("rays", ["primary", "shadow", "ulp_origin", "slice_tie"])
+def test_pair_closest_windowed_walk_equals_the_plain_walk(primary_pass, shadow_pass, rays,
+                                                          slices, window):
+    """The kernel's walk (_pair_closest_windows) gives pair_closest_plain's bt
+    bits and bid on every ray, with rings of 1, 2 and NBUF_PAIR_CLOSEST
+    stages: on the fixture's primary rays (one origin: the shared path on
+    every tile), on shadow_pass's surface origins (the general path), with
+    one ray of every primary tile one ulp off (the general path; ray 0's
+    origin forced on those tiles would change a result), and with a tie of
+    equal t across two slices (the lower lane wins)."""
+    args, win, lose = primary_pass, None, None
+    if rays == "shadow":
+        o4, d4, _, w, lo, hi, offs, pwords = shadow_pass
+        args = (o4, d4, w, lo, hi, offs, pwords)
+    elif rays == "ulp_origin":
+        args = _ulp_origin(primary_pass)
+    elif rays == "slice_tie":
+        args, win, lose = _slice_tie(primary_pass)
+    want = tt3.pair_closest_plain(*args)
+    n_tiles = args[0].shape[0]
+    for nbuf in sorted({1, 2, tt3.NBUF_PAIR_CLOSEST}):
+        bt, bid, tested, issued, n_shared = _pair_closest_windows(*args, slices, window, nbuf)
+        np.testing.assert_array_equal(tt3._bits(bt).numpy(), tt3._bits(want[0]).numpy())
+        np.testing.assert_array_equal(bid.numpy(), want[1].numpy())
+        assert issued >= tested > 0
+    assert (want[1] >= 0).float().mean() > 0.05
+    if rays in ("primary", "slice_tie"):
+        assert n_shared == n_tiles
+    else:
+        assert n_shared < n_tiles
+    if rays == "ulp_origin":
+        assert n_shared == 0
+        forced = _pair_closest_windows(*args, slices, window, tt3.NBUF_PAIR_CLOSEST, shared=True)
+        assert not torch.equal(tt3._bits(forced[0]), tt3._bits(want[0])), \
+            "the one-ulp origins must change some result under ray 0's origin"
+    if rays == "slice_tie":
+        assert (want[1] == win).any() and not (want[1] == lose).any()
+
+
 def test_pair_constants_pinned_to_the_kernel():
     """SLICES_PAIR, WINDOW and NBUF_PAIR are csrc/traversal3.cu's
-    kSlicesPair, kWindow and kNBufPair; a window is one 32-bit vote mask
-    (one word a lane of a warp), a block of pair_anyhit_kernel SLICES_PAIR *
-    64 = 128 threads for a tile of 64 rays (the kernels cannot run here:
-    their constants are read from the source)."""
+    kSlicesPair, kWindow and kNBufPair, SLICES_PAIR_CLOSEST and
+    NBUF_PAIR_CLOSEST its kSlicesPairClosest and kNBufPairClosest; a window
+    is one 32-bit vote mask (one word a lane of a warp), a block of either
+    kernel 2 * 64 = 128 threads for a tile of 64 rays (the kernels cannot
+    run here: their constants and launch lines are read from the source)."""
     src = (Path(tt3.__file__).parent / "csrc" / "traversal3.cu").read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert (int(consts["kSlicesPair"]), int(consts["kWindow"]), int(consts["kNBufPair"])) == (
         tt3.SLICES_PAIR, tt3.WINDOW, tt3.NBUF_PAIR) == (2, 32, 4)
+    assert (int(consts["kSlicesPairClosest"]), int(consts["kNBufPairClosest"])) == (
+        tt3.SLICES_PAIR_CLOSEST, tt3.NBUF_PAIR_CLOSEST) == (2, 2)
     assert "pair_anyhit_kernel<<<n_tiles, kSlicesPair * tr, smem," in src
-    assert "Ring<kNBufPair> ring{" in src and '#include "sorted.cuh"' in src
-    assert tt3.SLICES_PAIR * 64 == 128 and 32 % tt3.SLICES_PAIR == 0
+    assert "pair_closest_kernel<<<n_tiles, kSlicesPairClosest * tr, smem," in src
+    assert "__maxnreg__(kRegsPairClosest) pair_closest_kernel(" in src
+    assert "Ring<kNBufPair> ring{" in src and "Ring<kNBufPairClosest> ring{" in src
+    assert '#include "sorted.cuh"' in src
+    for slices in (tt3.SLICES_PAIR, tt3.SLICES_PAIR_CLOSEST):
+        assert slices * 64 == 128 and 32 % slices == 0

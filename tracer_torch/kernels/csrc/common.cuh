@@ -20,14 +20,18 @@ constexpr int kSeg = 8;
 constexpr int kSlices = 4;
 constexpr int kMaxRays = 1024 / kSlices;  // a block is kSlices threads a ray
 
-// t of one (ray, triangle) pair, or kTFar when the pair does not hit; n, a, b
-// are the triangle's plane, bary-u and bary-v coefficients. The operation
-// order is _cluster_t's (kernels/traversal2.py).
-__device__ __forceinline__ float tri_t(float4 n, float4 a, float4 b, float4 o, float4 d,
-                                       float t_max) {
-  const float so_n = ((n.w + o.x * n.x) + o.y * n.y) + o.z * n.z;
-  const float so_u = ((a.w + o.x * a.x) + o.y * a.y) + o.z * a.z;
-  const float so_v = ((b.w + o.x * b.x) + o.y * b.y) + o.z * b.z;
+// The origin's side of one field of a triangle (its (x, y, z, w)
+// coefficients n): so = ((w + o.x*x) + o.y*y) + o.z*z, _cluster_t's order.
+__device__ __forceinline__ float origin_dot(float4 n, float4 o) {
+  return ((n.w + o.x * n.x) + o.y * n.y) + o.z * n.z;
+}
+
+// t of one (ray, triangle) pair from the origin's sides so_n, so_u, so_v of
+// the triangle's plane, bary-u and bary-v fields (origin_dot of n, a, b), or
+// kTFar when the pair does not hit. The operation order is _cluster_t's
+// (kernels/traversal2.py).
+__device__ __forceinline__ float tri_t_so(float so_n, float so_u, float so_v, float4 n, float4 a,
+                                          float4 b, float4 d, float t_max) {
   const float sd_n = (d.x * n.x + d.y * n.y) + d.z * n.z;
   const float sd_u = (d.x * a.x + d.y * a.y) + d.z * a.z;
   const float sd_v = (d.x * b.x + d.y * b.y) + d.z * b.z;
@@ -37,6 +41,13 @@ __device__ __forceinline__ float tri_t(float4 n, float4 a, float4 b, float4 o, f
   const bool ok = (u >= 0.0f) && (v >= 0.0f) && ((1.0f - u - v) >= 0.0f) &&
                   (t > kTMin) && (t < t_max) && (fabsf(sd_n) > 1e-12f);
   return ok ? t : kTFar;
+}
+
+// t of one (ray, triangle) pair, or kTFar when the pair does not hit; n, a, b
+// are the triangle's plane, bary-u and bary-v coefficients.
+__device__ __forceinline__ float tri_t(float4 n, float4 a, float4 b, float4 o, float4 d,
+                                       float t_max) {
+  return tri_t_so(origin_dot(n, o), origin_dot(a, o), origin_dot(b, o), n, a, b, d, t_max);
 }
 
 // The same for a triangle staged as three consecutive float4s.

@@ -1,8 +1,8 @@
 // What the sorted-list kernels of traversal2.cu, stream.cu and traversal3.cu
 // share: the ring of cluster stages that TMA's bulk copies fill, and the
 // reads of a stage as quads of 4 triangles (closest_hit_kernel,
-// closest_fast_kernel, closest_stream_kernel, anyhit_stream_kernel and
-// pair_anyhit_kernel use both).
+// closest_fast_kernel, closest_stream_kernel, anyhit_stream_kernel and the
+// two pair kernels use both).
 #pragma once
 #include "common.cuh"
 

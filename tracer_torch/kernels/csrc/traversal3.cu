@@ -34,20 +34,23 @@
 // A walk is a chain of dependent steps: a word's vote needs the state the
 // tests before it left.
 //
-// What the design does about it. pair_closest_kernel: one cluster per step
-// (B = 1), staged in shared memory transposed so that a triangle's 12
-// coefficients are three float4 broadcast loads; the prune votes with
-// __syncthreads_or, which is also the barrier that frees the stage.
-// pair_anyhit_kernel keeps one block a tile, so every vote sees the state
-// the reference's walk has there: a run cut into segments would start from
-// flags as they stand, and a ray whose hit lies under t_max in a cluster
-// whose rounded slab entry does not (an edge pair) is occluded only if
-// another ray votes, which then depends on timing. What it shortens is the
-// step: kSlicesPair threads a ray, the slab votes of a window of 32 words
-// taken at once, so a skipped word costs no barrier, one barrier a tested
-// cluster, and the next voted clusters copied ahead by TMA's bulk copies
-// (sorted.cuh's ring and quad reads). A tile's state lives in registers for
-// the whole run.
+// What the design does about it. Both kernels keep one block a tile, so
+// every vote sees the state the reference's walk has there: a run cut into
+// segments would start from a state as it stands, and a ray whose hit lies
+// under its bound (best t, or t_max) in a cluster whose rounded slab entry
+// does not (an edge pair) gets it only if another ray votes, which would then
+// depend on timing. What they shorten is the step: a ray is served by
+// kSlicesPair (kSlicesPairClosest) threads, each with every slices-th quad of
+// 4 triangles of a tested cluster; the run is read in windows of 32 words
+// whose slab entries are taken at once, a ray's votes over a window being one
+// 32-bit mask, so a skipped word costs no barrier and a tested cluster one;
+// the next voted clusters are copied ahead by TMA's bulk copies (sorted.cuh's
+// ring and quad reads). pair_closest_kernel recomputes a ray's mask from the
+// entries it holds in registers whenever its best t falls, folds its slices'
+// (t, lane) bests by shuffles, and on a tile whose rays share one origin (the
+// primary rays) computes the origin's side of a tested cluster's products
+// once a warp, not once a ray. A tile's state lives in registers for the
+// whole run.
 #include "common.cuh"
 #include "sorted.cuh"
 
@@ -65,18 +68,20 @@ static_assert(kSlicesPair <= 32 && 32 % kSlicesPair == 0, "a ray's slices share 
 constexpr int kWindow = 32;
 // Ring stages of pair_anyhit_kernel: the clusters of the next voted words.
 constexpr int kNBufPair = 4;
-
-// s[lane*3 + f] = column f*C + lane of cluster cl's (4, 3C) matrix.
-__device__ __forceinline__ void stage_cluster(float4* s, const float* __restrict__ w, int cl,
-                                              int c) {
-  const int per = 3 * c;
-  const float* wc = w + (size_t)cl * 4 * per;
-  for (int col = threadIdx.x; col < per; col += blockDim.x) {
-    const int f = col / c;
-    const int lane = col - f * c;
-    s[lane * 3 + f] = make_float4(wc[col], wc[per + col], wc[2 * per + col], wc[3 * per + col]);
-  }
-}
+// Threads a ray of pair_closest_kernel (SLICES_PAIR_CLOSEST of
+// kernels/traversal3.py): a block of 128 for a tile of 64 rays. Over the
+// whole primary pass of bench100k, 2 took 4 % less time than 1 and 31 % less
+// than 4 (4 is 21 % faster at the heavy comparison tiles; PERF.md).
+constexpr int kSlicesPairClosest = 2;
+static_assert(kSlicesPairClosest <= 32 && 32 % kSlicesPairClosest == 0,
+              "a ray's slices share a warp");
+// Ring stages of pair_closest_kernel (NBUF_PAIR_CLOSEST): 2 were 0.2-0.7 %
+// faster than 4 over the pass.
+constexpr int kNBufPairClosest = 2;
+// Registers a thread of pair_closest_kernel: five blocks of 128 an SM, where
+// the 108 it takes uncapped fit four (5 % faster over the pass; 88 were
+// slower again).
+constexpr int kRegsPairClosest = 96;
 
 // min and max that hand on a NaN, as torch.minimum and torch.maximum do.
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -124,51 +129,6 @@ __device__ __forceinline__ float slab_enter(const SlabRay& r, const float* __res
   }
   const bool ok = r.live && (enter <= exit_) && (exit_ > 0.0f);
   return ok ? enter : kTFar;
-}
-
-__global__ void pair_closest_kernel(const int* __restrict__ offs, const int* __restrict__ pwords,
-                                    const float4* __restrict__ o4,
-                                    const float4* __restrict__ d4,
-                                    const float* __restrict__ box_lo,
-                                    const float* __restrict__ box_hi,
-                                    const float* __restrict__ w, int n_cl, int c,
-                                    float* __restrict__ bt_out, int* __restrict__ bid_out) {
-  extern __shared__ float4 s_w[];
-  __shared__ int s_red[32];
-  const int tile = blockIdx.x;
-  const size_t ray = (size_t)tile * blockDim.x + threadIdx.x;
-  const float4 o = o4[ray], d = d4[ray];
-  const SlabRay sr = slab_ray(o, d);
-  float bt = kTFar;
-  int bid = -1;
-  int bound = __float_as_int(kTFar);
-  const int end = offs[tile + 1];
-  for (int i = offs[tile]; i < end; ++i) {
-    const int word = pwords[i];
-    if ((word & ~kClMask) >= bound) break;  // block-uniform
-    const int cl = min(word & kClMask, n_cl - 1);
-    const float enter = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);
-    // The vote is also the barrier after which the stage may be rewritten.
-    if (!__syncthreads_or(enter < bt)) continue;
-    stage_cluster(s_w, w, cl, c);
-    __syncthreads();
-    float tmin = kTFar;
-    int lm = 0;
-    for (int lane = 0; lane < c; ++lane) {
-      const float tv = tri_t(s_w + lane * 3, o, d, kTFar);
-      if (tv < tmin) {  // the first lane that attains the minimum
-        tmin = tv;
-        lm = lane;
-      }
-    }
-    if (tmin < bt) {
-      bt = tmin;
-      bid = cl * c + lm;
-    }
-    bound = block_max(__float_as_int(bt), s_red);
-  }
-  bt_out[ray] = bt;
-  bid_out[ray] = bid;
 }
 
 // The votes and the bound of a block: the OR of every thread's `votes` and
@@ -314,21 +274,236 @@ __global__ void pair_anyhit_kernel(const int* __restrict__ offs, const int* __re
   if (slice == 0) occ_out[ray] = occ ? 1 : 0;
 }
 
+// The origin's sides of a staged cluster for the origin o, computed by the
+// block's threads in turn: so[f * c4 + l4] holds field f's of triangles
+// 4*l4 .. 4*l4+3, lane by lane (origin_dot: tri_t's order).
+__device__ __forceinline__ void stage_origin(float4* so, const float4* stage, float4 o, int c4) {
+  for (int q = threadIdx.x; q < 3 * c4; q += blockDim.x) {
+    const int f = q < c4 ? 0 : q < 2 * c4 ? 1 : 2;
+    const int l4 = q - f * c4;
+    const float4 x = stage[f * c4 + l4], y = stage[(3 + f) * c4 + l4],
+                 z = stage[(6 + f) * c4 + l4], w = stage[(9 + f) * c4 + l4];
+    so[q] = make_float4(origin_dot(make_float4(x.x, y.x, z.x, w.x), o),
+                        origin_dot(make_float4(x.y, y.y, z.y, w.y), o),
+                        origin_dot(make_float4(x.z, y.z, z.z, w.z), o),
+                        origin_dot(make_float4(x.w, y.w, z.w, w.w), o));
+  }
+}
+
+// A quad whose row 3 holds its triangles' origin sides (stage_origin) where
+// the stage holds the coefficients' w row, which tri_t_so does not read.
+__device__ __forceinline__ void load_quad_so(Quad& a, const float4* stage, const float4* so,
+                                             int c4, int lane4) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int f = 0; f < 3; ++f) a.q[r][f] = stage[(r * 3 + f) * c4 + lane4];
+#pragma unroll
+  for (int f = 0; f < 3; ++f) a.q[3][f] = so[f * c4 + lane4];
+}
+
+__device__ __forceinline__ float quad_tri_t_so(const Quad& a, int i, float4 d, float t_max) {
+  return tri_t_so(comp(a.q[3][0], i), comp(a.q[3][1], i), comp(a.q[3][2], i), field(a, 0, i),
+                  field(a, 1, i), field(a, 2, i), d, t_max);
+}
+
+// A ray's slab votes over a window: bit j set iff it enters word j's box
+// before its best t bt, for the words j = jj * kSlicesPairClosest + slice
+// whose entries this thread holds (the other slices of the ray hold the
+// rest; the block's OR takes them all).
+__device__ __forceinline__ unsigned closest_votes(
+    const float (&enter)[kWindow / kSlicesPairClosest], float bt, int slice) {
+  unsigned mask = 0;
+#pragma unroll
+  for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj)
+    mask |= (enter[jj] < bt ? 1u : 0u) << (jj * kSlicesPairClosest + slice);
+  return mask;
+}
+
+// Closest hit over a tile's run, one block a tile, the reference's walk step
+// for step, in the shape of pair_anyhit_kernel. Thread u serves ray u /
+// kSlicesPairClosest with the quads l4 % kSlicesPairClosest == u %
+// kSlicesPairClosest of a tested cluster. The run is read in windows of
+// kWindow words; a thread computes the slab entries of its share of a window
+// once, into registers, and a ray's votes are the bits of the entries below
+// its best t, recomputed after each tested cluster (bt only falls, so a vote
+// is only ever lost). The block's votes are the OR of all of them and its
+// bound the max bt bits, both from one barrier; the next tested word is the
+// first voted word under the bound past the last one tested, and the words
+// between are skipped with the state the reference skips them with. Every ray
+// tests a tested cluster: each thread keeps the first lane of its least t
+// over its quads, walked in ascending lane order; the slices fold the least
+// (t, lane) by shuffles, an order that is total, so the result is the serial
+// loop's first lane of the minimum; the running best is replaced on a strict
+// <. The next voted clusters are copied ahead into a ring of
+// kNBufPairClosest stages; a copy whose word lost its vote is waited for,
+// unread. When every live ray of the tile starts at ray 0's origin, bit for
+// bit (primary rays; a padding ray never hits, whatever its origin), the
+// block computes a tested cluster's origin sides once into shared memory (one
+// more barrier) and a ray computes only its direction's side: the same
+// operations on the same bits, so the same t. The block decides this from the
+// data, once.
+__global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
+    const int* __restrict__ offs, const int* __restrict__ pwords, const float4* __restrict__ o4,
+    const float4* __restrict__ d4, const float* __restrict__ box_lo,
+    const float* __restrict__ box_hi, const float4* __restrict__ w, int n_cl, int c,
+    float* __restrict__ bt_out, int* __restrict__ bid_out) {
+  extern __shared__ __align__(128) float4 ring_mem[];  // the ring's stages, then so
+  __shared__ __align__(8) uint64_t s_bar[kNBufPairClosest];
+  __shared__ unsigned s_or[2][32];
+  __shared__ int s_max[2][32];
+  const int tr = blockDim.x / kSlicesPairClosest;
+  const int tile = blockIdx.x;
+  const int slice = threadIdx.x % kSlicesPairClosest;
+  const int lane = threadIdx.x & 31;
+  const int per4 = 3 * c;
+  const int c4 = c / kLanes;
+  const size_t ray0 = (size_t)tile * tr;
+  const size_t ray = ray0 + threadIdx.x / kSlicesPairClosest;
+  const int k_begin = offs[tile], k_end = offs[tile + 1];
+  if (k_begin == k_end) {  // block-uniform: an empty run leaves every ray without a hit
+    if (slice == 0) {
+      bt_out[ray] = kTFar;
+      bid_out[ray] = -1;
+    }
+    return;
+  }
+  Ring<kNBufPairClosest> ring{ring_mem, s_bar, per4, 0};
+  ring.init();  // published by the barrier below, before any wait
+  float4* so = ring_mem + kNBufPairClosest * per4;
+  const float4 o = o4[ray], d = d4[ray], o0 = o4[ray0];
+  const SlabRay sr = slab_ray(o, d);
+  const bool one_origin = !sr.live || (__float_as_int(o.x) == __float_as_int(o0.x) &&
+                                       __float_as_int(o.y) == __float_as_int(o0.y) &&
+                                       __float_as_int(o.z) == __float_as_int(o0.z));
+  const bool shared = __syncthreads_and(one_origin) != 0;
+  float bt = kTFar;
+  int bid = -1;
+  int turn = 0, consumed = 0, bound;
+  unsigned votes;
+  bool walking = true;
+  for (int k0 = k_begin; walking && k0 < k_end; k0 += kWindow) {  // block-uniform
+    const int n = min(kWindow, k_end - k0);
+    const unsigned in_window = n == 32 ? 0xffffffffu : (1u << n) - 1;
+    const int word = lane < n ? pwords[k0 + lane] : 0;
+    float enter[kWindow / kSlicesPairClosest];
+#pragma unroll
+    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj] = kTFar;
+#pragma unroll
+    for (int jj = 0; jj < kWindow / kSlicesPairClosest && jj * kSlicesPairClosest < n; ++jj) {
+      const int j = jj * kSlicesPairClosest + slice;
+      const int cl = word_cluster(__shfl_sync(0xffffffffu, word, j), n_cl);
+      if (j < n) enter[jj] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);
+    }
+    block_or_max(closest_votes(enter, bt, slice), __float_as_int(bt), votes, bound, s_or, s_max,
+                 turn);
+    unsigned inflight = 0;  // window words whose copies are issued and not yet consumed
+    int pos = 0;            // the next word that may be tested
+    int f = 0;              // the next word that may be copied
+    for (;;) {
+      const unsigned under = __ballot_sync(0xffffffffu, lane < n && (word & ~kClMask) < bound);
+      if (under != in_window) walking = false;  // the walk stops in this window
+      const unsigned cand = votes & under & (pos < 32 ? ~0u << pos : 0u);
+      if (!cand) break;
+      const int j = __ffs(cand) - 1;
+      // Copy the next voted words into the free stages, as pair_anyhit_kernel
+      // does: j's copy is in flight after this.
+      unsigned next = cand & (f < 32 ? ~0u << f : 0u);
+      while (next && __popc(inflight) < kNBufPairClosest) {
+        const int b = __ffs(next) - 1;
+        ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(pwords[k0 + b], n_cl) * per4 : w);
+        inflight |= 1u << b;
+        next &= next - 1;
+        f = b + 1;
+      }
+      while (inflight && __ffs(inflight) - 1 < j) {  // copies of words skipped since
+        ring.wait(consumed++);
+        inflight &= inflight - 1;
+      }
+      ring.wait(consumed);
+      const float4* stage = ring.stage(consumed);
+      const int cl = word_cluster(__shfl_sync(0xffffffffu, word, j), n_cl);
+      float tb = kTFar;
+      int lb = 0;
+      if (shared) {  // block-uniform
+        stage_origin(so, stage, o0, c4);  // the last reads of so preceded the last barrier
+        __syncthreads();
+        for (int l4 = slice; l4 < c4; l4 += kSlicesPairClosest) {
+          Quad a;
+          load_quad_so(a, stage, so, c4, l4);
+#pragma unroll
+          for (int i = 0; i < kLanes; ++i) {
+            const float tv = quad_tri_t_so(a, i, d, kTFar);
+            if (tv < tb) {
+              tb = tv;
+              lb = l4 * kLanes + i;
+            }
+          }
+        }
+      } else {
+        for (int l4 = slice; l4 < c4; l4 += kSlicesPairClosest) {
+          Quad a;
+          load_quad(a, stage, c4, l4);
+#pragma unroll
+          for (int i = 0; i < kLanes; ++i) {
+            const float tv = quad_tri_t(a, i, o, d, kTFar);
+            if (tv < tb) {
+              tb = tv;
+              lb = l4 * kLanes + i;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int off = kSlicesPairClosest / 2; off > 0; off >>= 1) {
+        const float t2 = __shfl_xor_sync(0xffffffffu, tb, off);
+        const int l2 = __shfl_xor_sync(0xffffffffu, lb, off);
+        if (t2 < tb || (t2 == tb && l2 < lb)) {
+          tb = t2;
+          lb = l2;
+        }
+      }
+      if (tb < bt) {
+        bt = tb;
+        bid = cl * c + lb;
+      }
+      ++consumed;
+      inflight &= inflight - 1;  // j was the lowest
+      pos = j + 1;
+      // Its barrier also frees the stage just read.
+      block_or_max(closest_votes(enter, bt, slice), __float_as_int(bt), votes, bound, s_or,
+                   s_max, turn);
+    }
+    while (inflight) {  // copies of words not tested
+      ring.wait(consumed++);
+      inflight &= inflight - 1;
+    }
+  }
+  if (slice == 0) {
+    bt_out[ray] = bt;
+    bid_out[ray] = bid;
+  }
+}
+
 }  // namespace
 
 // C entry points: pointers and the stream as void*, one launch each on the
 // given stream; each returns cudaGetLastError() (0 on success).
 extern "C" {
 
+// One block of kSlicesPairClosest * tr threads a tile; returns
+// cudaErrorInvalidValue unless C % 4 == 0 and the block fits. The caller
+// guarantees 16-byte aligned w.
 int pr_closest(const void* offs, const void* pwords, int n_tiles, int tr, const void* o4,
                const void* d4, const void* lo, const void* hi, const void* w, int n_cl, int c,
                void* bt, void* bid, void* stream) {
-  const size_t smem = (size_t)c * 3 * sizeof(float4);
+  if (kSlicesPairClosest * tr > 1024 || c % kLanes) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * sizeof(float4);
   cudaError_t e = launch_prep(pair_closest_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  pair_closest_kernel<<<n_tiles, tr, smem, (cudaStream_t)stream>>>(
+  pair_closest_kernel<<<n_tiles, kSlicesPairClosest * tr, smem, (cudaStream_t)stream>>>(
       (const int*)offs, (const int*)pwords, (const float4*)o4, (const float4*)d4,
-      (const float*)lo, (const float*)hi, (const float*)w, n_cl, c, (float*)bt, (int*)bid);
+      (const float*)lo, (const float*)hi, (const float4*)w, n_cl, c, (float*)bt, (int*)bid);
   return (int)cudaGetLastError();
 }
 

@@ -278,7 +278,7 @@ def _closest_out(o4):
 def check_quads(w):
     """What the kernels that read a cluster as quads of 4 triangles
     (closest_hit_kernel, closest_fast_kernel, the two of csrc/stream.cu and
-    pair_anyhit_kernel) take beyond _check_cuda: 16-byte loads of 4
+    the two of csrc/traversal3.cu) take beyond _check_cuda: 16-byte loads of 4
     triangles' coefficients need C % 4 == 0 and an aligned matrix."""
     c = w.shape[2] // 3
     if c % 4 or w.data_ptr() % 16:

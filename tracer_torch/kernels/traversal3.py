@@ -51,6 +51,11 @@ _BIG = T_FAR
 SLICES_PAIR = 2
 WINDOW = 32
 NBUF_PAIR = 4
+# pair_closest_kernel walks the run the same way, with SLICES_PAIR_CLOSEST
+# threads a ray and a ring of NBUF_PAIR_CLOSEST stages (kSlicesPairClosest,
+# kNBufPairClosest).
+SLICES_PAIR_CLOSEST = 2
+NBUF_PAIR_CLOSEST = 2
 
 
 def build_pair_stream(words, counts, p_cap: int | None = None):
@@ -215,12 +220,21 @@ def _check_pairs(o4, d4, w, lo, hi, offs, pwords, *extra):
                          f"{tuple(pwords.shape)}")
 
 
+def _check_block(tr: int, slices: int, what: str):
+    if tr * slices > 1024:
+        raise ValueError(f"tile of {tr} rays: the pair {what} kernel takes {slices} threads a "
+                         f"ray and at most 1024 a block")
+
+
 def pair_closest(o4, d4, w, lo, hi, offs, pwords):
     """pair_closest_plain on CPU tensors; the CUDA kernel
-    pair_closest_kernel on CUDA tensors."""
+    pair_closest_kernel on CUDA tensors (C % 4 == 0 and an aligned w, as
+    traversal2.check_quads)."""
     if o4.device.type == "cpu":
         return pair_closest_plain(o4, d4, w, lo, hi, offs, pwords)
     _check_pairs(o4, d4, w, lo, hi, offs, pwords)
+    check_quads(w)
+    _check_block(o4.shape[1], SLICES_PAIR_CLOSEST, "closest-hit")
     bt, bid = _closest_out(o4)
     if o4.shape[0]:
         launch("pair_closest", "pr_closest", o4.device, offs, pwords, o4.shape[0], o4.shape[1],
@@ -238,9 +252,7 @@ def pair_anyhit(o4, d4, tmax, w, lo, hi, offs, pwords):
     if tmax.shape != o4.shape[:2]:
         raise ValueError(f"tmax must be (Nt, TR), got {tuple(tmax.shape)}")
     check_quads(w)
-    if o4.shape[1] * SLICES_PAIR > 1024:
-        raise ValueError(f"tile of {o4.shape[1]} rays: the pair any-hit kernel takes "
-                         f"{SLICES_PAIR} threads a ray and at most 1024 a block")
+    _check_block(o4.shape[1], SLICES_PAIR, "any-hit")
     occ = torch.empty(o4.shape[:2], dtype=torch.uint8, device=o4.device)
     if o4.shape[0]:
         launch("pair_anyhit", "pr_anyhit", o4.device, offs, pwords, o4.shape[0], o4.shape[1],
