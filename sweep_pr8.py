@@ -52,14 +52,18 @@ def nocap(bounds=""):
 
 
 def regs(n):
-    return ("constexpr int kRegsPairClosest = 96;", f"constexpr int kRegsPairClosest = {n};")
+    return ("constexpr int kRegsPairClosest = 80;", f"constexpr int kRegsPairClosest = {n};")
 
 
+SMEM = """  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * sizeof(float4) +
+                      (size_t)kWindow * tr * sizeof(float);"""
 SO_OFF = ("__syncthreads_and(one_origin)", "__syncthreads_and(0)")
 # The origin's sides once a warp (each warp its own copy, no barrier).
 SO_WARP = [
-    ("  float4* so = ring_mem + kNBufPairClosest * per4;",
-     "  float4* so = ring_mem + kNBufPairClosest * per4 + (threadIdx.x >> 5) * 3 * c4;"),
+    ("  float4* so = ring_mem + kNBufPairClosest * per4;\n",
+     "  float4* so = ring_mem + kNBufPairClosest * per4 + (threadIdx.x >> 5) * 3 * c4;\n"),
+    ("reinterpret_cast<float*>(so + 3 * c4)",
+     "reinterpret_cast<float*>(ring_mem + kNBufPairClosest * per4 + (blockDim.x >> 5) * 3 * c4)"),
     (ORIGIN, """        for (int q = lane; q < 3 * c4; q += 32) {
           const int fq = q < c4 ? 0 : q < 2 * c4 ? 1 : 2, l4 = q - fq * c4;
           const float4 x = stage[fq * c4 + l4], y = stage[(3 + fq) * c4 + l4],
@@ -70,15 +74,14 @@ SO_WARP = [
                               origin_dot(make_float4(x.w, y.w, z.w, ww.w), o0));
         }
         __syncwarp();"""),
-    ("  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * sizeof(float4);",
-     "  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + (size_t)kSlicesPairClosest * tr / 32 "
-     "* 3 * (c / kLanes)) * sizeof(float4);"),
+    (SMEM, """  const size_t smem = ((size_t)kNBufPairClosest * 3 * c +
+                       (size_t)kSlicesPairClosest * tr / 32 * 3 * (c / kLanes)) * sizeof(float4) +
+                      (size_t)kWindow * tr * sizeof(float);"""),
 ]
 # The first word's copy issued as the window is read, before the votes.
 FIRST = [
     ("""    const int word = lane < n ? pwords[k0 + lane] : 0;
-    float enter[kWindow / kSlicesPairClosest];""",
-     """    const int word = lane < n ? pwords[k0 + lane] : 0;
+""", """    const int word = lane < n ? pwords[k0 + lane] : 0;
     unsigned inflight = 0;
     int f = 0;
     if (k0 == k_begin) {
@@ -86,7 +89,7 @@ FIRST = [
       inflight = 1u;
       f = 1;
     }
-    float enter[kWindow / kSlicesPairClosest];"""),
+"""),
     ("""    unsigned inflight = 0;  // window words whose copies are issued and not yet consumed
     int pos = 0;            // the next word that may be tested
     int f = 0;              // the next word that may be copied
@@ -95,62 +98,62 @@ FIRST = [
 ]
 # Slab tests for all 32 words of a window, past the run's end too.
 NOSKIP = [("""#pragma unroll
-    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj] = kTFar;
+    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj * blockDim.x] = kTFar;
 #pragma unroll
     for (int jj = 0; jj < kWindow / kSlicesPairClosest && jj * kSlicesPairClosest < n; ++jj) {
       const int j = jj * kSlicesPairClosest + slice;
       const int cl = word_cluster(__shfl_sync(0xffffffffu, word, j), n_cl);
-      if (j < n) enter[jj] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);
+      if (j < n) enter[jj * blockDim.x] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);
     }""", """#pragma unroll
     for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) {
       const int j = jj * kSlicesPairClosest + slice;
       const int cl = word_cluster(__shfl_sync(0xffffffffu, word, j), n_cl);
-      enter[jj] = j < n ? slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl) : kTFar;
+      enter[jj * blockDim.x] = j < n ? slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl) : kTFar;
     }""")]
-# A window's slab entries in shared memory instead of registers.
-ENT_SMEM = [
-    ("""__device__ __forceinline__ unsigned closest_votes(
+# A window's slab entries in registers instead of shared memory.
+ENT_REGS = [
+    ("""__device__ __forceinline__ unsigned closest_votes(const float* enter, float bt, int slice) {
+  unsigned mask = 0;
+#pragma unroll
+  for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj)
+    mask |= (enter[jj * blockDim.x] < bt ? 1u : 0u) << (jj * kSlicesPairClosest + slice);""",
+     """__device__ __forceinline__ unsigned closest_votes(
     const float (&enter)[kWindow / kSlicesPairClosest], float bt, int slice) {
   unsigned mask = 0;
 #pragma unroll
   for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj)
-    mask |= (enter[jj] < bt ? 1u : 0u) << (jj * kSlicesPairClosest + slice);""",
-     """__device__ __forceinline__ unsigned closest_votes(const float* enter, float bt, int slice) {
-  unsigned mask = 0;
+    mask |= (enter[jj] < bt ? 1u : 0u) << (jj * kSlicesPairClosest + slice);"""),
+    ("  float* enter = reinterpret_cast<float*>(so + 3 * c4) + threadIdx.x;\n", ""),
+    ("""#pragma unroll
+    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj * blockDim.x] = kTFar;""",
+     """    float enter[kWindow / kSlicesPairClosest];
 #pragma unroll
-  for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj)
-    mask |= (enter[jj * blockDim.x] < bt ? 1u : 0u) << (jj * kSlicesPairClosest + slice);"""),
-    ("""    float enter[kWindow / kSlicesPairClosest];
-#pragma unroll
-    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj] = kTFar;""",
-     """    float* enter = reinterpret_cast<float*>(so + 3 * c4) + threadIdx.x;
-#pragma unroll
-    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj * blockDim.x] = kTFar;"""),
-    ("      if (j < n) enter[jj] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);",
-     "      if (j < n) enter[jj * blockDim.x] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);"),
-    ("  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * sizeof(float4);",
-     "  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * sizeof(float4) "
-     "+ (size_t)kWindow * tr * sizeof(float);"),
+    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj] = kTFar;"""),
+    ("      if (j < n) enter[jj * blockDim.x] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);",
+     "      if (j < n) enter[jj] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);"),
+    (SMEM, "  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * "
+           "sizeof(float4);"),
 ]
 S1, S4 = (SL, SL.replace("2", "1")), (SL, SL.replace("2", "4"))
 VARIANTS = {
     "kept": [],
     "so_off": [SO_OFF],
     "so_warp": SO_WARP,
-    "so_warp_so_off": SO_WARP + [SO_OFF],
     "s1": [S1],
     "s4": [S4],
     "s1_so_off": [S1, SO_OFF],
     "s4_so_off": [S4, SO_OFF],
     "ring4": [(NB, NB.replace("2", "4"))],
     "uncapped": [nocap()],
+    "regs72": [regs(72)],
     "regs88": [regs(88)],
-    "regs80": [regs(80)],
-    "launch_bounds_128_5": [nocap("__launch_bounds__(128, 5)")],
+    "regs96": [regs(96)],
+    "launch_bounds_128_6": [nocap("__launch_bounds__(128, 6)")],
     "first_copy": FIRST,
+    "first_copy_regs72": FIRST + [regs(72)],
     "noskip": NOSKIP,
-    "entries_smem": ENT_SMEM,
-    "entries_smem_regs80": ENT_SMEM + [regs(80)],
+    "entries_in_registers_regs96": ENT_REGS + [regs(96)],
+    "entries_in_registers": ENT_REGS,
 }
 AB = "--ab" in sys.argv
 if AB:

@@ -78,10 +78,9 @@ static_assert(kSlicesPairClosest <= 32 && 32 % kSlicesPairClosest == 0,
 // Ring stages of pair_closest_kernel (NBUF_PAIR_CLOSEST): 2 were 0.2-0.7 %
 // faster than 4 over the pass.
 constexpr int kNBufPairClosest = 2;
-// Registers a thread of pair_closest_kernel: five blocks of 128 an SM, where
-// the 108 it takes uncapped fit four (5 % faster over the pass; 88 were
-// slower again).
-constexpr int kRegsPairClosest = 96;
+// Registers a thread of pair_closest_kernel: six blocks of 128 an SM, where
+// the 108 it takes uncapped fit four (PERF.md).
+constexpr int kRegsPairClosest = 80;
 
 // min and max that hand on a NaN, as torch.minimum and torch.maximum do.
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -309,14 +308,13 @@ __device__ __forceinline__ float quad_tri_t_so(const Quad& a, int i, float4 d, f
 
 // A ray's slab votes over a window: bit j set iff it enters word j's box
 // before its best t bt, for the words j = jj * kSlicesPairClosest + slice
-// whose entries this thread holds (the other slices of the ray hold the
-// rest; the block's OR takes them all).
-__device__ __forceinline__ unsigned closest_votes(
-    const float (&enter)[kWindow / kSlicesPairClosest], float bt, int slice) {
+// whose entries this thread holds at enter[jj * blockDim.x] (the other slices
+// of the ray hold the rest; the block's OR takes them all).
+__device__ __forceinline__ unsigned closest_votes(const float* enter, float bt, int slice) {
   unsigned mask = 0;
 #pragma unroll
   for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj)
-    mask |= (enter[jj] < bt ? 1u : 0u) << (jj * kSlicesPairClosest + slice);
+    mask |= (enter[jj * blockDim.x] < bt ? 1u : 0u) << (jj * kSlicesPairClosest + slice);
   return mask;
 }
 
@@ -325,9 +323,9 @@ __device__ __forceinline__ unsigned closest_votes(
 // kSlicesPairClosest with the quads l4 % kSlicesPairClosest == u %
 // kSlicesPairClosest of a tested cluster. The run is read in windows of
 // kWindow words; a thread computes the slab entries of its share of a window
-// once, into registers, and a ray's votes are the bits of the entries below
-// its best t, recomputed after each tested cluster (bt only falls, so a vote
-// is only ever lost). The block's votes are the OR of all of them and its
+// once, into shared memory of its own, and a ray's votes are the bits of the
+// entries below its best t, recomputed after each tested cluster (bt only
+// falls, so a vote is only ever lost). The block's votes are the OR of all of them and its
 // bound the max bt bits, both from one barrier; the next tested word is the
 // first voted word under the bound past the last one tested, and the words
 // between are skipped with the state the reference skips them with. Every ray
@@ -348,7 +346,7 @@ __global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
     const float4* __restrict__ d4, const float* __restrict__ box_lo,
     const float* __restrict__ box_hi, const float4* __restrict__ w, int n_cl, int c,
     float* __restrict__ bt_out, int* __restrict__ bid_out) {
-  extern __shared__ __align__(128) float4 ring_mem[];  // the ring's stages, then so
+  extern __shared__ __align__(128) float4 ring_mem[];  // the ring's stages, so, the entries
   __shared__ __align__(8) uint64_t s_bar[kNBufPairClosest];
   __shared__ unsigned s_or[2][32];
   __shared__ int s_max[2][32];
@@ -371,6 +369,7 @@ __global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
   Ring<kNBufPairClosest> ring{ring_mem, s_bar, per4, 0};
   ring.init();  // published by the barrier below, before any wait
   float4* so = ring_mem + kNBufPairClosest * per4;
+  float* enter = reinterpret_cast<float*>(so + 3 * c4) + threadIdx.x;
   const float4 o = o4[ray], d = d4[ray], o0 = o4[ray0];
   const SlabRay sr = slab_ray(o, d);
   const bool one_origin = !sr.live || (__float_as_int(o.x) == __float_as_int(o0.x) &&
@@ -386,14 +385,13 @@ __global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
     const int n = min(kWindow, k_end - k0);
     const unsigned in_window = n == 32 ? 0xffffffffu : (1u << n) - 1;
     const int word = lane < n ? pwords[k0 + lane] : 0;
-    float enter[kWindow / kSlicesPairClosest];
 #pragma unroll
-    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj] = kTFar;
+    for (int jj = 0; jj < kWindow / kSlicesPairClosest; ++jj) enter[jj * blockDim.x] = kTFar;
 #pragma unroll
     for (int jj = 0; jj < kWindow / kSlicesPairClosest && jj * kSlicesPairClosest < n; ++jj) {
       const int j = jj * kSlicesPairClosest + slice;
       const int cl = word_cluster(__shfl_sync(0xffffffffu, word, j), n_cl);
-      if (j < n) enter[jj] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);
+      if (j < n) enter[jj * blockDim.x] = slab_enter(sr, box_lo + 3 * cl, box_hi + 3 * cl);
     }
     block_or_max(closest_votes(enter, bt, slice), __float_as_int(bt), votes, bound, s_or, s_max,
                  turn);
@@ -498,7 +496,8 @@ int pr_closest(const void* offs, const void* pwords, int n_tiles, int tr, const 
                const void* d4, const void* lo, const void* hi, const void* w, int n_cl, int c,
                void* bt, void* bid, void* stream) {
   if (kSlicesPairClosest * tr > 1024 || c % kLanes) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * sizeof(float4);
+  const size_t smem = ((size_t)kNBufPairClosest * 3 * c + 3 * (c / kLanes)) * sizeof(float4) +
+                      (size_t)kWindow * tr * sizeof(float);
   cudaError_t e = launch_prep(pair_closest_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   pair_closest_kernel<<<n_tiles, kSlicesPairClosest * tr, smem, (cudaStream_t)stream>>>(
