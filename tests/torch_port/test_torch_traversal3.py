@@ -557,7 +557,8 @@ def test_pair_constants_pinned_to_the_kernel():
     assert "pair_anyhit_kernel<<<n_tiles, kSlicesPair * tr, smem," in src
     assert "pair_closest_kernel<<<n_tiles, kSlicesPairClosest * tr, smem," in src
     assert "__maxnreg__(kRegsPairClosest) pair_closest_kernel(" in src
-    assert "Ring<kNBufPair> ring{" in src and "Ring<kNBufPairClosest> ring{" in src
+    assert "WindowCopies<kNBufPair> copies{" in src
+    assert "WindowCopies<kNBufPairClosest> copies{" in src
     assert '#include "sorted.cuh"' in src
     for slices in (tt3.SLICES_PAIR, tt3.SLICES_PAIR_CLOSEST):
         assert slices * 64 == 128 and 32 % slices == 0

@@ -46,11 +46,11 @@
 // 32-bit mask, so a skipped word costs no barrier and a tested cluster one;
 // the next voted clusters are copied ahead by TMA's bulk copies (sorted.cuh's
 // ring and quad reads). pair_closest_kernel recomputes a ray's mask from the
-// entries it holds in registers whenever its best t falls, folds its slices'
-// (t, lane) bests by shuffles, and on a tile whose rays share one origin (the
-// primary rays) computes the origin's side of a tested cluster's products
-// once a warp, not once a ray. A tile's state lives in registers for the
-// whole run.
+// window's entries, which it keeps in shared memory, whenever its best t
+// falls, folds its slices' (t, lane) bests by shuffles, and on a tile whose
+// rays share one origin (the primary rays) computes the origin's side of a
+// tested cluster's products once a block, not once a ray. A tile's other
+// state lives in registers for the whole run.
 #include "common.cuh"
 #include "sorted.cuh"
 
@@ -70,16 +70,18 @@ constexpr int kWindow = 32;
 constexpr int kNBufPair = 4;
 // Threads a ray of pair_closest_kernel (SLICES_PAIR_CLOSEST of
 // kernels/traversal3.py): a block of 128 for a tile of 64 rays. Over the
-// whole primary pass of bench100k, 2 took 4 % less time than 1 and 31 % less
-// than 4 (4 is 21 % faster at the heavy comparison tiles; PERF.md).
+// whole primary pass of bench100k, 2 took 9 % less time than 1 and 20 % less
+// than 4 (4 is 19 % faster at the heavy comparison tiles; PERF.md).
 constexpr int kSlicesPairClosest = 2;
 static_assert(kSlicesPairClosest <= 32 && 32 % kSlicesPairClosest == 0,
               "a ray's slices share a warp");
-// Ring stages of pair_closest_kernel (NBUF_PAIR_CLOSEST): 2 were 0.2-0.7 %
-// faster than 4 over the pass.
+// Ring stages of pair_closest_kernel (NBUF_PAIR_CLOSEST): 2 were up to 0.7 %
+// faster than 4 over the pass, in half the shared memory.
 constexpr int kNBufPairClosest = 2;
 // Registers a thread of pair_closest_kernel: six blocks of 128 an SM, where
-// the 108 it takes uncapped fit four (PERF.md).
+// the 96 it takes uncapped fit five (1 % faster over the pass; 72 and 88 were
+// slower). A window's slab entries wait in shared memory: in registers under
+// the same cap they were 3 % slower.
 constexpr int kRegsPairClosest = 80;
 
 // min and max that hand on a NaN, as torch.minimum and torch.maximum do.
@@ -153,6 +155,55 @@ __device__ __forceinline__ void block_or_max(unsigned votes, int bits, unsigned&
   turn ^= 1;
 }
 
+// The copies of a window's voted clusters, as both pair kernels walk a
+// window: the walk tests the voted words under the bound in order, and the
+// votes only lose bits, so the clusters of the next voted words are copied
+// ahead into the ring; a copy whose word is passed unvoted is waited for,
+// unread. Every thread of the block holds the same state.
+template <int kN>
+struct WindowCopies {
+  Ring<kN> ring;
+  int consumed;       // copies waited for and done with
+  unsigned inflight;  // window words whose copies are issued and not yet consumed
+  int f;              // the next window word that may be copied
+
+  // Word j's cluster in the ring, j the first word of `cand` (the voted
+  // words under the bound past the last one tested). The stages are free
+  // here (none is in flight at a window's start, and the last test consumed
+  // one), so the next voted words' copies go out first, j's among them.
+  __device__ __forceinline__ const float4* ready(unsigned cand, int j,
+                                                 const int* __restrict__ window,
+                                                 const float4* __restrict__ w, int n_cl) {
+    unsigned next = cand & (f < 32 ? ~0u << f : 0u);
+    while (next && __popc(inflight) < kN) {
+      const int b = __ffs(next) - 1;
+      ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(window[b], n_cl) * ring.per4 : w);
+      inflight |= 1u << b;
+      next &= next - 1;
+      f = b + 1;
+    }
+    while (inflight && __ffs(inflight) - 1 < j) {  // copies of words skipped since
+      ring.wait(consumed++);
+      inflight &= inflight - 1;
+    }
+    ring.wait(consumed);
+    return ring.stage(consumed);
+  }
+
+  // After the test of the word ready() returned, the lowest in flight; the
+  // barrier that follows frees its stage.
+  __device__ __forceinline__ void done() {
+    ++consumed;
+    inflight &= inflight - 1;
+  }
+
+  // At a window's end: the copies of words not tested, then a fresh window.
+  __device__ __forceinline__ void next_window() {
+    for (; inflight; inflight &= inflight - 1) ring.wait(consumed++);
+    f = 0;
+  }
+};
+
 // Occlusion over a tile's run, one block a tile, the reference's walk step
 // for step. Thread u serves ray u / kSlicesPair with the quads l4 %
 // kSlicesPair == u % kSlicesPair of a tested cluster, so the slices of a ray
@@ -193,14 +244,14 @@ __global__ void pair_anyhit_kernel(const int* __restrict__ offs, const int* __re
     if (slice == 0) occ_out[ray] = 0;
     return;
   }
-  Ring<kNBufPair> ring{ring_mem, s_bar, per4, 0};
-  ring.init();  // published by the first barrier below, before any wait
+  WindowCopies<kNBufPair> copies{{ring_mem, s_bar, per4, 0}, 0, 0u, 0};
+  copies.ring.init();  // published by the first barrier below, before any wait
   const float4 o = o4[ray], d = d4[ray];
   const SlabRay sr = slab_ray(o, d);
   const float tm = tmax[ray];
   const bool dead = !(tm > kTMin);  // no t lies in (kTMin, tm): nothing to test
   bool occ = false;
-  int turn = 0, consumed = 0, bound;
+  int turn = 0, bound;
   unsigned votes;
   bool walking = true;
   for (int k0 = k_begin; walking && k0 < k_end; k0 += kWindow) {  // block-uniform
@@ -221,34 +272,15 @@ __global__ void pair_anyhit_kernel(const int* __restrict__ offs, const int* __re
     for (int off = kSlicesPair / 2; off > 0; off >>= 1)
       mask |= __shfl_xor_sync(0xffffffffu, mask, off);
     block_or_max(occ ? 0u : mask, open_bits(occ, tm), votes, bound, s_or, s_max, turn);
-    unsigned inflight = 0;  // window words whose copies are issued and not yet consumed
-    int pos = 0;            // the next word that may be tested
-    int f = 0;              // the next word that may be copied
+    int pos = 0;  // the next word that may be tested
     for (;;) {
       const unsigned under = __ballot_sync(0xffffffffu, lane < n && (word & ~kClMask) < bound);
       if (under != in_window) walking = false;  // the walk stops in this window
       const unsigned cand = votes & under & (pos < 32 ? ~0u << pos : 0u);
       if (!cand) break;
       const int j = __ffs(cand) - 1;
-      // Copy the next voted words into the free stages (freed by the last
-      // barrier). A stage is free here (none is in flight at a window's start,
-      // and the last test consumed one), so j's copy is in flight after this:
-      // it is the first voted word past those copied, or was copied before.
-      unsigned next = cand & (f < 32 ? ~0u << f : 0u);
-      while (next && __popc(inflight) < kNBufPair) {
-        const int b = __ffs(next) - 1;
-        ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(pwords[k0 + b], n_cl) * per4 : w);
-        inflight |= 1u << b;
-        next &= next - 1;
-        f = b + 1;
-      }
-      while (inflight && __ffs(inflight) - 1 < j) {  // copies of words skipped since
-        ring.wait(consumed++);
-        inflight &= inflight - 1;
-      }
-      ring.wait(consumed);
+      const float4* stage = copies.ready(cand, j, pwords + k0, w, n_cl);
       if (!occ && !dead) {
-        const float4* stage = ring.stage(consumed);
         for (int l4 = slice; l4 < c4 && !occ; l4 += kSlicesPair) {
           Quad a;
           load_quad(a, stage, c4, l4);
@@ -259,16 +291,12 @@ __global__ void pair_anyhit_kernel(const int* __restrict__ offs, const int* __re
 #pragma unroll
       for (int off = kSlicesPair / 2; off > 0; off >>= 1)
         occ |= __shfl_xor_sync(0xffffffffu, occ ? 1 : 0, off) != 0;
-      ++consumed;
-      inflight &= inflight - 1;  // j was the lowest
+      copies.done();
       pos = j + 1;
       // Its barrier also frees the stage just read.
       block_or_max(occ ? 0u : mask, open_bits(occ, tm), votes, bound, s_or, s_max, turn);
     }
-    while (inflight) {  // copies of words not tested
-      ring.wait(consumed++);
-      inflight &= inflight - 1;
-    }
+    copies.next_window();
   }
   if (slice == 0) occ_out[ray] = occ ? 1 : 0;
 }
@@ -366,8 +394,8 @@ __global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
     }
     return;
   }
-  Ring<kNBufPairClosest> ring{ring_mem, s_bar, per4, 0};
-  ring.init();  // published by the barrier below, before any wait
+  WindowCopies<kNBufPairClosest> copies{{ring_mem, s_bar, per4, 0}, 0, 0u, 0};
+  copies.ring.init();  // published by the barrier below, before any wait
   float4* so = ring_mem + kNBufPairClosest * per4;
   float* enter = reinterpret_cast<float*>(so + 3 * c4) + threadIdx.x;
   const float4 o = o4[ray], d = d4[ray], o0 = o4[ray0];
@@ -378,7 +406,7 @@ __global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
   const bool shared = __syncthreads_and(one_origin) != 0;
   float bt = kTFar;
   int bid = -1;
-  int turn = 0, consumed = 0, bound;
+  int turn = 0, bound;
   unsigned votes;
   bool walking = true;
   for (int k0 = k_begin; walking && k0 < k_end; k0 += kWindow) {  // block-uniform
@@ -395,31 +423,14 @@ __global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
     }
     block_or_max(closest_votes(enter, bt, slice), __float_as_int(bt), votes, bound, s_or, s_max,
                  turn);
-    unsigned inflight = 0;  // window words whose copies are issued and not yet consumed
-    int pos = 0;            // the next word that may be tested
-    int f = 0;              // the next word that may be copied
+    int pos = 0;  // the next word that may be tested
     for (;;) {
       const unsigned under = __ballot_sync(0xffffffffu, lane < n && (word & ~kClMask) < bound);
       if (under != in_window) walking = false;  // the walk stops in this window
       const unsigned cand = votes & under & (pos < 32 ? ~0u << pos : 0u);
       if (!cand) break;
       const int j = __ffs(cand) - 1;
-      // Copy the next voted words into the free stages, as pair_anyhit_kernel
-      // does: j's copy is in flight after this.
-      unsigned next = cand & (f < 32 ? ~0u << f : 0u);
-      while (next && __popc(inflight) < kNBufPairClosest) {
-        const int b = __ffs(next) - 1;
-        ring.issue(threadIdx.x == 0 ? w + (size_t)word_cluster(pwords[k0 + b], n_cl) * per4 : w);
-        inflight |= 1u << b;
-        next &= next - 1;
-        f = b + 1;
-      }
-      while (inflight && __ffs(inflight) - 1 < j) {  // copies of words skipped since
-        ring.wait(consumed++);
-        inflight &= inflight - 1;
-      }
-      ring.wait(consumed);
-      const float4* stage = ring.stage(consumed);
+      const float4* stage = copies.ready(cand, j, pwords + k0, w, n_cl);
       const int cl = word_cluster(__shfl_sync(0xffffffffu, word, j), n_cl);
       float tb = kTFar;
       int lb = 0;
@@ -465,17 +476,13 @@ __global__ void __maxnreg__(kRegsPairClosest) pair_closest_kernel(
         bt = tb;
         bid = cl * c + lb;
       }
-      ++consumed;
-      inflight &= inflight - 1;  // j was the lowest
+      copies.done();
       pos = j + 1;
       // Its barrier also frees the stage just read.
       block_or_max(closest_votes(enter, bt, slice), __float_as_int(bt), votes, bound, s_or,
                    s_max, turn);
     }
-    while (inflight) {  // copies of words not tested
-      ring.wait(consumed++);
-      inflight &= inflight - 1;
-    }
+    copies.next_window();
   }
   if (slice == 0) {
     bt_out[ray] = bt;
