@@ -84,6 +84,24 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      aux {"overflow": 0}, no kernel launched, and a 64x64 frame of each on
      the card against the CPU under the golden gate; where pixels differ,
      their primary hits and first-light occlusion on both devices.
+  The grad step (tracer_torch.api.make_grad_step_fn: the tiled tier's three
+  traversal2.cu kernels on detached inputs under autograd, or the plain
+  cluster tier with each candidate slot checkpointed), phase 17:
+  17. (a, b) bunny-grad at 64x64 with use_pallas, target a CPU frame + 0.05:
+     one SGD(1.0) step on the card and on the CPU for verts, albedo and
+     cam_pos through the tiled tier ("auto") and the jnp tier ("off"): loss
+     to rtol 1e-5, each gradient nonzero and to rtol 2e-3 + atol 2e-6 of
+     its largest entry; (c) one tiled bunny512 step launches
+     closest_hit_kernel, closest_fast_kernel (where the frame has count-1
+     tiles) and anyhit_kernel, and nothing else (counts printed); (d)
+     bench_torch.py's three grad steps, each with its peak device memory,
+     overflow and launches (the jnp tier none), the jnp tier's peak without
+     the checkpoint at 128x128 and at full size (out of memory is logged,
+     not fatal), and the tiled bunny512 step split into accel build, render
+     and loss, backward and optimizer (host clock, a sync after each part,
+     median of 5), then one profiled step (device time by operation, idle
+     share); (e) bench_torch.py's JSON line (the frame of phase 6 and
+     the steps of (d)).
 Each phase prints its wall time. The last lines are a JSON line of
 per-kernel results, the nvidia-smi line, and {"ok": true, "device": {...}}.
 
@@ -109,6 +127,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import bench_torch  # noqa: E402
 from tracer_torch import api  # noqa: E402
 from tracer_torch.bvh.cluster import build_scene_accel  # noqa: E402
 from tracer_torch.bvh.cull import (  # noqa: E402
@@ -120,6 +139,7 @@ from tracer_torch.kernels import (  # noqa: E402
 from tracer_torch.kernels.traversal import (  # noqa: E402
     _homog, generate_rays_tiled, tile_rays, tiled_tmax)
 from tracer_torch.render import tiled, whitted  # noqa: E402
+from tracer_torch.scene.types import make_vertex_normal_fn  # noqa: E402
 from tracer_torch.utils.config import load_config  # noqa: E402
 
 # Kernel -> (source, the TPU kernel it replaces).
@@ -1333,6 +1353,7 @@ def phase_timing(smi: str, preset: str, iters: int, warmup: int, **overrides):
         f"{res['ms_per_frame']:.3f} ms/frame, {res['rays_per_s']:.4g} rays/s, "
         f"{res['primary_rays_per_s']:.4g} primary rays/s, "
         f"{'not counted' if live is None else f'{live:.4g}'} live rays/s")
+    return res
 
 
 def phase_layers(cfg, reps: int = 5):
@@ -1449,6 +1470,206 @@ def phase_profile(cfg, scene=None, camera=None, accel=None):
     log(f"[profile] one {cfg.scene} frame: wall {wall:.3f} ms, device busy {busy:.3f} ms, {idle}")
 
 
+GRAD_FAMILIES = ("verts", "albedo", "cam_pos")
+TIERED = ("closest", "closest_fast", "anyhit")
+
+
+def zero_launches():
+    for key in t2.LAUNCHES:
+        t2.LAUNCHES[key] = 0
+
+
+def sgd_grads(cfg, mode: str, dev: str, target):
+    """One SGD(1.0) step of make_grad_step_fn(tiled=mode) on `dev` -> (loss,
+    {family: gradient}), the gradient read as params_before - params_after."""
+    scene, camera = api.get_scene(cfg, dev)
+    p = api.grad_params(scene, camera, GRAD_FAMILIES)
+    before = {k: v.detach().clone() for k, v in p.items()}
+    step = api.make_grad_step_fn(cfg, scene, camera, mode, device=dev)
+    loss, p, _, aux = step(scene, camera, torch.as_tensor(target, device=dev), p,
+                           torch.optim.SGD(p.values(), lr=1.0))
+    check(aux == {"overflow": 0}, f"{dev} {mode} grad step: aux {aux}")
+    return float(loss), {k: (before[k] - p[k].detach()).cpu().numpy() for k in p}
+
+
+def phase_grad_devices(cfg, devs=("cuda", "cpu")):
+    """(a, b): the grad step on the card against the CPU, through the tiled
+    tier ("auto" with use_pallas) and the jnp tier ("off"), with a real
+    target (a CPU frame + 0.05). Gate: loss to rtol 1e-5; each gradient
+    nonzero on both and within rtol 2e-3 + atol 2e-6 of its largest."""
+    scene, camera = api.get_scene(cfg, "cpu")
+    target = api.make_render_fn(scene, cfg, "cpu")(scene, camera).numpy() + np.float32(0.05)
+    for mode in ("auto", "off"):
+        tier = "tiled" if api.use_tiled_grad(scene, cfg, mode) else "jnp"
+        (la, ga), (lb, gb) = (sgd_grads(cfg, mode, dev, target) for dev in devs)
+        rel = abs(la - lb) / abs(lb)
+        parts = []
+        for k in GRAD_FAMILIES:
+            a, b = ga[k], gb[k]
+            tol = 2e-3 * np.abs(b) + 2e-6 * np.abs(b).max() + 1e-10
+            worst = float((np.abs(a - b) / tol).max())
+            parts.append(f"{k} max|g| {np.abs(b).max():.4g}, max|diff| "
+                         f"{np.abs(a - b).max():.3g} ({worst:.3f} of the tolerance)")
+            check(np.abs(a).max() > 0 and np.abs(b).max() > 0, f"{tier} tier: {k} gradient 0")
+            check(worst <= 1.0, f"{tier} tier: {k} gradients differ, {devs[0]} vs {devs[1]}")
+        log(f"[grad] {cfg.scene} {cfg.width}x{cfg.height}, {tier} tier, {devs[0]} vs {devs[1]}: "
+            f"loss {la:.9g} vs {lb:.9g} (rel {rel:.3g}); " + "; ".join(parts))
+        check(rel <= 1e-5, f"{tier} tier: loss {la} vs {lb}")
+
+
+def phase_grad_launches(dev="cuda"):
+    """(c): one tiled bunny512 grad step launches the tiled tier's kernels
+    (closest_fast only where the frame has count-1 tiles) and no other."""
+    cfg = load_config("bunny512")
+    scene, camera = api.get_scene(cfg, dev)
+    _, aux = api.make_render_fn(scene, cfg, dev)(scene, camera, with_aux=True)
+    want = ["closest", "anyhit"] + (["closest_fast"] if aux["need_zero"] > aux["need_split"]
+                                    else [])
+    p = api.grad_params(scene, camera, GRAD_FAMILIES)
+    step = api.make_grad_step_fn(cfg, scene, camera, device=dev)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    opt = torch.optim.Adam(p.values(), lr=1e-3)
+    step(scene, camera, target, p, opt)                   # warm
+    torch.cuda.synchronize()
+    zero_launches()
+    step(scene, camera, target, p, opt)
+    torch.cuda.synchronize()
+    launches = dict(t2.LAUNCHES)
+    log(f"[grad] one tiled bunny512 step ({aux['need_split']} generic and "
+        f"{aux['need_zero'] - aux['need_split']} count-1 primary tiles): launches {launches}")
+    missing = [k for k in want if launches[k] == 0]
+    stray = [k for k, v in launches.items() if v and k not in want]
+    check(not missing and not stray,
+          f"the tiled grad step never launched {missing}, and launched {stray}")
+
+
+def grad_run(what: str, dev="cuda", **kw) -> dict:
+    """benchmark_grad_step(**kw) on `dev` with its peak device memory and
+    launches; None for a run that ran out of device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    try:
+        res = api.benchmark_grad_step(**kw, device=dev)
+    except torch.cuda.OutOfMemoryError as e:
+        res, why = None, str(e).splitlines()[0][:160]
+    if res is None:                  # the failed step's tensors are released by now
+        torch.cuda.empty_cache()
+        log(f"[grad] {what}: out of device memory ({why})")
+        return None
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["launches"] = dict(t2.LAUNCHES)
+    cfg = res["config"]
+    log(f"[grad] {what}: {cfg.scene} {cfg.width}x{cfg.height}, {kw.get('iters', 5)} steps after "
+        f"{kw.get('warmup', 1)}, params {kw.get('params', ('verts',))}, tiled "
+        f"{kw.get('tiled', 'auto')}: {res['grad_step_ms']:.3f} ms/step, loss {res['loss']:.6g}, "
+        f"overflow {res['overflow']}, peak device memory {res['peak_gib']:.3f} GiB, "
+        f"launches {sum(res['launches'].values())}")
+    check(res["overflow"] == 0, f"{what}: overflow {res['overflow']}")
+    return res
+
+
+def without_checkpoint(fn, *args, **kwargs):
+    """fn with the plain tier's per-slot checkpoint replaced by a direct call."""
+    real = t1.checkpoint
+    t1.checkpoint = lambda step, *a, **kw: step(*a)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        t1.checkpoint = real
+
+
+def phase_grad_split(reps: int = 5, dev="cuda"):
+    """The tiled bunny512 step (verts, albedo, cam_pos; Adam) in parts, a
+    sync after each, host clock, median of `reps` after one warm-up: the
+    params put in (normals by the gather) and the accel built; the frame and
+    the loss; backward; the optimizer."""
+    cfg = load_config("bunny512")
+    scene, camera = api.get_scene(cfg, dev)
+    p = api.grad_params(scene, camera, GRAD_FAMILIES)
+    opt = torch.optim.Adam(p.values(), lr=1e-3)
+    normal_fn = make_vertex_normal_fn(scene.tris.cpu().numpy(), scene.verts.shape[0], device=dev)
+    wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+    s = {}
+
+    def accel_build():
+        s["scene"], s["camera"] = api._apply_grad_params(scene, camera, p, normal_fn)
+        s["accel"] = build_scene_accel(s["scene"])
+
+    def render_loss():
+        img = tiled.render_tiled(s["scene"], s["accel"], s["camera"], cfg.height, cfg.width, wcfg)
+        s["loss"] = torch.mean((img - target) ** 2)
+
+    def backward():
+        s["loss"].backward()
+
+    def optimizer():
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    parts = (accel_build, render_loss, backward, optimizer)
+    times = {fn.__name__: [] for fn in parts}
+    for rep in range(reps + 1):
+        for fn in parts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if rep:
+                times[fn.__name__].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    total = sum(med.values())
+    log(f"[grad] tiled bunny512 step in parts, median of {reps} (ms): "
+        + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in med.items())
+        + f"; sum {total:.3f}")
+    if dev != "cuda":
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for fn in parts:
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = busy_ms(prof.events())
+    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
+    idle = f"idle {1.0 - busy / wall:.1%}" if busy > 0.0 else "idle share not measured"
+    log(f"[grad] one profiled tiled bunny512 step: wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms, {idle}")
+
+
+def phase_grad(smi: str, frame: dict, dev="cuda", mem_hw: int = 128):
+    """Phase 17: the grad step on the card (see the module docstring); the
+    jnp tier's memory with and without the checkpoint also at mem_hw^2."""
+    phase_grad_devices(load_config("bunny-grad", height=64, width=64, use_pallas=True),
+                       (dev, "cpu"))
+    phase_grad_launches(dev)
+    grads = {}
+    for key, kw in bench_torch.GRAD_RUNS.items():
+        res = grad_run(key, dev, **kw)
+        check(res is not None, f"{key}: out of device memory")
+        cfg = res["config"]
+        tiled_tier = kw.get("tiled", "auto") != "off" and cfg.use_bvh and cfg.use_pallas
+        stray = [k for k, v in res["launches"].items()
+                 if v and not (tiled_tier and k in TIERED)]
+        check(not stray and (not tiled_tier or res["launches"]["closest"] > 0),
+              f"{key}: launches {res['launches']}")
+        grads[key] = res
+    jnp_kw = bench_torch.GRAD_RUNS["grad_step_bunny512_jnp_ms"]
+    small = dict(jnp_kw, height=mem_hw, width=mem_hw)
+    grad_run(f"bunny512 jnp tier at {mem_hw}x{mem_hw}, checkpointed", dev, **small)
+    without_checkpoint(grad_run, f"bunny512 jnp tier at {mem_hw}x{mem_hw}, no checkpoint", dev,
+                       **small)
+    without_checkpoint(grad_run, "bunny512 jnp tier, no checkpoint", dev, **jnp_kw)
+    phase_grad_split(dev=dev)
+    rc, line = bench_torch.bench_line("bench100k", frame, grads)
+    log(f"[grad] bench_torch.py line, on {smi}:")
+    print(json.dumps(line), flush=True)
+    check(rc == 0, f"bench_torch.py's line says exit code {rc}")
+
+
 def timed(name: str, fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1466,7 +1687,7 @@ def main() -> int:
     timed("kernels", phase_kernels, results, bench, torch.device("cuda"))
     launches.update(timed("frame", phase_frame, bench, "cuda", "tiled"))
     timed("cross-device", phase_cross_device, load_config("bench100k", height=216, width=384))
-    timed("timing", phase_timing, smi, "bench100k", iters=10, warmup=2)
+    frame = timed("timing", phase_timing, smi, "bench100k", iters=10, warmup=2)
     timed("layers", phase_layers, bench)
     timed("profile", phase_profile, bench)
 
@@ -1488,6 +1709,7 @@ def main() -> int:
     del scene, camera, accel
     for preset in ("cornell256", "bunny-grad"):
         timed(f"routing {preset}", phase_routing, preset)
+    timed("grad", phase_grad, smi, frame)
     log(f"[phase] all: {time.perf_counter() - t0:.1f} s")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -1,5 +1,6 @@
 """User-facing API: get_scene / build_tracers / make_render_fn / render /
-benchmark (torch counterpart of tracer/api.py, forward frames).
+benchmark, and the grad step: make_grad_step_fn / grad_step /
+benchmark_grad_step (torch counterpart of tracer/api.py).
 
 make_render_fn picks a tier from the config, as the reference does:
   * use_bvh + use_pallas, at most TILED_MAX_CLUSTERS clusters: the tiled
@@ -14,9 +15,13 @@ The reference recompiles its frames until static candidate caps are wide
 enough (a sizing loop with a persisted caps cache), because XLA needs
 static shapes. Here each pass reads its needs and runs at exactly that size,
 so every frame is exact by construction and there is nothing to size.
+
+make_render_fn's frames are inference-only. The differentiable entry points
+are make_grad_step_fn and render_tiled / render_wavefront called directly.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -31,7 +36,8 @@ from tracer_torch.render.tiled import render_tiled
 from tracer_torch.render.whitted import (
     WhittedConfig, make_brute_tracers, render_wavefront, render_wavefront_aux)
 from tracer_torch.scene import procedural
-from tracer_torch.scene.types import Scene
+from tracer_torch.scene.types import (
+    Scene, compute_vertex_normals_torch, make_vertex_normal_fn)
 from tracer_torch.utils.config import RenderConfig, load_config
 
 # Clusters (of CLUSTER_SIZE triangles) up to which a use_bvh + use_pallas
@@ -97,7 +103,10 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, device):
     build_tracers(scene, cfg): brute force without use_bvh, the plain
     cluster tier with use_bvh alone (aux {"overflow": 0}: these tracers
     have no caps). The cluster accel is built when a new scene object
-    arrives and reused across frames. Every frame is exact by construction
+    arrives and reused across frames. The frame is rendered under
+    torch.inference_mode(), so its image cannot enter autograd: the
+    differentiable entry points are make_grad_step_fn, and render_tiled and
+    render_wavefront called directly. Every frame is exact by construction
     (overflow 0), so ensure_exact, the reference's re-sizing request,
     changes nothing. Raises on a config the port cannot honour: a dtype
     other than float32, or profile=True."""
@@ -191,3 +200,174 @@ def benchmark(config: str | RenderConfig | None = None, iters: int = 10,
         "overflow": aux["overflow"],
         "image": img.cpu().numpy(),
     }
+
+
+# ---------------------------------------------------------------------------
+# The grad step
+# ---------------------------------------------------------------------------
+
+GRAD_PARAMS = ("verts", "albedo", "cam_pos")
+
+
+def _apply_grad_params(scene: Scene, camera: Camera, p: dict, normal_fn=None):
+    """(scene, camera) with the optimized families of `p` put in: "verts"
+    (and the vertex normals recomputed from them, so that smooth shading
+    follows the vertices: by `normal_fn`, make_vertex_normal_fn's gather,
+    where given, by compute_vertex_normals_torch's scatter otherwise),
+    "albedo", "cam_pos"."""
+    s = scene
+    if "verts" in p:
+        normals = (normal_fn(p["verts"]) if normal_fn is not None
+                   else compute_vertex_normals_torch(p["verts"], s.tris))
+        s = dataclasses.replace(s, verts=p["verts"], normals=normals)
+    if "albedo" in p:
+        s = dataclasses.replace(s, materials=dataclasses.replace(s.materials,
+                                                                 albedo=p["albedo"]))
+    cam = camera
+    if "cam_pos" in p:
+        cam = dataclasses.replace(cam, position=p["cam_pos"])
+    return s, cam
+
+
+def use_tiled_grad(scene: Scene | None, cfg: RenderConfig, tiled: str) -> bool:
+    """Whether make_grad_step_fn(cfg, scene, tiled=tiled) differentiates
+    through the tiled tier: always for "interpret", never for "off", and for
+    "auto" where make_render_fn would render the scene through it."""
+    if tiled not in ("auto", "interpret", "off"):
+        raise ValueError(f"tiled must be 'auto', 'interpret' or 'off', got {tiled!r}")
+    if tiled == "auto":
+        return (scene is not None and cfg.use_bvh and cfg.use_pallas
+                and not use_streamed_tier(scene, cfg))
+    return tiled == "interpret"
+
+
+def make_grad_step_fn(cfg: RenderConfig, scene: Scene | None = None,
+                      camera: Camera | None = None, tiled: str = "auto", *, device):
+    """(scene, camera, target, params, optimizer) -> (loss, params, optimizer,
+    {"overflow": 0}): one optimization step of the image MSE
+    mean((img - target)**2) with respect to `params`, a dict of leaf tensors
+    that require grad, with optional keys "verts", "albedo" and "cam_pos".
+    `optimizer` is a torch.optim.Optimizer over params.values(): the step
+    zeroes its gradients, runs the loss, calls backward and steps it, which
+    updates the params in place; it returns them and the optimizer so that
+    callers map one for one onto the reference's four slots. The loss comes
+    back detached.
+
+    tiled:
+      * "auto": the tiled tier (render/tiled.py: the traversal2 kernels for
+        selection on detached inputs, gradients through the shade-row
+        recompute) where make_render_fn would route `scene` to it (use_bvh
+        and use_pallas, at most TILED_MAX_CLUSTERS clusters; `scene` must be
+        given); the jnp tier otherwise;
+      * "interpret": the tiled tier always. On CPU tensors its kernels run
+        their plain versions, the port's counterpart of the reference's
+        interpret mode; on CUDA tensors they launch;
+      * "off": the jnp tier: render_wavefront over build_tracers of the
+        config with use_pallas off (the plain cluster tier with use_bvh,
+        brute force without), no kernel.
+    The reference routes "auto" to the tiled tier only on a TPU backend;
+    here the config decides, as for make_render_fn. The tiled tier builds
+    the accel inside the loss each step (its shade rows are functions of the
+    params) and takes no caps: sizes are read at run time, so overflow is 0
+    by construction, and `camera`, which the reference's cap sizing
+    renders from, is taken for its signature only. Vertex normals follow
+    the vertices through make_vertex_normal_fn's gather in the tiled tier
+    when `scene` is given, through compute_vertex_normals_torch's scatter
+    otherwise."""
+    if cfg.dtype != "float32" or cfg.profile:
+        raise ValueError(f"the port renders in float32 with no profile option, got "
+                         f"dtype={cfg.dtype!r}, profile={cfg.profile}")
+    device = torch.device(device)
+    wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+
+    if use_tiled_grad(scene, cfg, tiled):
+        normal_fn = None
+        if scene is not None:
+            normal_fn = make_vertex_normal_fn(scene.tris.cpu().numpy(), scene.verts.shape[0],
+                                              device=device)
+
+        def loss_fn(scene, camera, target, p):
+            s, cam = _apply_grad_params(scene, camera, p, normal_fn)
+            accel = build_scene_accel(s)
+            img, aux = render_tiled(s, accel, cam, cfg.height, cfg.width, wcfg, with_aux=True)
+            return torch.mean((img - target) ** 2), aux["overflow"]
+    else:
+        cfg_plain = cfg.replace(use_pallas=False)
+
+        def loss_fn(scene, camera, target, p):
+            s, cam = _apply_grad_params(scene, camera, p)
+            trace_fn, occlude_fn = build_tracers(s, cfg_plain)
+            img = render_wavefront(s, generate_rays(cam, cfg.height, cfg.width), wcfg,
+                                   trace_fn, occlude_fn)
+            return torch.mean((img - target) ** 2), 0
+
+    def step(scene: Scene, camera: Camera, target: torch.Tensor, params: dict, optimizer):
+        for name, x in (("scene", scene.verts), ("camera", camera.position),
+                        ("target", target), *params.items()):
+            if x.device.type != device.type:
+                raise ValueError(f"{name} lives on {x.device}, the grad step on {device}")
+        optimizer.zero_grad(set_to_none=True)
+        loss, overflow = loss_fn(scene, camera, target, params)
+        loss.backward()
+        optimizer.step()
+        return loss.detach(), params, optimizer, {"overflow": overflow}
+
+    return step
+
+
+def grad_params(scene: Scene, camera: Camera, names=("verts",)) -> dict:
+    """Fresh leaf tensors that require grad for the named families, copied
+    from the scene and camera (which the optimizer then leaves alone)."""
+    unknown = set(names) - set(GRAD_PARAMS)
+    if unknown:
+        raise ValueError(f"unknown parameter families {sorted(unknown)}; known: {GRAD_PARAMS}")
+    src = {"verts": scene.verts, "albedo": scene.materials.albedo,
+           "cam_pos": camera.position}
+    return {k: src[k].detach().clone().requires_grad_(True) for k in names}
+
+
+def grad_step(scene: Scene, camera: Camera, target: torch.Tensor, cfg: RenderConfig,
+              optimizer=None, params: dict | None = None, *, device):
+    """One optimization step (a convenience wrapper over make_grad_step_fn,
+    routed by the config with tiled="auto") -> (loss, params, optimizer).
+    Defaults: params {"verts": a copy of scene.verts}, optimizer
+    torch.optim.Adam(lr=1e-3) over them. The reference keeps a cache of
+    compiled steps and reads the overflow every 16th call; both answer the
+    cost of jit compiles, which the port does not have, so neither is here:
+    this wrapper builds its step on each call, and a loop should hold
+    make_grad_step_fn's step itself. Overflow is 0 by construction."""
+    if params is None:
+        params = grad_params(scene, camera)
+    if optimizer is None:
+        optimizer = torch.optim.Adam(params.values(), lr=1e-3)
+    step = make_grad_step_fn(cfg, scene, camera, device=device)
+    loss, params, optimizer, _aux = step(scene, camera, target, params, optimizer)
+    return loss, params, optimizer
+
+
+def benchmark_grad_step(config: str | RenderConfig | None = "bunny-grad", iters: int = 5,
+                        warmup: int = 1, params: tuple = ("verts",), tiled: str = "auto", *,
+                        device="cuda", **overrides) -> dict:
+    """Timed optimization steps (loss, backward, Adam(1e-3) update) against
+    a zeros target -> {"grad_step_ms", "loss", "overflow", "config",
+    "device"}. `params` names the optimized families ("verts", "albedo",
+    "cam_pos"); `tiled` as for make_grad_step_fn. The loop is timed on the
+    host clock between two synchronizes of the device."""
+    device = torch.device(device)
+    cfg = config if isinstance(config, RenderConfig) else load_config(config, **overrides)
+    scene, camera = get_scene(cfg, device)
+    target = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=device)
+    p = grad_params(scene, camera, params)
+    optimizer = torch.optim.Adam(p.values(), lr=1e-3)
+    step = make_grad_step_fn(cfg, scene, camera, tiled, device=device)
+    for _ in range(max(warmup, 1)):
+        loss, p, optimizer, aux = step(scene, camera, target, p, optimizer)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        loss, p, optimizer, aux = step(scene, camera, target, p, optimizer)
+    _sync(device)
+    dt = (time.perf_counter() - t0) / iters
+    return {"grad_step_ms": dt * 1e3, "loss": float(loss), "overflow": int(aux["overflow"]),
+            "config": cfg,
+            "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"}

@@ -57,6 +57,12 @@ class ClusterAccel:
     def cluster_size(self) -> int:
         return self.tri_ids.shape[1]
 
+    def detach(self) -> "ClusterAccel":
+        """The accel with every field detached from autograd: what the culls
+        and the traversal kernels read, since they only select."""
+        return dataclasses.replace(self, **{f.name: getattr(self, f.name).detach()
+                                            for f in dataclasses.fields(self)})
+
 
 def _pad_to(x: torch.Tensor, n: int, fill) -> torch.Tensor:
     pad = n - x.shape[0]

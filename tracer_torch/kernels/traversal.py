@@ -43,6 +43,7 @@ import warnings
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from tracer_torch.bvh.cull import cull_clusters
 from tracer_torch.core.types import T_FAR, Hit, Ray, normalize
@@ -198,36 +199,54 @@ def _tile_chunks(n_tiles: int, tr: int, c: int):
     return [(a, min(a + step, n_tiles)) for a in range(0, n_tiles, step)]
 
 
+def _closest_step(o4c, d4c, tri_w, tri_ids, cidx, active, bt, btri, bu, bv, t_min):
+    """One candidate slot of _closest_slots: the slot's cluster cidx (n,)
+    against o4c, d4c (n, TR, 4), inactive tiles masked, merged into the
+    running best (bt, btri, bu, bv) on a strict <."""
+    tr, c = o4c.shape[1], tri_ids.shape[1]
+    so, sd = _affine_products(o4c, d4c, tri_w[cidx])
+    t, u, v, _ = _field_epilogue(so, sd, c, t_min, T_FAR)
+    t = torch.where(active[:, None, None], t, T_FAR)
+    tmin = t.amin(-1, keepdim=True)
+    lanes = torch.arange(c, device=o4c.device)
+    am = torch.where(t == tmin, lanes, c).amin(-1, keepdim=True)
+    ids = tri_ids[cidx][:, None, :].expand(-1, tr, -1)
+    better = tmin[..., 0] < bt
+    return (torch.where(better, t.gather(-1, am)[..., 0], bt),
+            torch.where(better, ids.gather(-1, am)[..., 0], btri),
+            torch.where(better, u.gather(-1, am)[..., 0], bu),
+            torch.where(better, v.gather(-1, am)[..., 0], bv))
+
+
 def _closest_slots(o4, d4, tri_w, tri_ids, cand, counts, t_min=T_MIN):
     """Closest hit of o4, d4 (Nt, TR, 4) over cand (Nt, K) candidate
     clusters, slots past counts (Nt,) inactive -> (bt, btri, bu, bv) each
     (Nt, TR). Per cluster the first lane that attains the minimum t wins;
     across slots the running best is replaced only on a strict <. Runs in
-    chunks of tiles; nothing is written in place, so autograd sees it."""
+    chunks of tiles; nothing is written in place, so autograd sees it.
+
+    Under autograd each slot's step is checkpointed (recomputed in the
+    backward pass), as the reference remats its scan step: otherwise every
+    slot's (tiles, TR, 3C) products are kept for the backward pass, K times
+    the temporaries of one slot. What is kept is the running best."""
     n_tiles, tr, _ = o4.shape
     c = tri_ids.shape[1]
-    lanes = torch.arange(c, device=o4.device)
+    remat = torch.is_grad_enabled() and (o4.requires_grad or d4.requires_grad
+                                         or tri_w.requires_grad)
     parts = []
     for a, b in _tile_chunks(n_tiles, tr, c):
         o4c, d4c, cnt = o4[a:b], d4[a:b], counts[a:b]
-        bt = o4.new_full((b - a, tr), T_FAR)
-        btri = torch.full((b - a, tr), -1, dtype=torch.int32, device=o4.device)
-        bu = o4.new_zeros((b - a, tr))
-        bv = o4.new_zeros((b - a, tr))
+        best = (o4.new_full((b - a, tr), T_FAR),
+                torch.full((b - a, tr), -1, dtype=torch.int32, device=o4.device),
+                o4.new_zeros((b - a, tr)), o4.new_zeros((b - a, tr)))
         for k in range(min(cand.shape[1], int(cnt.max()))):
-            cidx = cand[a:b, k].long()
-            so, sd = _affine_products(o4c, d4c, tri_w[cidx])
-            t, u, v, _ = _field_epilogue(so, sd, c, t_min, T_FAR)
-            t = torch.where((k < cnt)[:, None, None], t, T_FAR)
-            tmin = t.amin(-1, keepdim=True)
-            am = torch.where(t == tmin, lanes, c).amin(-1, keepdim=True)
-            ids = tri_ids[cidx][:, None, :].expand(-1, tr, -1)
-            better = tmin[..., 0] < bt
-            bt = torch.where(better, t.gather(-1, am)[..., 0], bt)
-            btri = torch.where(better, ids.gather(-1, am)[..., 0], btri)
-            bu = torch.where(better, u.gather(-1, am)[..., 0], bu)
-            bv = torch.where(better, v.gather(-1, am)[..., 0], bv)
-        parts.append((bt, btri, bu, bv))
+            args = (o4c, d4c, tri_w, tri_ids, cand[a:b, k].long(), k < cnt, *best, t_min)
+            if remat:
+                best = checkpoint(_closest_step, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
+            else:
+                best = _closest_step(*args)
+        parts.append(best)
     if not parts:
         return _closest_out4(o4)
     return tuple(torch.cat(x) for x in zip(*parts))
@@ -242,9 +261,12 @@ def _closest_out4(o4):
             torch.empty(shape, dtype=torch.float32, device=dev))
 
 
+@torch.no_grad()
 def _anyhit_slots(o4, d4, tmax, tri_w, cand, counts, t_min=T_MIN):
     """Occlusion of o4, d4 (Nt, TR, 4) with per-ray bound tmax (Nt, TR) over
-    cand (Nt, K), slots past counts inactive -> occ (Nt, TR) bool."""
+    cand (Nt, K), slots past counts inactive -> occ (Nt, TR) bool. Runs
+    under no_grad: the result is a bool, and under autograd every slot's
+    products would be kept for nothing."""
     n_tiles, tr, _ = o4.shape
     c = tri_w.shape[2] // 3
     occ = torch.zeros((n_tiles, tr), dtype=torch.bool, device=o4.device)
@@ -482,10 +504,13 @@ def make_accel_tracers(scene, accel, use_pallas: bool = False, k_cap: int | None
     CUDA tensors (on CPU tensors their plain versions). k_cap caps each
     tile's candidate list (None: as wide as the longest list, exact); a cap
     that drops candidates warns. The kernels' runs hold every candidate the
-    cull kept."""
+    cull kept. The culls and the occlusion passes see no autograd graph:
+    they only select, and occlusion is a bool. The closest-hit pass is
+    differentiable in the rays and accel.tri_w."""
+    sel = accel.detach()
 
     def cull(o_t, d_t, t_max):
-        cand, counts, excess = cull_clusters(accel, o_t, d_t, t_max, k_cap)
+        cand, counts, excess = cull_clusters(sel, o_t.detach(), d_t.detach(), t_max, k_cap)
         if k_cap is not None and int(excess):
             warnings.warn(f"tracer candidate-cap overflow: k_cap={k_cap} dropped {int(excess)} "
                           f"candidates, the image may be incomplete", RuntimeWarning,
@@ -503,13 +528,15 @@ def make_accel_tracers(scene, accel, use_pallas: bool = False, k_cap: int | None
         return Hit(t=untile(bt, tiling), tri=untile(btri, tiling), uv=untile(uv, tiling))
 
     def occlude_fn(ray: Ray, t_max) -> torch.Tensor:
+        ray = Ray(o=ray.o.detach(), d=ray.d.detach())
+        t_max = t_max.detach() if isinstance(t_max, torch.Tensor) else t_max
         o_t, d_t, tiling = tile_rays(ray.o, ray.d, tr)
         t_max_t = tiled_tmax(t_max, ray, o_t, tr)
         cand, counts = cull(o_t, d_t, t_max_t)
         if use_pallas:
-            occ = any_hit_tiles_worklist(o_t, d_t, t_max_t, accel, cand, counts)
+            occ = any_hit_tiles_worklist(o_t, d_t, t_max_t, sel, cand, counts)
         else:
-            occ = any_hit_tiles_plain(o_t, d_t, t_max_t, accel, cand, counts)
+            occ = any_hit_tiles_plain(o_t, d_t, t_max_t, sel, cand, counts)
         return untile(occ, tiling)
 
     return trace_fn, occlude_fn

@@ -6,6 +6,16 @@ image: cull -> closest-hit kernels (selection only: which triangle) -> one
 gather of the packed shade rows by slot id -> Moller-Trumbore recompute of
 (t, u, v) and Lambert/Phong shading -> one light-origin shadow pass per
 light (cull -> any-hit kernel) -> mirror bounces -> one untile at the end.
+
+Gradients: the kernels are used for selection only (which triangle, a
+conservative t) and see detached inputs, as the reference stop-gradients
+them: the accel fields the culls and kernels read, the rays and the shadow
+targets. Discrete selection is piecewise constant; hit attributes (t, u, v,
+normal, position) are recomputed from the gathered shade rows, and that
+recompute is differentiable w.r.t. vertices, normals, materials and camera,
+so autograd flows through this integrator with no backward kernel. The
+gather `accel.shade[gid]` is where gradients enter. Edge terms (a silhouette
+that moves) are not differentiated.
 """
 from __future__ import annotations
 
@@ -41,9 +51,11 @@ def mt_from_edges(o, d, v0, e1, e2, t_min=T_MIN, eps=1e-12, bary_eps=1e-5):
 
 def _trace_rows(accel: ClusterAccel, o_t, d_t):
     """Closest-hit selection pass -> (gid, rows (Nt, TR, SHADE_COLS), excess,
-    need (k, s), split_need (P, Z))."""
-    words, counts, excess, need = cull_clusters_sorted2(accel, o_t, d_t, T_FAR)
-    _bt, gid, t_excess, split_need = trace_tiles_split(o_t, d_t, accel, words, counts)
+    need (k, s), split_need (P, Z)). The cull and the kernels see detached
+    inputs; the rows keep the shade table's graph."""
+    sel, o_t, d_t = accel.detach(), o_t.detach(), d_t.detach()
+    words, counts, excess, need = cull_clusters_sorted2(sel, o_t, d_t, T_FAR)
+    _bt, gid, t_excess, split_need = trace_tiles_split(o_t, d_t, sel, words, counts)
     rows = accel.shade[gid.clamp_min(0).long()]
     return gid, rows, excess + t_excess, need, split_need
 
@@ -51,7 +63,9 @@ def _trace_rows(accel: ClusterAccel, o_t, d_t):
 def _segment_rays(light_pos, p_t, eps_t: float = RAY_EPS):
     """Shadow segments traced FROM the light: o = light, d = p - light
     (unnormalized, so t_max = 1 - eps/|d| uniformly excludes the receiving
-    surface). Returns (o_t, d_t, t_max_t)."""
+    surface). Returns (o_t, d_t, t_max_t), detached: they feed only the
+    cull and the any-hit kernel."""
+    light_pos, p_t = light_pos.detach(), p_t.detach()
     o_t = light_pos.expand(p_t.shape)
     d_t = p_t - light_pos
     seg_len = torch.sqrt(torch.clamp_min(dot(d_t, d_t), 1e-20))
@@ -60,9 +74,10 @@ def _segment_rays(light_pos, p_t, eps_t: float = RAY_EPS):
 
 def _segment_occluded(accel: ClusterAccel, light_pos, p_t, eps_t: float = RAY_EPS):
     """Occlusion of the segments light <-> p -> (occ, excess, need, sneed)."""
+    sel = accel.detach()
     o_t, d_t, t_max_t = _segment_rays(light_pos, p_t, eps_t)
-    words, counts, excess, need = cull_clusters_sorted2(accel, o_t, d_t, t_max_t)
-    occ, t_excess, sneed = any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts)
+    words, counts, excess, need = cull_clusters_sorted2(sel, o_t, d_t, t_max_t)
+    occ, t_excess, sneed = any_hit_tiles_graded(o_t, d_t, t_max_t, sel, words, counts)
     return occ, excess + t_excess, need, sneed
 
 

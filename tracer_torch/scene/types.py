@@ -99,6 +99,61 @@ def compute_vertex_normals(verts: np.ndarray, tris: np.ndarray) -> np.ndarray:
     return (out / np.maximum(norm, 1e-20)).astype(np.float32)
 
 
+def _face_normals(verts: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
+    """Area-weighted face normals (T, 3): cross(v1 - v0, v2 - v0)."""
+    tl = tris.long()
+    v0, v1, v2 = verts[tl[:, 0]], verts[tl[:, 1]], verts[tl[:, 2]]
+    return torch.linalg.cross(v1 - v0, v2 - v0)
+
+
+def _unit(acc: torch.Tensor) -> torch.Tensor:
+    norm = torch.linalg.norm(acc, dim=-1, keepdim=True)
+    return acc / torch.clamp_min(norm, 1e-20)
+
+
+def compute_vertex_normals_torch(verts: torch.Tensor, tris: torch.Tensor) -> torch.Tensor:
+    """compute_vertex_normals in tensor ops, differentiable in verts (the
+    counterpart of compute_vertex_normals_jnp): the face normals summed
+    into their vertices by index_add. Used by the grad step's jnp tier so
+    that smooth-shading normals follow the optimized vertices. On CUDA
+    index_add accumulates by atomics, so the last bits may vary from run to
+    run; make_vertex_normal_fn's gather does not."""
+    fn = _face_normals(verts, tris)
+    out = torch.zeros_like(verts)
+    for k in range(3):
+        out = out.index_add(0, tris[:, k].long(), fn)
+    return _unit(out)
+
+
+def make_vertex_normal_fn(tris_np, n_verts: int, *, device):
+    """A differentiable verts -> normals closure over a fixed topology: a
+    (V, D) face-incidence table (D the largest vertex degree) is built once
+    in numpy and moved to `device`, and each call sums every vertex's D
+    face normals by one gather. Padding slots index a zero face normal
+    appended past the real faces. Deterministic on every device."""
+    tris_np = np.asarray(tris_np)
+    n_faces = len(tris_np)
+    # (vertex, face) incidence pairs grouped by vertex with a stable sort: a
+    # vertex can sit in the same corner column of many faces.
+    pair_v = tris_np.T.reshape(-1).astype(np.int64)
+    pair_f = np.tile(np.arange(n_faces, dtype=np.int64), 3)
+    order = np.argsort(pair_v, kind="stable")
+    pair_v, pair_f = pair_v[order], pair_f[order]
+    counts = np.bincount(pair_v, minlength=n_verts)
+    inc = np.full((n_verts, max(1, int(counts.max()))), n_faces, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    inc[pair_v, np.arange(len(pair_v)) - starts[pair_v]] = pair_f
+    inc_dev = torch.as_tensor(inc, device=device)
+    tris_dev = torch.as_tensor(tris_np.astype(np.int64), device=device)
+
+    def normals_of(verts: torch.Tensor) -> torch.Tensor:
+        fn = _face_normals(verts, tris_dev)
+        fn_pad = torch.cat([fn, fn.new_zeros((1, 3))])
+        return _unit(fn_pad[inc_dev].sum(dim=1))
+
+    return normals_of
+
+
 def merge_meshes(parts):
     """Concatenate (verts, tris, mat_id) triples with index fix-up."""
     verts, tris, mats = [], [], []
