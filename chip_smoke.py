@@ -102,6 +102,27 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      median of 5), then one profiled step (device time by operation, idle
      share); (e) bench_torch.py's JSON line (the frame of phase 6 and
      the steps of (d)).
+  The fit and the command lines (tracer_torch.diff.fit, bin/trace_torch),
+  phase 18, after a check that TF32 products are off:
+  18. (a) each of make_loss_fn's five modes at 64x64 on the card against the
+     CPU, one CPU target, the camera 0.0123 and 0.0071 off the preset's
+     point: tiled (bunny-grad with use_pallas), edge-aware accel and jnp
+     (bunny-grad), edge-aware brute and replay (cornell256); the grad gate
+     of 17 for vert_offset and albedo; the tiled mode launches
+     closest_hit_kernel and anyhit_kernel, no mode another kernel; (b)
+     the fits bin/fit_torch runs, at the presets' full size (verts, Adam
+     5e-3, a target moved by its seeded offset): bunny-grad jnp and
+     edge-aware accel, cornell256 replay and edge-aware brute, 10 steps
+     each, bunny512 tiled, 5 steps: the loss falls, ms a step (host clock,
+     mean after the first), peak device memory, launches (tiled: one of
+     each traversal2.cu kernel a step; the others none); (c) a 6-step fit
+     checkpointed every 3, resumed to 9: exactly 3 more steps; (d)
+     bin/trace_torch as a subprocess on cornell256, bench100k and
+     sponza1080 (3 bounces, 2 lights): exit 0, the PNG read back of the
+     right shape, neither blank nor saturated, overflow 0, no non-finite
+     value, its steady-state frame time; sponza1080 at 128x72 on the card
+     against the CPU under the golden gate; then bench_torch.py's line of
+     sponza1080 (BENCH_PRESET=sponza1080 BENCH_GRAD=0; not the last line).
 Each phase prints its wall time. The last lines are a JSON line of
 per-kernel results, the nvidia-smi line, and {"ok": true, "device": {...}}.
 
@@ -114,18 +135,21 @@ and slab-tests all of them; an OR needs, for a ray it leaves unoccluded,
 every candidate the ray can reach before its t_max, and for a ray it
 occludes one triangle test.
 """
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
 
 import bench_torch  # noqa: E402
 from tracer_torch import api  # noqa: E402
@@ -134,6 +158,8 @@ from tracer_torch.bvh.cull import (  # noqa: E402
     CLUSTER_BITS, cull_clusters, cull_clusters_sorted, cull_clusters_sorted2)
 from tracer_torch.core.camera import generate_rays  # noqa: E402
 from tracer_torch.core.types import T_FAR  # noqa: E402
+from tracer_torch.diff.fit import (  # noqa: E402
+    FitConfig, fit, init_params, latest_checkpoint, make_loss_fn)
 from tracer_torch.kernels import (  # noqa: E402
     _build, _launch, stream as st, traversal as t1, traversal2 as t2, traversal3 as t3)
 from tracer_torch.kernels.traversal import (  # noqa: E402
@@ -141,6 +167,7 @@ from tracer_torch.kernels.traversal import (  # noqa: E402
 from tracer_torch.render import tiled, whitted  # noqa: E402
 from tracer_torch.scene.types import make_vertex_normal_fn  # noqa: E402
 from tracer_torch.utils.config import load_config  # noqa: E402
+from tracer_torch.utils.image import read_png  # noqa: E402
 
 # Kernel -> (source, the TPU kernel it replaces).
 KERNELS = {
@@ -1670,6 +1697,223 @@ def phase_grad(smi: str, frame: dict, dev="cuda", mem_hw: int = 128):
     check(rc == 0, f"bench_torch.py's line says exit code {rc}")
 
 
+# Phase 18: the fit's five loss modes, (mode, preset, config overrides,
+# edge_aware), in diff.fit.make_loss_fn's order, and the presets' full-size
+# fits in the modes bin/fit_torch reaches: (mode, preset, steps).
+FIT_MODES = (("tiled", "bunny-grad", {"use_pallas": True}, False),
+             ("edge accel", "bunny-grad", {}, True),
+             ("edge brute", "cornell256", {}, True),
+             ("replay", "cornell256", {}, False),
+             ("jnp", "bunny-grad", {}, False))
+FIT_RUNS = (("jnp", "bunny-grad", 10), ("edge accel", "bunny-grad", 10),
+            ("replay", "cornell256", 10), ("edge brute", "cornell256", 10),
+            ("tiled", "bunny512", 5))
+FIT_LR = 5e-3  # bin/fit_torch's default
+
+
+def fit_scene(cfg, dev, off_center: bool = False):
+    """The preset's (scene, camera) on `dev`. With off_center the camera
+    looks 0.0123 and 0.0071 off the preset's point, so that no pixel centre
+    lies on a projected edge, where the last bit of a direction decides
+    which of two walls a ray hits (ROADMAP Queue 3)."""
+    scene, camera = api.get_scene(cfg, dev)
+    if off_center:
+        camera = dataclasses.replace(camera, look_at=camera.look_at + torch.tensor(
+            [0.0123, 0.0071, 0.0], device=dev))
+    return scene, camera
+
+
+def scene_frame(cfg, dev) -> np.ndarray:
+    """make_render_fn's frame of fit_scene(cfg, dev, off_center=True)."""
+    scene, camera = fit_scene(cfg, dev, off_center=True)
+    return api.make_render_fn(scene, cfg, dev)(scene, camera).cpu().numpy()
+
+
+def fit_target(cfg, dev, off_center: bool = False):
+    """(scene, camera, target) on `dev`: the target is the frame
+    (make_render_fn) of the scene with its vertices moved by bin/fit_torch's
+    seeded offset (stddev 0.02)."""
+    scene, camera = fit_scene(cfg, dev, off_center)
+    off = np.random.default_rng(0).normal(0, 0.02, tuple(scene.verts.shape)).astype(np.float32)
+    s_true = dataclasses.replace(scene, verts=scene.verts + torch.as_tensor(off, device=dev))
+    return scene, camera, api.make_render_fn(s_true, cfg, dev)(s_true, camera).clone()
+
+
+def fit_loss_grads(cfg, fcfg, dev, target_cpu):
+    """make_loss_fn's loss and gradients (vert_offset, albedo) at the
+    initial parameters on `dev`, and the launches of that one loss and
+    backward."""
+    scene, camera = fit_scene(cfg, dev, off_center=True)
+    loss_fn = make_loss_fn(scene, camera, torch.as_tensor(target_cpu, device=dev), cfg, fcfg)
+    params = init_params(scene, fcfg)
+    zero_launches()
+    loss, overflow = loss_fn(params)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    check(int(overflow) == 0, f"{dev}: overflow {overflow}")
+    return (float(loss.detach()), {k: g.cpu().numpy() for k, g in zip(params, grads)},
+            dict(t2.LAUNCHES))
+
+
+def phase_fit_devices(size: int = 64, devs=("cuda", "cpu")):
+    """(a): each of the fit's five loss modes at size x size on the card
+    against the CPU, from one target (a CPU frame), held to the grad gate:
+    loss to rtol 1e-5; each gradient (vert_offset, albedo) nonzero and
+    within rtol 2e-3 + atol 2e-6 of its largest entry. The tiled mode
+    launches the three traversal2.cu kernels on the card, the others
+    none."""
+    for mode, preset, over, edge_aware in FIT_MODES:
+        cfg = load_config(preset, height=size, width=size, **over)
+        fcfg = FitConfig(optimize_albedo=True, edge_aware=edge_aware)
+        _, _, target = fit_target(cfg, "cpu", off_center=True)
+        (la, ga, launches), (lb, gb, _) = (fit_loss_grads(cfg, fcfg, dev, target.numpy())
+                                           for dev in devs)
+        rel = abs(la - lb) / abs(lb)
+        parts = []
+        for k in gb:
+            a, b = ga[k], gb[k]
+            tol = 2e-3 * np.abs(b) + 2e-6 * np.abs(b).max() + 1e-10
+            worst = float((np.abs(a - b) / tol).max())
+            parts.append(f"{k} max|g| {np.abs(b).max():.4g}, max|diff| {np.abs(a - b).max():.3g} "
+                         f"({worst:.3f} of the tolerance)")
+            check(np.abs(a).max() > 0 and np.abs(b).max() > 0, f"fit {mode}: {k} gradient 0")
+            check(worst <= 1.0, f"fit {mode}: {k} gradients differ, {devs[0]} vs {devs[1]}")
+        frames = [scene_frame(cfg, dev) for dev in devs]
+        err = np.abs(frames[0] - frames[1]).max(axis=-1)
+        log(f"[fit] {mode} mode, {preset} {size}x{size}, {devs[0]} vs {devs[1]}: loss {la:.9g} "
+            f"vs {lb:.9g} (rel {rel:.3g}); " + "; ".join(parts) + f"; launches {launches}; "
+            f"the scene's frames differ in {int((err > 1e-4).sum())} pixels by more than 1e-4 "
+            f"(max {err.max():.3g})")
+        check(rel <= 1e-5, f"fit {mode}: loss {la} vs {lb}")
+        tiled_card = mode == "tiled" and devs[0] == "cuda"
+        check((not tiled_card or launches["closest"] > 0 and launches["anyhit"] > 0)
+              and not any(v for k, v in launches.items() if not (tiled_card and k in TIERED)),
+              f"fit {mode}: launches {launches}")
+
+
+class StepClock:
+    """A MetricsLogger stand-in for fit: the host clock at each step's
+    record (fit reads each step's loss back first, which waits for the
+    device)."""
+
+    def __init__(self):
+        self.times = []
+
+    def log(self, **_fields):
+        self.times.append(time.perf_counter())
+
+    def ms_per_step(self) -> float:
+        """Mean ms of a step after the first (the warm-up)."""
+        return float(np.mean(np.diff(self.times))) * 1e3
+
+
+def phase_fit_runs(dev="cuda"):
+    """(b): bin/fit_torch's fits at the presets' full size (verts, Adam
+    5e-3): the loss falls (last < first), per-step launches (the tiled mode
+    one of each traversal2.cu kernel a step, closest_fast_kernel where the
+    frame has count-1 tiles; the others none), ms a step (mean after the
+    first, host clock between the steps' loss read-backs) and peak device
+    memory."""
+    for mode, preset, steps in FIT_RUNS:
+        cfg = load_config(preset)
+        scene, camera, target = fit_target(cfg, dev)
+        want = ()
+        if mode == "tiled":
+            _, aux = api.make_render_fn(scene, cfg, dev)(scene, camera, with_aux=True)
+            want = ("closest", "anyhit") + (("closest_fast",)
+                                            if aux["need_zero"] > aux["need_split"] else ())
+        check(api.use_tiled_grad(scene, cfg, "auto") == (mode == "tiled"),
+              f"{preset}: the fit's mode is not {mode}")
+        clock = StepClock()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        _, losses = fit(scene, camera, target, cfg,
+                        FitConfig(steps=steps, learning_rate=FIT_LR,
+                                  edge_aware=mode.startswith("edge")), metrics=clock)
+        torch.cuda.synchronize()
+        launches = dict(t2.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[fit] {mode} mode, {preset} {cfg.width}x{cfg.height}, {steps} steps: loss "
+            f"{losses[0]:.6g} -> {losses[-1]:.6g} (min {min(losses):.6g}), "
+            f"{clock.ms_per_step():.3f} ms/step after the first, peak device memory "
+            f"{peak:.3f} GiB, "
+            f"launches {launches} ({sum(launches.values()) / steps:g} a step)")
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"fit {mode} on {preset}: the loss did not fall: {losses}")
+        check(all(launches[k] == steps for k in want)
+              and not any(v for k, v in launches.items() if k not in want),
+              f"fit {mode} on {preset}: launches {launches}, want one of {want} a step")
+
+
+def phase_fit_resume(dev="cuda"):
+    """(c): a 6-step fit (cornell256 at 64x64, replay mode) checkpointed
+    every 3 steps, then resumed to 9: exactly 3 more steps, finite."""
+    cfg = load_config("cornell256", height=64, width=64)
+    scene, camera, target = fit_target(cfg, dev)
+    with tempfile.TemporaryDirectory() as ck:
+        _, first = fit(scene, camera, target, cfg, FitConfig(
+            steps=6, learning_rate=FIT_LR, checkpoint_every=3, checkpoint_dir=ck))
+        saved = latest_checkpoint(ck)[0]
+        _, more = fit(scene, camera, target, cfg, FitConfig(
+            steps=9, learning_rate=FIT_LR, checkpoint_every=3, checkpoint_dir=ck))
+        last = latest_checkpoint(ck)[0]
+    log(f"[fit] checkpoint/resume on {dev}: 6 steps {first[0]:.6g} -> {first[-1]:.6g}, "
+        f"checkpoint at step {saved}; resumed: {len(more)} steps, {more}, checkpoint at {last}")
+    check(saved == 5 and len(more) == 3 and last == 8 and np.isfinite(more).all(),
+          "the resumed fit did not run exactly the 3 steps left")
+
+
+def trace_cli(preset: str, out_dir: str) -> float:
+    """bin/trace_torch --preset <preset> as a subprocess on the card: exit
+    0, its PNG read back with read_png of the right shape, neither blank nor
+    saturated, overflow 0 and no non-finite value in the frame -> its
+    steady-state frame's ms."""
+    cfg = load_config(preset)
+    png = os.path.join(out_dir, f"{preset}.png")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "trace_torch"), "--preset",
+                           preset, "-o", png], capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log(f"[trace] bin/trace_torch --preset {preset} ({wall:.1f} s, exit {proc.returncode}):\n"
+        + proc.stdout.strip())
+    check(proc.returncode == 0, f"bin/trace_torch {preset} failed:\n{proc.stderr[-4000:]}")
+    m = re.search(r"steady-state frame: ([0-9.]+) ms .*overflow (\d+), non-finite values (\d+)",
+                  proc.stdout)
+    check(m is not None, f"bin/trace_torch {preset}: no steady-state line")
+    img = read_png(png)
+    lit = float((img > 0).mean())
+    log(f"[trace] {png}: {img.shape}, mean {img.mean():.2f}, {lit:.1%} of values above 0, "
+        f"{float((img == 255).mean()):.1%} at 255")
+    check(img.shape == (cfg.height, cfg.width, 3), f"{preset}: PNG of shape {img.shape}")
+    check(int(m.group(2)) == 0 and int(m.group(3)) == 0,
+          f"{preset}: overflow {m.group(2)}, non-finite values {m.group(3)}")
+    check(2.0 < img.mean() < 250.0 and lit > 0.05 and (img == 255).mean() < 0.9,
+          f"{preset}: the frame is blank or saturated (mean {img.mean()})")
+    return float(m.group(1))
+
+
+def phase_fit(smi: str):
+    """Phase 18: the fit and the command lines (see the module docstring)."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 products are on: intersect_packed "
+          "would misclassify hits")
+    phase_fit_devices()
+    phase_fit_runs()
+    phase_fit_resume()
+    with tempfile.TemporaryDirectory() as out_dir:
+        for preset in ("cornell256", "bench100k", "sponza1080"):
+            ms = trace_cli(preset, out_dir)
+            log(f"[trace] {preset}: steady-state frame {ms:.3f} ms on {smi}")
+    phase_cross_device(load_config("sponza1080", height=72, width=128))
+    rc, line = bench_torch.run("sponza1080", 10, grad=False)
+    log(f"[trace] bench_torch.py line of sponza1080 (BENCH_PRESET=sponza1080 BENCH_GRAD=0), "
+        f"on {smi}:")
+    print(json.dumps(line), flush=True)
+    check(rc == 0, f"sponza1080's bench line says exit code {rc}")
+
+
 def timed(name: str, fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1710,6 +1954,7 @@ def main() -> int:
     for preset in ("cornell256", "bunny-grad"):
         timed(f"routing {preset}", phase_routing, preset)
     timed("grad", phase_grad, smi, frame)
+    timed("fit", phase_fit, smi)
     log(f"[phase] all: {time.perf_counter() - t0:.1f} s")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -1,7 +1,7 @@
 """Guards on the port's boundaries that need no card: tracer_torch,
-chip_smoke.py and bench_torch.py import neither JAX nor the JAX package,
-and chip_smoke.py refuses to run (non-zero exit, no result line) without
-CUDA or outside the repository."""
+chip_smoke.py, bench_torch.py, bin/fit_torch and bin/trace_torch import
+neither JAX nor the JAX package, and chip_smoke.py refuses to run
+(non-zero exit, no result line) without CUDA or outside the repository."""
 import os
 import re
 import shutil
@@ -14,8 +14,9 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|tracer)(\s|\.|$)", re.M)
 
 
 def test_port_imports_no_jax():
-    files = sorted((ROOT / "tracer_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                                              ROOT / "bench_torch.py"]
+    files = sorted((ROOT / "tracer_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py", ROOT / "bin" / "fit_torch",
+        ROOT / "bin" / "trace_torch"]
     assert len(files) > 10
     bad = [str(f.relative_to(ROOT)) for f in files if _FORBIDDEN.search(f.read_text())]
     assert not bad, f"imports jax or tracer: {bad}"

@@ -1,6 +1,7 @@
 """User-facing API: get_scene / build_tracers / make_render_fn / render /
 benchmark, and the grad step: make_grad_step_fn / grad_step /
-benchmark_grad_step (torch counterpart of tracer/api.py).
+benchmark_grad_step, over image_loss, the loss body that diff.fit shares
+(torch counterpart of tracer/api.py).
 
 make_render_fn picks a tier from the config, as the reference does:
   * use_bvh + use_pallas, at most TILED_MAX_CLUSTERS clusters: the tiled
@@ -241,6 +242,32 @@ def use_tiled_grad(scene: Scene | None, cfg: RenderConfig, tiled: str) -> bool:
     return tiled == "interpret"
 
 
+def image_loss(scene: Scene, camera: Camera, target: torch.Tensor, cfg: RenderConfig,
+               tiled: bool, tracers=None):
+    """(loss, overflow) of one frame of (scene, camera) under autograd: the
+    image MSE mean((img - target)**2), the one loss body of
+    make_grad_step_fn's two tiers and of diff.fit's tiled, replay and jnp
+    modes.
+
+    tiled: render_tiled over an accel built here from `scene` (its shade
+    rows are functions of the optimized parameters), the overflow from its
+    aux (0 by construction). Otherwise render_wavefront over
+    tracers(scene) -> (trace_fn, occlude_fn), by default build_tracers of
+    the config with use_pallas off (the plain cluster tier with use_bvh,
+    brute force without; no kernel), and an overflow of 0."""
+    wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    if tiled:
+        img, aux = render_tiled(scene, build_scene_accel(scene), camera, cfg.height, cfg.width,
+                                wcfg, with_aux=True)
+        return torch.mean((img - target) ** 2), aux["overflow"]
+    if tracers is None:
+        cfg_plain = cfg.replace(use_pallas=False)
+        tracers = lambda s: build_tracers(s, cfg_plain)  # noqa: E731
+    img = render_wavefront(scene, generate_rays(camera, cfg.height, cfg.width), wcfg,
+                           *tracers(scene))
+    return torch.mean((img - target) ** 2), 0
+
+
 def make_grad_step_fn(cfg: RenderConfig, scene: Scene | None = None,
                       camera: Camera | None = None, tiled: str = "auto", *, device):
     """(scene, camera, target, params, optimizer) -> (loss, params, optimizer,
@@ -278,28 +305,15 @@ def make_grad_step_fn(cfg: RenderConfig, scene: Scene | None = None,
         raise ValueError(f"the port renders in float32 with no profile option, got "
                          f"dtype={cfg.dtype!r}, profile={cfg.profile}")
     device = torch.device(device)
-    wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    tiled_tier = use_tiled_grad(scene, cfg, tiled)
+    normal_fn = None
+    if tiled_tier and scene is not None:
+        normal_fn = make_vertex_normal_fn(scene.tris.cpu().numpy(), scene.verts.shape[0],
+                                          device=device)
 
-    if use_tiled_grad(scene, cfg, tiled):
-        normal_fn = None
-        if scene is not None:
-            normal_fn = make_vertex_normal_fn(scene.tris.cpu().numpy(), scene.verts.shape[0],
-                                              device=device)
-
-        def loss_fn(scene, camera, target, p):
-            s, cam = _apply_grad_params(scene, camera, p, normal_fn)
-            accel = build_scene_accel(s)
-            img, aux = render_tiled(s, accel, cam, cfg.height, cfg.width, wcfg, with_aux=True)
-            return torch.mean((img - target) ** 2), aux["overflow"]
-    else:
-        cfg_plain = cfg.replace(use_pallas=False)
-
-        def loss_fn(scene, camera, target, p):
-            s, cam = _apply_grad_params(scene, camera, p)
-            trace_fn, occlude_fn = build_tracers(s, cfg_plain)
-            img = render_wavefront(s, generate_rays(cam, cfg.height, cfg.width), wcfg,
-                                   trace_fn, occlude_fn)
-            return torch.mean((img - target) ** 2), 0
+    def loss_fn(scene, camera, target, p):
+        s, cam = _apply_grad_params(scene, camera, p, normal_fn)
+        return image_loss(s, cam, target, cfg, tiled_tier)
 
     def step(scene: Scene, camera: Camera, target: torch.Tensor, params: dict, optimizer):
         for name, x in (("scene", scene.verts), ("camera", camera.position),

@@ -6,8 +6,10 @@ with n = e1 x e2, au = (e2 x n)/|n|^2, av = (n x e1)/|n|^2, so that for a
 homogeneous ray (o, 1) + t (d, 0) the plane value and both barycentrics are
 affine in t. The traversal kernels (kernels/traversal2.py) evaluate exactly
 these maps; `moller_trumbore` is the classic formulation they are held to.
-`intersect_brute` and `any_hit_brute` test every ray against every
-triangle: the brute-force tracers, and the oracle of the accel tiers' tests.
+`intersect_packed` evaluates them for every ray against every triangle as
+two float32 products; `intersect_brute` and `any_hit_brute` run it over
+chunks of rays: the brute-force tracers, and the oracle of the accel tiers'
+tests.
 """
 from __future__ import annotations
 
@@ -75,33 +77,49 @@ def _packed_epilogue(so, sd, t_min, t_max, eps):
     return torch.where(hit, t, T_FAR), u, v, hit
 
 
+def intersect_packed(o4: torch.Tensor, d4: torch.Tensor, tri_maps: torch.Tensor,
+                     t_min: float = 1e-4, t_max=T_FAR, eps: float = 1e-12):
+    """Every one of R rays against every one of T triangles by two products.
+
+    o4, d4: (R, 4) homogeneous rays ((o, 1) and (d, 0)); tri_maps: (T, 3, 4)
+    from triangle_affine_maps; t_max a scalar or an (R, 1) per-ray bound.
+    Returns (t, u, v, hit) each (R, T); t == T_FAR where the pair misses.
+    The products must run in full float32: a reduced-precision product
+    (TF32, which torch.backends.cuda.matmul.allow_tf32 turns on, or bf16)
+    misclassifies hits, since t is compared against bounds of 1e-4."""
+    n_tri = tri_maps.shape[0]
+    w = tri_maps.reshape(n_tri * 3, 4).T  # (4, 3T)
+    so = (o4 @ w).reshape(-1, n_tri, 3)
+    sd = (d4 @ w).reshape(-1, n_tri, 3)
+    return _packed_epilogue(so, sd, t_min, t_max, eps)
+
+
 def _brute_chunks(ray: Ray, maps: torch.Tensor, t_min, t_max, eps: float = 1e-12):
-    """Every ray against every triangle's affine map, in chunks of rays ->
-    yields (t, u, v, hit) each (R_chunk, T), in ray order. t_max is a scalar
-    or a (R,) per-ray bound."""
+    """intersect_packed over chunks of the rays -> yields (t, u, v, hit)
+    each (R_chunk, T), in ray order. t_max is a scalar or a (R,) per-ray
+    bound."""
     o = ray.o.reshape(-1, 3)
     d = ray.d.reshape(-1, 3)
     n_tri = maps.shape[0]
-    w = maps.reshape(n_tri * 3, 4).T  # (4, 3T)
     step = max(1, _BRUTE_BYTES // max(1, 8 * 3 * n_tri * 4))
     for a in range(0, o.shape[0], step):
         sl = slice(a, min(a + step, o.shape[0]))
         o4 = torch.cat([o[sl], o.new_ones((o[sl].shape[0], 1))], dim=-1)
         d4 = torch.cat([d[sl], d.new_zeros((d[sl].shape[0], 1))], dim=-1)
-        so = (o4 @ w).reshape(-1, n_tri, 3)
-        sd = (d4 @ w).reshape(-1, n_tri, 3)
         tm = t_max[sl, None] if isinstance(t_max, torch.Tensor) and t_max.ndim > 0 else t_max
-        yield _packed_epilogue(so, sd, t_min, tm, eps)
+        yield intersect_packed(o4, d4, maps, t_min, tm, eps)
 
 
-def nearest_hit(t, u, v) -> Hit:
+def nearest_hit(t, u, v, tri_ids=None) -> Hit:
     """Reduce (R, T) per-pair results to the nearest Hit per ray (the first
-    triangle among equal t)."""
+    triangle among equal t). tri_ids (T,) maps a column to its triangle id;
+    without it the column is the id."""
     idx = torch.argmin(t, dim=-1)
     r = torch.arange(t.shape[0], device=t.device)
     t_best = t[r, idx]
     uv = torch.stack([u[r, idx], v[r, idx]], dim=-1)
-    tri = torch.where(t_best < T_FAR, idx.to(torch.int32), -1)
+    tri = idx.to(torch.int32) if tri_ids is None else tri_ids[idx].to(torch.int32)
+    tri = torch.where(t_best < T_FAR, tri, -1)
     return Hit(t=t_best, tri=tri, uv=torch.where(t_best[..., None] < T_FAR, uv, 0.0))
 
 

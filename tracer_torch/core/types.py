@@ -48,6 +48,20 @@ def dot(a: torch.Tensor, b: torch.Tensor, keepdim: bool = False) -> torch.Tensor
     return (a * b).sum(-1, keepdim=keepdim)
 
 
+def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Cross product along the last axis, the other axes broadcast."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b)
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     """Safe normalize along the last axis."""
     return v * torch.rsqrt(torch.clamp_min((v * v).sum(-1, keepdim=True), eps))
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of x at the indices idx, of any shape -> idx.shape + x.shape[1:].
+    The same values as x[idx]; under autograd its backward is index_add_
+    (atomic adds on CUDA) where x[idx]'s is a sort of the indices, which
+    serialises on repeated ones."""
+    return x.index_select(0, idx.reshape(-1)).reshape(*idx.shape, *x.shape[1:])

@@ -16,7 +16,7 @@ from typing import Callable
 import torch
 
 from tracer_torch.core import intersect as ci
-from tracer_torch.core.types import RAY_EPS, Hit, Ray, dot, normalize
+from tracer_torch.core.types import RAY_EPS, Hit, Ray, dot, normalize, take
 
 TraceFn = Callable[[Ray], Hit]
 OccludeFn = Callable[[Ray, torch.Tensor], torch.Tensor]
@@ -41,15 +41,22 @@ def shading_frame(scene, ray: Ray, hit: Hit, smooth: bool):
     idx = scene.tris[tri].long()
     p = ray.at(hit.t)
     if smooth:
-        n0, n1, n2 = (scene.normals[idx[..., i]] for i in range(3))
+        n0, n1, n2 = (take(scene.normals, idx[..., i]) for i in range(3))
         u = hit.uv[..., 0:1]
         v = hit.uv[..., 1:2]
         n = normalize(n0 * (1.0 - u - v) + n1 * u + n2 * v)
     else:
-        v0, v1, v2 = (scene.verts[idx[..., i]] for i in range(3))
+        v0, v1, v2 = (take(scene.verts, idx[..., i]) for i in range(3))
         n = normalize(torch.linalg.cross(v1 - v0, v2 - v0))
     n = torch.where(dot(n, ray.d, keepdim=True) > 0, -n, n)
     return p, n, scene.mat_id[tri].long()
+
+
+def material_rows(mats, mat):
+    """The material of each hit -> (albedo (..., 3), emission (..., 3),
+    mirror (..., 1), specular (...), shininess (...))."""
+    return (take(mats.albedo, mat), take(mats.emission, mat), take(mats.mirror, mat)[..., None],
+            take(mats.specular, mat), take(mats.shininess, mat))
 
 
 def phong_specular(d, n, wi, spec, shin):
@@ -111,12 +118,7 @@ def bounce_step(scene, ray: Ray, throughput, live, cfg: WhittedConfig,
     hit = trace_fn(ray)
     valid = hit.valid & live
     p, n, mat = shading_frame(scene, ray, hit, cfg.smooth_shading)
-    mats = scene.materials
-    albedo = mats.albedo[mat]
-    emission = mats.emission[mat]
-    mirror = mats.mirror[mat][..., None]
-    spec = mats.specular[mat]
-    shin = mats.shininess[mat]
+    albedo, emission, mirror, spec, shin = material_rows(scene.materials, mat)
 
     direct = direct_lighting(scene, p, n, ray.d, albedo, spec, shin, valid, occlude_fn)
     local = emission + albedo * cfg.ambient + direct
