@@ -123,6 +123,36 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      value, its steady-state frame time; sponza1080 at 128x72 on the card
      against the CPU under the golden gate; then bench_torch.py's line of
      sponza1080 (BENCH_PRESET=sponza1080 BENCH_GRAD=0; not the last line).
+  The rest of the one-card surface, phase 19, each part with its seconds:
+  19. (a) trace_tiles_sorted and any_hit_tiles_sorted over bench100k's
+     1080p primary tiles and shadow-segment tiles: bit-equal to
+     trace_tiles_split and any_hit_tiles_graded and, on select_tiles'
+     subset, to the plain versions; one launch each of closest_hit_kernel
+     and anyhit_kernel (counts set to 0 just before each pass); each pass's
+     ms beside the split passes'; (b) goldens against the fp64 C++ oracle
+     (tracer_torch.refcpu.cpp, built from cpp/oracle.cpp; a build failure
+     fails the phase) at the reference's full sizes, under the golden gate
+     ("[gate] <what>: pixels off by > 2e-3: <share> (gate <limit>), p98
+     <p98>, max <max>"): bunny512 512x512 through make_render_fn (tiled
+     tier), the 4x3 hall 256x256 with 2 bounces through render_tiled, rows
+     640-768 of sponza1080's 1080p frame (3 bounces, 2 lights, gate 2.5%)
+     through generate_rays_band and render_wavefront over tracers built on
+     (a)'s wrappers, cornell256 256x256 through render_image (brute) in both
+     shadings, tests/golden/test_phong.py's scene 96x96 brute and tiled;
+     (c) bunny512 512x512 through render_image over make_lbvh_tracers,
+     gated against (b)'s tiled frame and the oracle: build ms, each pass's
+     ms, loop iterations, peak memory; (d) bunny512's geometry through
+     save_obj, load_obj's native and Python parsers field for field, the
+     obj: scene through make_render_fn against the oracle, and
+     bin/trace_torch on it; (e) bin/bench_torch --preset bench100k --iters 3
+     --no-grad: overflow 0, ms_per_frame within half to twice phase 6's;
+     (f) utils.debug.checked(render_image): a clean cornell frame passes,
+     NaN vertices raise CheckError; benchmark("cornell256", profile=True)
+     writes trace.json; seeded jittered rays card vs CPU to 2^-22; (g)
+     cornell256 64x64 stage by stage on the card against the CPU, from the
+     same inputs and each from its own, in units of 2^-23 (the first stage
+     past 4 is named with its operations), and where the replay-mode loss
+     gap of phase 18 (a) comes from.
 Each phase prints its wall time. The last lines are a JSON line of
 per-kernel results, the nvidia-smi line, and {"ok": true, "device": {...}}.
 
@@ -153,20 +183,25 @@ sys.path.insert(0, ROOT)
 
 import bench_torch  # noqa: E402
 from tracer_torch import api  # noqa: E402
+from tracer_torch.bvh import lbvh  # noqa: E402
 from tracer_torch.bvh.cluster import build_scene_accel  # noqa: E402
 from tracer_torch.bvh.cull import (  # noqa: E402
     CLUSTER_BITS, cull_clusters, cull_clusters_sorted, cull_clusters_sorted2)
-from tracer_torch.core.camera import generate_rays  # noqa: E402
+from tracer_torch.core.camera import Camera, generate_rays, generate_rays_band  # noqa: E402
 from tracer_torch.core.types import T_FAR  # noqa: E402
 from tracer_torch.diff.fit import (  # noqa: E402
     FitConfig, fit, init_params, latest_checkpoint, make_loss_fn)
 from tracer_torch.kernels import (  # noqa: E402
     _build, _launch, stream as st, traversal as t1, traversal2 as t2, traversal3 as t3)
 from tracer_torch.kernels.traversal import (  # noqa: E402
-    _homog, generate_rays_tiled, tile_rays, tiled_tmax)
+    _homog, generate_rays_tiled, tile_rays, tiled_tmax, untile)
+from tracer_torch.refcpu import cpp as cpp_oracle  # noqa: E402
 from tracer_torch.render import tiled, whitted  # noqa: E402
+from tracer_torch.scene import cpp_loader, procedural  # noqa: E402
+from tracer_torch.scene.io import load_obj, save_obj  # noqa: E402
 from tracer_torch.scene.types import make_vertex_normal_fn  # noqa: E402
 from tracer_torch.utils.config import load_config  # noqa: E402
+from tracer_torch.utils.debug import CheckError, checked  # noqa: E402
 from tracer_torch.utils.image import read_png  # noqa: E402
 
 # Kernel -> (source, the TPU kernel it replaces).
@@ -1179,13 +1214,15 @@ def compare_shadow_lists(accel, so, sd, tm, words, counts):
             f"rays on which their occlusion differs: {differ}")
 
 
-def golden_gate(a, b, what: str):
-    """< 1.5% of pixels off by > 2e-3 and p98 error < 2e-3, or exit."""
+def golden_gate(a, b, what: str, frac_tol: float = 0.015):
+    """< frac_tol (1.5%) of pixels off by > 2e-3 and p98 error < 2e-3, or
+    exit (tests/golden/test_golden_cpp.py:_golden_check)."""
     err = np.abs(a - b).max(axis=-1)
     frac = float((err > 2e-3).mean())
     p98 = float(np.percentile(err, 98))
-    log(f"[gate] {what}: pixels off by > 2e-3: {frac:.4%}, p98 {p98:.3g}, max {err.max():.3g}")
-    if not (frac < 0.015 and p98 < 2e-3):
+    log(f"[gate] {what}: pixels off by > 2e-3: {frac:.4%} (gate {frac_tol:.1%}), p98 "
+        f"{p98:.3g}, max {err.max():.3g}")
+    if not (frac < frac_tol and p98 < 2e-3):
         raise SystemExit(f"{what}: the frames disagree beyond the golden gate")
 
 
@@ -1914,6 +1951,526 @@ def phase_fit(smi: str):
     check(rc == 0, f"sponza1080's bench line says exit code {rc}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 19
+# ---------------------------------------------------------------------------
+
+# A stage's largest difference between the devices, in units of 2^-23 of its
+# scale, above which it is the one that departs (ROADMAP Queue 3).
+STAGE_ULPS = 4
+# What each stage of a Whitted bounce computes, by the stage's name.
+STAGE_OPS = {
+    "rays": "generate_rays: tan of the half angle, the NDC products, normalize's rsqrt",
+    "hit": "intersect_brute: the products o4 @ w and d4 @ w (a float32 matmul), "
+           "t = -so / sd, u and v",
+    "shading frame": "shading_frame: p = o + t d, the flat normal cross(v1 - v0, v2 - v0) "
+                     "and normalize's rsqrt",
+    "shadow ray": "shadow_ray: dist2 = dot(to_l, to_l), sqrt, wi = to_l / dist, cos",
+    "phong": "phong_specular: the reflection, dot, base ** shininess",
+    "direct": "direct_lighting: the occlusion, vis / dist2, albedo / pi * cos",
+    "radiance": "bounce_step: emission + albedo * ambient + direct, the mirror weights",
+}
+
+
+def to_dev(x, dev):
+    """A tensor, or a dataclass of tensors (Ray, Hit), moved to `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    return dataclasses.replace(x, **{f.name: getattr(x, f.name).to(dev)
+                                     for f in dataclasses.fields(x)})
+
+
+def ulps(a, b, scale, mask=None) -> float:
+    """The largest |a - b| / scale over the entries `mask` selects, in units
+    of 2^-23 (the spacing of float32 numbers just above 1)."""
+    a, b = (np.asarray(x.cpu() if isinstance(x, torch.Tensor) else x, np.float64)
+            for x in (a, b))
+    err = np.abs(a - b) / np.maximum(np.broadcast_to(scale, a.shape), 1e-30)
+    if mask is not None:
+        err = err[np.broadcast_to(np.asarray(mask), err.shape[:np.asarray(mask).ndim])]
+    return float(err.max()) / 2.0 ** -23 if err.size else 0.0
+
+
+def norm_scale(x):
+    """Each entry's scale: the length of its vector along the last axis."""
+    x = np.asarray(x.cpu(), np.float64)
+    return np.linalg.norm(x, axis=-1, keepdims=True)
+
+
+def bounce_stages(dev, scene, camera, size, cfg, feed=None) -> dict:
+    """The stages of one Whitted bounce of (scene, camera) on `dev` ->
+    {stage: (outputs on the CPU)}. With `feed` (another device's result of
+    this function) each stage takes its inputs from feed's earlier stages,
+    so that only its own arithmetic differs; without, from its own."""
+    trace_fn, occlude_fn = whitted.make_brute_tracers(scene)
+    src = {}
+    out = {}
+
+    def get(stage):
+        return tuple(to_dev(x, dev) for x in (feed or src)[stage])
+
+    def put(stage, *xs):
+        src[stage] = xs
+        out[stage] = tuple(to_dev(x, "cpu") for x in xs)
+
+    ray = generate_rays(camera, size, size)
+    put("rays", ray)
+    (ray,) = get("rays")
+    put("hit", trace_fn(ray))
+    (hit,) = get("hit")
+    p, n, mat = whitted.shading_frame(scene, ray, hit, cfg.smooth_shading)
+    put("shading frame", p, n, mat)
+    p, n, mat = get("shading frame")
+    _, tm, d2, wi, cos = whitted.shadow_ray(p, n, hit.valid, scene.lights.position[0])
+    put("shadow ray", tm, d2, wi, cos)
+    _, _, wi, _ = get("shadow ray")
+    alb, emi, mir, spec, shin = whitted.material_rows(scene.materials, mat)
+    put("phong", whitted.phong_specular(ray.d, n, wi, spec, shin))
+    put("direct", whitted.direct_lighting(scene, p, n, ray.d, alb, spec, shin, hit.valid,
+                                          occlude_fn))
+    (direct,) = get("direct")
+    local = emi + alb * whitted.WhittedConfig.ambient + direct
+    put("radiance", torch.where(hit.valid[..., None], local * (1.0 - mir), 0.0))
+    return out
+
+
+def stage_ulps(a: dict, b: dict) -> tuple[dict, np.ndarray, np.ndarray]:
+    """Each stage's largest difference between two bounce_stages results,
+    in units of 2^-23 of its scale (unit vectors and barycentrics: 1; t,
+    points, distances: their own size; colours: the colour's length), over
+    the pixels whose hit is the same triangle in both -> ({stage: ulps},
+    same hit, compared)."""
+    (ha,), (hb,) = a["hit"], b["hit"]
+    same = (ha.tri == hb.tri).numpy()
+    valid = same & hb.valid.numpy()
+    mag = lambda x: np.abs(x.numpy())  # noqa: E731
+    err = {"rays": ulps(a["rays"][0].d, b["rays"][0].d, 1.0),
+           "hit": max(ulps(ha.t, hb.t, mag(hb.t), valid), ulps(ha.uv, hb.uv, 1.0, valid))}
+    (pa, na, _), (pb, nb, _) = a["shading frame"], b["shading frame"]
+    err["shading frame"] = max(ulps(pa, pb, norm_scale(pb), valid), ulps(na, nb, 1.0, valid))
+    (tma, d2a, wia, cosa), (tmb, d2b, wib, cosb) = a["shadow ray"], b["shadow ray"]
+    err["shadow ray"] = max(ulps(tma, tmb, mag(tmb), valid), ulps(d2a, d2b, mag(d2b), valid),
+                            ulps(wia, wib, 1.0, valid), ulps(cosa, cosb, 1.0, valid))
+    err["phong"] = ulps(a["phong"][0], b["phong"][0], mag(b["phong"][0]), valid)
+    for k in ("direct", "radiance"):
+        err[k] = ulps(a[k][0], b[k][0], norm_scale(b[k][0]), valid)
+    return err, same, valid
+
+
+def phase_cornell_stages(size: int = 64, devs=("cuda", "cpu")):
+    """cornell256 at size x size, with phase 18 (a)'s camera, one Whitted
+    bounce stage by stage on devs[0] against devs[1] (bounce_stages,
+    stage_ulps): first each stage from the same inputs, devs[1]'s outputs
+    of the stages before it, so that its difference is its own arithmetic's;
+    then each device from its own. Prints both and the first stage past
+    STAGE_ULPS in each, with the operations it runs. Then the loss of phase
+    18 (a)'s replay mode on each device, in float32 on the device and in
+    float64 on the host from each device's frame, and which pixels carry
+    the float64 gap: those off by more than 1e-4, and the fewest that carry
+    half of it, with their radiance against the frame's. Returns the
+    isolated {stage: ulps}."""
+    cfg = load_config("cornell256", height=size, width=size)
+    a_dev, b_dev = devs
+    (sa, ca), (sb, cb) = (fit_scene(cfg, dev, off_center=True) for dev in devs)
+    with torch.inference_mode():
+        ref = bounce_stages(b_dev, sb, cb, size, cfg)
+        runs = {"from the same inputs": bounce_stages(a_dev, sa, ca, size, cfg, feed=ref),
+                "each from its own": bounce_stages(a_dev, sa, ca, size, cfg)}
+    isolated = None
+    for what, got in runs.items():
+        err, same, valid = stage_ulps(got, ref)
+        isolated = isolated or err
+        first = next((k for k, v in err.items() if v > STAGE_ULPS), None)
+        log(f"[cornell] cornell256 {size}x{size} stages, {a_dev} vs {b_dev} {what}: largest "
+            f"difference in 2^-23 of its scale over the {int(valid.sum())} pixels with the same "
+            f"hit ({int((~same).sum())} differ): "
+            + ", ".join(f"{k} {v:.3g}" for k, v in err.items())
+            + f"; first stage past {STAGE_ULPS}: "
+            + (f"{first}, which runs {STAGE_OPS[first]}" if first else "none"))
+    fcfg = FitConfig(optimize_albedo=True)
+    _, _, target = fit_target(cfg, b_dev, off_center=True)
+    target = target.cpu().numpy()
+    loss32 = {dev: fit_loss_grads(cfg, fcfg, dev, target)[0] for dev in devs}
+    frames = {dev: scene_frame(cfg, dev).astype(np.float64) for dev in devs}
+    sq = {dev: ((frames[dev] - target) ** 2) for dev in devs}
+    loss64 = {dev: float(sq[dev].mean()) for dev in devs}
+    gap = (sq[a_dev] - sq[b_dev]).sum(axis=-1) / sq[a_dev].size
+    off = np.abs(frames[a_dev] - frames[b_dev]).max(axis=-1) > 1e-4
+    rest = np.where(off, 0.0, gap)
+    order = np.argsort(-np.abs(rest), axis=None)
+    carried = ""
+    if rest.sum():
+        half = int(np.searchsorted(np.cumsum(rest.ravel()[order]) / rest.sum(), 0.5) + 1)
+        top = np.unravel_index(order[:half], rest.shape)
+        lum = np.linalg.norm(frames[b_dev], axis=-1)
+        carried = (f"; of the rest, {rest.sum():.3g}, {half} pixels carry half, of radiance "
+                   f"length {lum[top].mean():.3g} on average against the frame's "
+                   f"{lum.mean():.3g}, and differ there by "
+                   f"{np.abs(frames[a_dev] - frames[b_dev])[top].max():.3g} at most")
+    log(f"[cornell] replay-mode loss, float32 on the device: {a_dev} {loss32[a_dev]:.9g}, "
+        f"{b_dev} {loss32[b_dev]:.9g} (rel "
+        f"{abs(loss32[a_dev] - loss32[b_dev]) / loss32[b_dev]:.3g}); float64 on the host from "
+        f"each device's frame: {loss64[a_dev]:.12g} vs {loss64[b_dev]:.12g} (rel "
+        f"{abs(gap.sum()) / loss64[b_dev]:.3g}); the {int(off.sum())} pixels off by more than "
+        f"1e-4 carry {gap[off].sum():.3g} of the gap {gap.sum():.3g}" + carried)
+    return isolated
+
+
+def golden_oracle(img, scene, camera, height, width, cfg_whitted, what,
+                  frac_tol: float = 0.015):
+    """The frame against the fp64 C++ oracle (refcpu.cpp, built from
+    cpp/oracle.cpp) on the same scene and camera, under the golden gate
+    (frac_tol: the reference's 2.5% for a 3-bounce, 2-light band); the
+    frame must be lit (max > 0.05). Returns the oracle's frame."""
+    t0 = time.perf_counter()
+    ref = cpp_oracle.cpp_render(scene, camera, height, width, max_bounces=cfg_whitted.max_bounces,
+                                smooth_shading=cfg_whitted.smooth_shading)
+    log(f"[golden] {what}: the C++ oracle's {width}x{height} frame in "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(np.isfinite(img).all() and img.max() > 0.05, f"{what}: frame not finite and lit "
+          f"(max {img.max()})")
+    golden_gate(img, ref, what, frac_tol)
+    return ref
+
+
+def whole_set_tracers(scene, accel, tr: int = 64):
+    """(trace_fn, occlude_fn) of make_sorted_tracers' pipeline with the
+    whole-set passes trace_tiles_sorted and any_hit_tiles_sorted in place
+    of the split ones."""
+
+    def trace_fn(ray):
+        o_t, d_t, tiling = tile_rays(ray.o, ray.d, tr)
+        words, counts, _, _ = cull_clusters_sorted2(accel, o_t, d_t, T_FAR)
+        bt, gid = t2.trace_tiles_sorted(o_t, d_t, accel, words, counts)
+        return t2.recover_hit(scene, ray, untile(bt, tiling), untile(gid, tiling), accel)
+
+    def occlude_fn(ray, t_max):
+        o_t, d_t, tiling = tile_rays(ray.o, ray.d, tr)
+        t_max_t = tiled_tmax(t_max, ray, o_t, tr)
+        words, counts, _, _ = cull_clusters_sorted2(accel, o_t, d_t, t_max_t)
+        return untile(t2.any_hit_tiles_sorted(o_t, d_t, t_max_t, accel, words, counts), tiling)
+
+    return trace_fn, occlude_fn
+
+
+def launched(fn, *args, **kwargs):
+    """(fn's result, the launches it made): every count set to 0 just
+    before, read just after a synchronize."""
+    zero_launches()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in t2.LAUNCHES.items() if v}
+
+
+def phase_sorted(smi: str, dev="cuda") -> dict:
+    """(a) trace_tiles_sorted and any_hit_tiles_sorted over bench100k's
+    primary tiles and its shadow-segment tiles at 1920x1080: bit-equal to
+    trace_tiles_split and any_hit_tiles_graded on the same inputs and to the
+    plain versions on select_tiles' subset; their launches (counts set to 0
+    just before each pass) and each pass's ms (CUDA events, 10 passes)
+    beside the split passes'. Returns the launches of the two passes."""
+    cfg = load_config("bench100k")
+    scene, camera = api.get_scene(cfg, dev)
+    with torch.inference_mode():
+        accel = build_scene_accel(scene)
+        o_t, d_t, _ = generate_rays_tiled(camera, cfg.height, cfg.width, 64)
+        words, counts, excess, _ = cull_clusters_sorted2(accel, o_t, d_t, T_FAR)
+        check(int(excess) == 0, "primary cull dropped candidates")
+        (bt, gid), l_trace = launched(t2.trace_tiles_sorted, o_t, d_t, accel, words, counts)
+        s_bt, s_gid, _, _ = t2.trace_tiles_split(o_t, d_t, accel, words, counts)
+        sel = select_tiles(counts)
+        p_bt, p_gid = t2.closest_hit_plain(*_homog(o_t[sel], d_t[sel]), accel.tri_w,
+                                           words[sel], counts[sel])
+        check(torch.equal(float_bits(bt), float_bits(s_bt)) and torch.equal(gid, s_gid),
+              "trace_tiles_sorted differs from trace_tiles_split")
+        check(torch.equal(float_bits(bt[sel]), float_bits(p_bt)) and torch.equal(gid[sel], p_gid),
+              "trace_tiles_sorted differs from closest_hit_plain")
+        ms = cuda_ms(lambda: t2.trace_tiles_sorted(o_t, d_t, accel, words, counts), 10)
+        ms_split = cuda_ms(lambda: t2.trace_tiles_split(o_t, d_t, accel, words, counts), 10)
+        log(f"[sorted] trace_tiles_sorted, bench100k {counts.shape[0]} primary tiles "
+            f"({count_stats(counts)}): bit-equal to trace_tiles_split and, on {sel.shape[0]} "
+            f"tiles, to closest_hit_plain; launches {l_trace}; {ms:.3f} ms a pass against "
+            f"trace_tiles_split's {ms_split:.3f}, on {smi}")
+        check(l_trace == {"closest": 1}, f"trace_tiles_sorted launched {l_trace}")
+
+        rows_gid, rows, _, _, _ = tiled._trace_rows(accel, o_t, d_t)
+        found, p, n = tiled._surface(o_t, d_t, rows_gid, rows, cfg.smooth_shading)
+        *_, target = tiled._light_target(p, n, found, scene.lights.position[0])
+        so, sd, tmax = tiled._segment_rays(scene.lights.position[0], target)
+        words2, counts2, excess2, _ = cull_clusters_sorted2(accel, so, sd, tmax)
+        check(int(excess2) == 0, "shadow cull dropped candidates")
+        occ, l_occ = launched(t2.any_hit_tiles_sorted, so, sd, tmax, accel, words2, counts2)
+        g_occ, _, _ = t2.any_hit_tiles_graded(so, sd, tmax, accel, words2, counts2)
+        sel2 = select_tiles(counts2)
+        tm = torch.where((sd != 0.0).any(-1), tmax, 0.0)
+        p_occ = t2.anyhit_plain(*_homog(so[sel2], sd[sel2]), tm[sel2], accel.tri_w,
+                                words2[sel2], counts2[sel2])
+        check(torch.equal(occ, g_occ), "any_hit_tiles_sorted differs from any_hit_tiles_graded")
+        check(torch.equal(occ[sel2], p_occ), "any_hit_tiles_sorted differs from anyhit_plain")
+        ms2 = cuda_ms(lambda: t2.any_hit_tiles_sorted(so, sd, tmax, accel, words2, counts2), 10)
+        ms2_g = cuda_ms(lambda: t2.any_hit_tiles_graded(so, sd, tmax, accel, words2, counts2),
+                        10)
+        log(f"[sorted] any_hit_tiles_sorted, bench100k {counts2.shape[0]} shadow tiles "
+            f"({count_stats(counts2)}), {float(occ.float().mean()):.1%} occluded: equal to "
+            f"any_hit_tiles_graded and, on {sel2.shape[0]} tiles, to anyhit_plain; launches "
+            f"{l_occ}; {ms2:.3f} ms a pass against any_hit_tiles_graded's {ms2_g:.3f}, "
+            f"on {smi}")
+        check(l_occ == {"anyhit": 1}, f"any_hit_tiles_sorted launched {l_occ}")
+    return {"closest": l_trace.get("closest", 0), "anyhit": l_occ.get("anyhit", 0)}
+
+
+def phase_goldens(dev="cuda") -> dict:
+    """(b) the reference's goldens against the port's binding to the fp64
+    C++ oracle, at the reference's full sizes, on the card. Returns
+    {"bunny512": (scene, camera, tiled frame, oracle frame)} for (c)."""
+    check(cpp_oracle.available(), f"the C++ oracle did not build: {cpp_oracle._load()[1]}")
+    out = {}
+    cfg = load_config("bunny512")
+    scene, camera = api.get_scene(cfg, dev)
+    wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    (img, aux), l_bunny = launched(api.make_render_fn(scene, cfg, dev), scene, camera,
+                                   with_aux=True)
+    img = img.cpu().numpy()
+    check(aux["overflow"] == 0, f"bunny512 overflow {aux['overflow']}")
+    ref = golden_oracle(img, scene, camera, cfg.height, cfg.width, wcfg,
+                        f"bunny512 {cfg.width}x{cfg.height}, tiled tier (launches {l_bunny})")
+    check(set(l_bunny) <= set(TIERS["tiled"]) and l_bunny.get("closest", 0) > 0
+          and l_bunny.get("anyhit", 0) > 0, f"bunny512 launched {l_bunny}")
+    out["bunny512"] = (scene, camera, img, ref)
+
+    hall, cam = procedural.columned_hall(cols_x=4, cols_z=3, blob_subdiv=3, device=dev)
+    hall_cam = Camera.make(**cam, device=dev)
+    wcfg2 = whitted.WhittedConfig(max_bounces=2, smooth_shading=True)
+    with torch.inference_mode():
+        (img, aux), l_hall = launched(tiled.render_tiled, hall, build_scene_accel(hall), hall_cam,
+                                      256, 256, wcfg2, with_aux=True)
+    check(aux["overflow"] == 0, f"hall overflow {aux['overflow']}")
+    golden_oracle(img.cpu().numpy(), hall, hall_cam, 256, 256, wcfg2,
+                  f"hall 4x3 256x256, 2 bounces, render_tiled (launches {l_hall})")
+
+    cfg = load_config("sponza1080")
+    scene, camera = api.get_scene(cfg, dev)
+    wcfg3 = whitted.WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    y0, hb = cfg.height * 16 // 27, cfg.height * 16 // 135   # rows 640-768 of 1080
+    with torch.inference_mode():
+        tracers = whole_set_tracers(scene, build_scene_accel(scene))
+        rays = generate_rays_band(camera, cfg.height, cfg.width, y0, hb)
+        img, l_band = launched(whitted.render_wavefront, scene, rays, wcfg3, *tracers)
+    t0 = time.perf_counter()
+    ref = cpp_oracle.cpp_render(scene, camera, cfg.height, cfg.width,
+                                max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    log(f"[golden] sponza1080: the C++ oracle's {cfg.width}x{cfg.height} frame in "
+        f"{time.perf_counter() - t0:.1f} s")
+    img = img.cpu().numpy()
+    check(np.isfinite(img).all() and img.max() > 0.05, "sponza1080 band not lit")
+    golden_gate(img, ref[y0:y0 + hb], f"sponza1080 rows {y0}-{y0 + hb} of {cfg.height}, "
+                f"{scene.num_tris} triangles, 3 bounces, 2 lights, render_wavefront over "
+                f"trace_tiles_sorted / any_hit_tiles_sorted (launches {l_band})", 0.025)
+    check(set(l_band) == {"closest", "anyhit"}, f"the sponza band launched {l_band}")
+
+    cfg = load_config("cornell256")
+    scene, camera = api.get_scene(cfg, dev)
+    for smooth in (False, True):
+        wc = whitted.WhittedConfig(max_bounces=1, smooth_shading=smooth)
+        with torch.inference_mode():
+            img = whitted.render_image(scene, camera, 256, 256, wc).cpu().numpy()
+        golden_oracle(img, scene, camera, 256, 256, wc,
+                      f"cornell256 256x256, render_image (brute), smooth_shading {smooth}")
+
+    scene, camera = phong_scene(dev)
+    wc = whitted.WhittedConfig(max_bounces=1, smooth_shading=False)
+    with torch.inference_mode():
+        brute = whitted.render_image(scene, camera, 96, 96, wc).cpu().numpy()
+        tiled_img = tiled.render_tiled(scene, build_scene_accel(scene), camera, 96, 96,
+                                       wc).cpu().numpy()
+    golden_oracle(brute, scene, camera, 96, 96, wc, "Phong scene 96x96, render_image (brute)")
+    golden_oracle(tiled_img, scene, camera, 96, 96, wc, "Phong scene 96x96, render_tiled")
+    return out
+
+
+def phong_scene(dev):
+    """tests/golden/test_phong.py's scene: a glossy floor and a matte back
+    wall, the light on the camera's mirror direction about the floor."""
+    from tracer_torch.scene.types import Lights, Materials, Scene
+
+    verts = np.array([[-2, 0, -2], [2, 0, -2], [2, 0, 2], [-2, 0, 2],
+                      [-2, 0, -2], [-2, 2, -2], [2, 2, -2], [2, 0, -2]], np.float32)
+    tris = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7]], np.int32)
+    mats = Materials.make(albedo=[[0.3, 0.3, 0.35], [0.6, 0.55, 0.5]], specular=[0.8, 0.0],
+                          shininess=[24.0, 32.0], device=dev)
+    lights = Lights.make(position=[[0.0, 0.6, -0.9]], intensity=[[4.0, 4.0, 4.0]], device=dev)
+    scene = Scene.make(verts, tris, np.array([0, 0, 1, 1], np.int32), mats, lights, device=dev)
+    return scene, Camera.make(position=(0.0, 1.0, 2.8), look_at=(0.0, 0.4, 0.0), fov_y_deg=50.0,
+                              device=dev)
+
+
+def phase_lbvh(smi: str, bunny):
+    """(c) bunny512 at 512x512 through render_image over make_lbvh_tracers:
+    the frame against (b)'s tiled frame and the oracle's, under the golden
+    gate; the build's ms, each traversal's ms (host clock around a
+    synchronize), its loop iterations, and the peak device memory."""
+    scene, camera, tiled_img, ref = bunny
+    h, w = tiled_img.shape[:2]
+    wcfg = whitted.WhittedConfig(max_bounces=1, smooth_shading=True)
+    stats, times = {"trace": {}, "occlude": {}}, {"trace": [], "occlude": []}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bvh = lbvh.build_lbvh(scene.verts, scene.tris)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+
+    def clocked(name, fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return run
+
+    trace = clocked("trace", lambda ray: lbvh.trace_rays_lbvh(ray, bvh, scene.verts, scene.tris,
+                                                              stats=stats["trace"]))
+    occlude = clocked("occlude", lambda ray, t_max: lbvh.any_hit_lbvh(
+        ray, t_max, bvh, scene.verts, scene.tris, stats=stats["occlude"]))
+    with torch.inference_mode():
+        img, l_lbvh = launched(whitted.render_image, scene, camera, h, w, wcfg, trace, occlude)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = img.cpu().numpy()
+    log(f"[lbvh] bunny512 {w}x{h} ({scene.num_tris} triangles), render_image over the LBVH on "
+        f"{smi}: build {build_ms:.1f} ms; "
+        + "; ".join(f"{k} pass {times[k][0]:.1f} ms, {stats[k]['iterations']} loop iterations run "
+                    f"({stats[k]['needed']} with an active lane)" for k in times)
+        + f"; peak device memory {peak:.2f} GiB, launches {l_lbvh}")
+    check(not l_lbvh, f"the LBVH frame launched {l_lbvh}")
+    golden_gate(img, tiled_img, "bunny512 LBVH vs the tiled tier")
+    golden_gate(img, ref, "bunny512 LBVH vs the C++ oracle")
+
+
+def phase_obj(tmp: str, dev="cuda"):
+    """(d) bunny512's geometry through save_obj, then obj:<path> through
+    get_scene and make_render_fn on the card against the oracle on the same
+    loaded scene; load_obj's native and Python parsers field for field;
+    bin/trace_torch on the obj: scene."""
+    cfg = load_config("bunny512")
+    src, _ = api.get_scene(cfg, dev)
+    path = os.path.join(tmp, "bunny512.obj")
+    save_obj(path, src.verts, src.tris)
+    t0 = time.perf_counter()
+    check(cpp_loader.available(), f"the native OBJ parser did not build: {cpp_loader._load()[1]}")
+    log(f"[obj] the native parser built and loaded in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    native = load_obj(path, native=True, device=dev)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = load_obj(path, native=False, device=dev)
+    t_python = time.perf_counter() - t0
+    for name, a, b in (("verts", native.verts, python.verts), ("tris", native.tris, python.tris),
+                       ("mat_id", native.mat_id, python.mat_id),
+                       ("normals", native.normals, python.normals),
+                       ("albedo", native.materials.albedo, python.materials.albedo),
+                       ("lights", native.lights.position, python.lights.position)):
+        check(torch.equal(a, b), f"load_obj: native and Python parsers differ in {name}")
+    cfg = cfg.replace(scene=f"obj:{path}")
+    scene, camera = api.get_scene(cfg, dev)
+    wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    (img, aux), l_obj = launched(api.make_render_fn(scene, cfg, dev), scene, camera,
+                                 with_aux=True)
+    check(aux["overflow"] == 0, f"obj frame overflow {aux['overflow']}")
+    golden_oracle(img.cpu().numpy(), scene, camera, cfg.height, cfg.width, wcfg,
+                  f"obj:{os.path.basename(path)} ({scene.num_tris} triangles) "
+                  f"{cfg.width}x{cfg.height}, tiled "
+                  f"tier (launches {l_obj}); parsed natively in {t_native:.2f} s, in Python in "
+                  f"{t_python:.2f} s, the same scene")
+    png = os.path.join(tmp, "obj.png")
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "trace_torch"), "--preset",
+                           "bunny512", "--scene", f"obj:{path}", "-o", png],
+                          capture_output=True, text=True, timeout=300)
+    log(f"[obj] bin/trace_torch --scene obj:{os.path.basename(path)} (exit "
+        f"{proc.returncode}):\n" + proc.stdout.strip())
+    check(proc.returncode == 0, f"bin/trace_torch obj: failed:\n{proc.stderr[-4000:]}")
+    check(read_png(png).shape == (cfg.height, cfg.width, 3),
+          "bin/trace_torch's obj: PNG has the wrong shape")
+
+
+def phase_bench_cli(frame: dict):
+    """(e) bin/bench_torch --preset bench100k --iters 3 --no-grad as a
+    subprocess: exit 0, its line's overflow 0, and its ms_per_frame within
+    half to twice phase 6's (the frame is host-bound and wanders)."""
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "bench_torch"), "--preset",
+                           "bench100k", "--iters", "3", "--no-grad"], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"bin/bench_torch failed:\n{proc.stderr[-4000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    ms, ref = line["detail"]["ms_per_frame"], frame["ms_per_frame"]
+    log(f"[bench] bin/bench_torch --preset bench100k --iters 3 --no-grad: {json.dumps(line)}")
+    log(f"[bench] ms_per_frame {ms:.3f} against phase 6's {ref:.3f}")
+    check(line["detail"]["overflow"] == 0, "bin/bench_torch: overflow")
+    check(ref / 2 <= ms <= ref * 2, f"bin/bench_torch's frame {ms} ms, phase 6's {ref} ms")
+
+
+def phase_guard_profile(tmp: str, dev="cuda"):
+    """(f) checked(render_image): a clean cornell frame passes on the card,
+    NaN vertices raise CheckError; benchmark("cornell256", profile=True)
+    writes trace.json under TRACER_PROFILE_DIR; generate_rays with a seeded
+    jitter on the card against the CPU to 2^-22."""
+    scene, camera = api.get_scene(load_config("cornell256"), dev)
+    wc = whitted.WhittedConfig(max_bounces=1)
+    run = checked(lambda s, c: whitted.render_image(s, c, 64, 64, wc))
+    img = run(scene, camera)
+    check(bool(torch.isfinite(img).all()) and img.device.type == dev, "checked: bad frame")
+    verts = scene.verts.clone()
+    verts[0, 0] = float("nan")
+    try:
+        run(dataclasses.replace(scene, verts=verts), camera)
+        raised = None
+    except CheckError as e:
+        raised = str(e)
+    log(f"[guard] checked(render_image) on the card: a clean 64x64 cornell frame passes; NaN "
+        f"vertices raise CheckError: {raised}")
+    check(raised is not None, "checked did not raise on NaN vertices")
+
+    prof_dir = os.path.join(tmp, "profile")
+    before = os.environ.get("TRACER_PROFILE_DIR")
+    os.environ["TRACER_PROFILE_DIR"] = prof_dir
+    try:
+        res = api.benchmark("cornell256", iters=2, warmup=1, device=dev, profile=True)
+    finally:
+        if before is None:
+            del os.environ["TRACER_PROFILE_DIR"]
+        else:
+            os.environ["TRACER_PROFILE_DIR"] = before
+    trace = os.path.join(prof_dir, "trace.json")
+    check(os.path.exists(trace) and res["overflow"] == 0, "benchmark(profile=True) wrote no trace")
+    log(f"[guard] benchmark('cornell256', profile=True): {res['ms_per_frame']:.3f} ms/frame "
+        f"profiled, trace.json {os.path.getsize(trace)} bytes")
+
+    jit = np.random.default_rng(0).uniform(0.0, 1.0, (64, 96, 2)).astype(np.float32)
+    rays = {}
+    for d in (dev, "cpu"):
+        _, cam = api.get_scene(load_config("cornell256"), d)
+        rays[d] = generate_rays(cam, 64, 96, jitter=torch.as_tensor(jit, device=d)).d.cpu()
+    err = float((rays[dev] - rays["cpu"]).abs().max())
+    log(f"[guard] jittered rays, card vs CPU: largest difference {err:.3g} (gate 2^-22)")
+    check(err <= 2.0 ** -22, "jittered rays differ between the card and the CPU")
+
+
+def phase_19(smi: str, frame: dict) -> dict:
+    """Phase 19: the rest of the one-card surface (see the module
+    docstring). Returns the launches of (a)'s passes."""
+    launches = timed("19 (a) sorted wrappers", phase_sorted, smi)
+    bunny = timed("19 (b) goldens", phase_goldens)
+    timed("19 (c) lbvh", phase_lbvh, smi, bunny["bunny512"])
+    del bunny
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("19 (d) obj", phase_obj, tmp)
+        timed("19 (e) bench_torch", phase_bench_cli, frame)
+        timed("19 (f) guard, profile, jitter", phase_guard_profile, tmp)
+    timed("19 (g) cornell256 stages", phase_cornell_stages)
+    return launches
+
+
 def timed(name: str, fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -1955,6 +2512,9 @@ def main() -> int:
         timed(f"routing {preset}", phase_routing, preset)
     timed("grad", phase_grad, smi, frame)
     timed("fit", phase_fit, smi)
+    t19 = time.perf_counter()
+    phase_19(smi, frame)
+    log(f"[phase] 19: {time.perf_counter() - t19:.1f} s")
     log(f"[phase] all: {time.perf_counter() - t0:.1f} s")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,

@@ -1,9 +1,10 @@
 """tracer_torch's utilities and command lines on the CPU: utils.image
 (tonemap, write_png, read_png) against the JAX package's bytes,
-utils.metrics (MetricsLogger's append and truncate, profile_trace), and
-bin/fit_torch and bin/trace_torch, each run once with --cpu at 16x16
-through a JSON config, and without CUDA and without --cpu, where both must
-refuse."""
+utils.metrics (MetricsLogger's append and truncate, profile_trace),
+api.benchmark's profile option, utils.config.DistConfig against the
+reference's, and bin/fit_torch, bin/trace_torch and bin/bench_torch, each
+run once with --cpu (the first two at 16x16 through a JSON config), and
+without CUDA and without --cpu, where all three must refuse."""
 import json
 import os
 import subprocess
@@ -14,7 +15,10 @@ import numpy as np
 import torch
 
 from tracer.utils import image as jimage
+from tracer.utils.config import DistConfig as JDistConfig
+from tracer_torch import api
 from tracer_torch.utils import image, metrics
+from tracer_torch.utils.config import DistConfig, load_config
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -116,8 +120,44 @@ def test_clis_refuse_without_cuda(tmp_path):
     """Without CUDA and without --cpu: a non-zero exit, nothing on stdout,
     no file written."""
     cfg = _config(tmp_path)
-    for name, extra in (("trace_torch", ["-o", "out.png"]), ("fit_torch", ["-o", "fit"])):
+    for name, extra in (("trace_torch", ["-o", "out.png"]), ("fit_torch", ["-o", "fit"]),
+                        ("bench_torch", ["--no-grad"])):
         proc = _cli(tmp_path, name, "--preset", cfg, *extra, cuda=False)
         assert proc.returncode != 0 and proc.stdout == "", (name, proc.stdout)
         assert "CUDA is not available" in proc.stderr
     assert sorted(os.listdir(tmp_path)) == [cfg]
+
+
+def test_bench_torch_cpu(tmp_path):
+    """bin/bench_torch --cpu: bench_torch.py's line (its metric, the frame's
+    ms and overflow 0, the device named), exit 0; --scaling is refused with
+    a message that names dist/."""
+    proc = _cli(tmp_path, "bench_torch", "--cpu", "--preset", "cornell256", "--iters", "1",
+                "--no-grad")
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert line["metric"] == "rays_per_s_per_chip_100ktri_1080p" and line["value"] > 0
+    assert line["detail"]["overflow"] == 0 and line["detail"]["device"] == "cpu"
+    assert line["detail"]["preset"] == "cornell256" and "grad_step_ms" not in line["detail"]
+    proc = _cli(tmp_path, "bench_torch", "--scaling")
+    assert proc.returncode != 0 and proc.stdout == ""
+    assert "tracer/dist/" in proc.stderr
+
+
+def test_dist_config_matches_reference():
+    """The same fields, in the same order, with the same defaults."""
+    import dataclasses
+
+    want = [(f.name, f.default) for f in dataclasses.fields(JDistConfig)]
+    assert [(f.name, f.default) for f in dataclasses.fields(DistConfig)] == want
+
+
+def test_benchmark_profile_writes_trace(tmp_path, monkeypatch):
+    """profile=True: api.benchmark traces its timed loop into
+    $TRACER_PROFILE_DIR/trace.json; make_grad_step_fn accepts it too."""
+    monkeypatch.setenv("TRACER_PROFILE_DIR", str(tmp_path / "prof"))
+    cfg = load_config("cornell256", height=16, width=16, profile=True)
+    res = api.benchmark(cfg, iters=1, warmup=1, device="cpu")
+    assert res["overflow"] == 0 and res["device"] == "cpu"
+    assert json.load(open(tmp_path / "prof" / "trace.json"))["traceEvents"]
+    api.make_grad_step_fn(cfg, device="cpu")

@@ -37,9 +37,11 @@ from tracer_torch.render.tiled import render_tiled
 from tracer_torch.render.whitted import (
     WhittedConfig, make_brute_tracers, render_wavefront, render_wavefront_aux)
 from tracer_torch.scene import procedural
+from tracer_torch.scene.io import load_obj
 from tracer_torch.scene.types import (
     Scene, compute_vertex_normals_torch, make_vertex_normal_fn)
 from tracer_torch.utils.config import RenderConfig, load_config
+from tracer_torch.utils.metrics import profile_trace
 
 # Clusters (of CLUSTER_SIZE triangles) up to which a use_bvh + use_pallas
 # config renders through the tiled tier; past it, through the streamed one.
@@ -48,7 +50,8 @@ TILED_MAX_CLUSTERS = 2048
 
 
 def get_scene(cfg: RenderConfig, device) -> tuple[Scene, Camera]:
-    """Resolve the scene + canonical camera named by the config."""
+    """Resolve the scene + canonical camera named by the config; an
+    obj:<path> scene is loaded by scene.io.load_obj."""
     if cfg.scene == "cornell":
         scene, cam = procedural.cornell_box(device=device)
     elif cfg.scene == "bunny":
@@ -63,6 +66,14 @@ def get_scene(cfg: RenderConfig, device) -> tuple[Scene, Camera]:
     elif cfg.scene == "soup":
         scene = procedural.random_tri_soup(cfg.scene_arg or 1024, device=device)
         cam = dict(position=(0.0, 0.5, 3.0), look_at=(0.0, 0.0, 0.0), fov_y_deg=45.0)
+    elif cfg.scene.startswith("obj:"):
+        scene = load_obj(cfg.scene[4:], device=device)
+        verts = scene.verts.cpu().numpy()
+        lo, hi = verts.min(0), verts.max(0)
+        c = (lo + hi) / 2
+        # The bounding box's centre, seen from (0, 0.3, 1.2) times its diagonal.
+        cam = dict(position=tuple(c + np.array([0.0, 0.3, 1.2]) * np.linalg.norm(hi - lo)),
+                   look_at=tuple(c), fov_y_deg=45.0)
     else:
         raise ValueError(f"unknown scene '{cfg.scene}'")
     return scene, Camera.make(**cam, device=device)
@@ -92,6 +103,11 @@ def build_tracers(scene: Scene, cfg: RenderConfig, accel=None):
     return make_streamed_tracers(scene, accel)
 
 
+def _check_dtype(cfg: RenderConfig):
+    if cfg.dtype != "float32":
+        raise ValueError(f"the port renders in float32, got dtype={cfg.dtype!r}")
+
+
 def make_render_fn(scene: Scene, cfg: RenderConfig, device):
     """(scene, camera, with_aux=False, ensure_exact=False) -> image (H, W, 3)
     [, aux] on `device`.
@@ -109,11 +125,9 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, device):
     differentiable entry points are make_grad_step_fn, and render_tiled and
     render_wavefront called directly. Every frame is exact by construction
     (overflow 0), so ensure_exact, the reference's re-sizing request,
-    changes nothing. Raises on a config the port cannot honour: a dtype
-    other than float32, or profile=True."""
-    if cfg.dtype != "float32" or cfg.profile:
-        raise ValueError(f"the port renders in float32 with no profile option, got "
-                         f"dtype={cfg.dtype!r}, profile={cfg.profile}")
+    changes nothing. Raises on a dtype other than float32, which the port
+    cannot honour."""
+    _check_dtype(cfg)
     device = torch.device(device)
     wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
     state = {"scene": None, "accel": None}
@@ -168,7 +182,9 @@ def _sync(device: torch.device):
 def benchmark(config: str | RenderConfig | None = None, iters: int = 10,
               warmup: int = 2, *, device="cuda", **overrides) -> dict:
     """Timed forward renders -> ms/frame and rays/s (the keys of
-    tracer.api.benchmark, plus the device the frames ran on)."""
+    tracer.api.benchmark, plus the device the frames ran on). With
+    cfg.profile the timed loop runs under utils.metrics.profile_trace, which
+    writes a Chrome trace (trace.json) into $TRACER_PROFILE_DIR."""
     device = torch.device(device)
     cfg = config if isinstance(config, RenderConfig) else load_config(config, **overrides)
     scene, camera = get_scene(cfg, device)
@@ -176,11 +192,12 @@ def benchmark(config: str | RenderConfig | None = None, iters: int = 10,
     for _ in range(max(warmup, 1)):
         run(scene, camera)
     _sync(device)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        img = run(scene, camera)
-    _sync(device)
-    dt = (time.perf_counter() - t0) / iters
+    with profile_trace(cfg.profile):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            img = run(scene, camera)
+        _sync(device)
+        dt = (time.perf_counter() - t0) / iters
     _, aux = run(scene, camera, with_aux=True)
     primary_rays = cfg.height * cfg.width
     # Every traced wavefront: per bounce one closest-hit pass plus one
@@ -301,9 +318,7 @@ def make_grad_step_fn(cfg: RenderConfig, scene: Scene | None = None,
     the vertices through make_vertex_normal_fn's gather in the tiled tier
     when `scene` is given, through compute_vertex_normals_torch's scatter
     otherwise."""
-    if cfg.dtype != "float32" or cfg.profile:
-        raise ValueError(f"the port renders in float32 with no profile option, got "
-                         f"dtype={cfg.dtype!r}, profile={cfg.profile}")
+    _check_dtype(cfg)
     device = torch.device(device)
     tiled_tier = use_tiled_grad(scene, cfg, tiled)
     normal_fn = None

@@ -4,8 +4,10 @@ Each function takes a JAX object's leaves as numpy arrays, one entry per
 dataclass field (`np.asarray` of each field; nested dataclasses as nested
 mappings), and returns the port's object on `device`. The tests use
 accel_from_arrays to feed ONE accel to both packages, which holds the
-traversal kernels to each other independently of the two accel builds, and
-fit_state_from_arrays to start both packages' fits from one state.
+traversal kernels to each other independently of the two accel builds,
+flat_bvh_from_arrays to walk the reference's own LBVH with the port's
+traversal, and fit_state_from_arrays to start both packages' fits from one
+state.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from tracer_torch.bvh.cluster import ClusterAccel
+from tracer_torch.bvh.lbvh import FlatBVH
 from tracer_torch.core.camera import Camera
 from tracer_torch.scene.types import Lights, Materials, Scene
 
@@ -42,6 +45,11 @@ def accel_from_arrays(fields: Mapping, device) -> ClusterAccel:
     """ClusterAccel from {tri_w, tri_ids, cluster_lo, cluster_hi, super_lo,
     super_hi, shade}."""
     return _build(ClusterAccel, fields, device)
+
+
+def flat_bvh_from_arrays(fields: Mapping, device) -> FlatBVH:
+    """FlatBVH from {node_lo, node_hi, left, right, leaf_tri}."""
+    return _build(FlatBVH, fields, device)
 
 
 def fit_state_from_arrays(params: Mapping, mu: Mapping, nu: Mapping, count: int, device):

@@ -33,3 +33,17 @@ def quantize_positions(p: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> t
     extent = torch.clamp_min(hi - lo, 1e-12)
     u = (p - lo) / extent
     return torch.clamp(u * 1024.0, 0.0, 1023.0).to(torch.int64)
+
+
+def morton_decode3d(code: torch.Tensor) -> torch.Tensor:
+    """Inverse of morton3d: (N,) codes -> (N, 3) coords (int64)."""
+    def compact(v):
+        v = v.to(torch.int64) & 0x49249249
+        v = (v | (v >> 2)) & 0xC30C30C3
+        v = (v | (v >> 4)) & 0x0F00F00F
+        v = (v | (v >> 8)) & 0xFF0000FF
+        v = (v | (v >> 16)) & 0x000003FF
+        return v
+
+    code = code.to(torch.int64) & _U32
+    return torch.stack([compact(code >> 2), compact(code >> 1), compact(code)], dim=-1)

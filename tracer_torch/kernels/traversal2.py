@@ -27,8 +27,10 @@ points at run time from the counts (P = tiles with count > 1, Z = tiles
 with count > 0), so every tile lands in a region that is exact for it;
 any_hit_tiles_graded hands every tile to the one any-hit launch, whose
 segment table does the sorting. The reference's static partitions could
-leave an excess; here it is 0 by construction. recover_hit maps a selected
-slot back to a full Hit.
+leave an excess; here it is 0 by construction. trace_tiles_sorted and
+any_hit_tiles_sorted make one pass of the generic closest-hit and the
+any-hit kernel over the whole tile set, unsorted. recover_hit maps a
+selected slot back to a full Hit.
 """
 from __future__ import annotations
 
@@ -415,24 +417,49 @@ def trace_tiles_split(o_t, d_t, accel, words, counts):
     return bt, bid, excess, (P, Z)
 
 
+def trace_tiles_sorted(o_t, d_t, accel, words, counts, t_min=T_MIN):
+    """Closest hit of every tile in one closest_hit pass (the generic
+    kernel on every tile, whatever its count; a tile with count 0 has no
+    segment and keeps the miss constants): (bt (Nt, TR), gid (Nt, TR) slot
+    cl*C + lane or -1). Bit-equal to trace_tiles_split's (bt, gid). The
+    reference's group, batch, shared_o and interpret answer to its Mosaic
+    lowering and are not taken; B is BATCH, the kernel's."""
+    _check_t_min(t_min)
+    o4, d4 = _homog(o_t, d_t)
+    return closest_hit(o4, d4, accel.tri_w, words.contiguous(), counts.contiguous())
+
+
+def any_hit_tiles_sorted(o_t, d_t, t_max_t, accel, words, counts, t_min=T_MIN):
+    """Occlusion of every tile in ONE any-hit launch -> (Nt, TR) bool; a
+    tile with count 0 has no segment and stays unoccluded. Padding rays
+    (d == 0) get t_max = 0 so they cannot raise a tile's early-out bound.
+    The reference's group, batch, shared_o and interpret are not taken, as
+    for trace_tiles_sorted."""
+    _check_t_min(t_min)
+    valid = (d_t != 0.0).any(-1)
+    tmax = torch.where(valid, t_max_t, 0.0)
+    o4, d4 = _homog(o_t, d_t)
+    return anyhit(o4, d4, tmax, accel.tri_w, words.contiguous(), counts.contiguous())
+
+
+def _check_t_min(t_min):
+    if t_min != T_MIN:
+        raise ValueError(f"the traversal2 kernels are built for t_min = {T_MIN}, got {t_min}")
+
+
 def any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts):
-    """Occlusion of every tile in ONE any-hit launch; a tile with count 0
-    has no segment and stays unoccluded. (The reference sorts the tiles and
-    grades the kernel region into B=4 and B=1 parts because its lockstep
-    groups of 8 tiles step to the group's max count; the kernel here works
-    through segments, heaviest tiles first, in whatever order the tiles
-    lie.) Padding rays (d == 0) get t_max = 0 so they cannot raise a tile's
-    early-out bound.
+    """any_hit_tiles_sorted, with the reference's bookkeeping. (The
+    reference sorts the tiles and grades the kernel region into B=4 and B=1
+    parts because its lockstep groups of 8 tiles step to the group's max
+    count; the kernel here works through segments, heaviest tiles first, in
+    whatever order the tiles lie.)
 
     Returns (occ (Nt, TR) bool, excess, (need_b1, need_zero)) with need_b1
     = #tiles with count > 1, need_zero = #tiles with count > 0, and excess
     0: no tile lies outside a region that is exact for it."""
-    valid = (d_t != 0.0).any(-1)
-    tmax = torch.where(valid, t_max_t, 0.0)
-    o4, d4 = _homog(o_t, d_t)
     need = tuple(int(x) for x in torch.stack(
         [(counts > 1).sum(), (counts > 0).sum()]).tolist())
-    occ = anyhit(o4, d4, tmax, accel.tri_w, words.contiguous(), counts.contiguous())
+    occ = any_hit_tiles_sorted(o_t, d_t, t_max_t, accel, words, counts)
     return occ, torch.zeros((), dtype=torch.int64, device=o_t.device), need
 
 

@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 
 from tracer_torch.core import intersect as ci
+from tracer_torch.core.camera import generate_rays
 from tracer_torch.core.types import RAY_EPS, Hit, Ray, dot, normalize, take
 
 TraceFn = Callable[[Ray], Hit]
@@ -173,3 +174,16 @@ def render_wavefront_aux(scene, ray: Ray, cfg: WhittedConfig, trace_fn_aux, occl
 
     radiance = render_wavefront(scene, ray, cfg, trace_fn, occlude_fn)
     return radiance, {**tot, "overflow": int(tot["overflow"])}
+
+
+def render_image(scene, camera, height: int, width: int, cfg: WhittedConfig = WhittedConfig(),
+                 trace_fn: TraceFn | None = None,
+                 occlude_fn: OccludeFn | None = None) -> torch.Tensor:
+    """Full-image render -> (H, W, 3) linear RGB, on the scene's device.
+    Either tracer not given is the brute-force one."""
+    if trace_fn is None or occlude_fn is None:
+        bt, bo = make_brute_tracers(scene)
+        trace_fn = trace_fn or bt
+        occlude_fn = occlude_fn or bo
+    return render_wavefront(scene, generate_rays(camera, height, width), cfg, trace_fn,
+                            occlude_fn)

@@ -18,11 +18,11 @@ class RenderConfig:
     (kernels/stream.py) when it has more. Every other config renders
     through the wavefront integrator over api.build_tracers: brute force
     without `use_bvh`, the plain cluster tier (kernels/traversal.py) with
-    `use_bvh` alone. The port renders in float32 and has no profile
-    option: api.make_render_fn raises on any other `dtype` and on
-    `profile=True`."""
+    `use_bvh` alone. The port renders in float32: api.make_render_fn
+    raises on any other `dtype`. `profile=True` makes api.benchmark trace
+    its timed loop with torch.profiler (utils.metrics.profile_trace)."""
 
-    scene: str = "cornell"          # cornell | bunny | hall | bench | soup
+    scene: str = "cornell"          # cornell | bunny | hall | bench | soup | obj:<path>
     height: int = 256
     width: int = 256
     max_bounces: int = 1
@@ -35,6 +35,20 @@ class RenderConfig:
 
     def replace(self, **kw) -> "RenderConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    """Distribution configuration: the fields and defaults of the
+    reference's (read by the distributed tiers, which the port does not
+    have yet)."""
+
+    data_axis: int = 1              # cards used for tile/ray data parallelism
+    geom_axis: int = 1              # cards the geometry is sharded over (ring)
+    multihost: bool = False
+    coordinator: str = ""
+    num_processes: int = 1
+    process_id: int = 0
 
 
 PRESETS: dict[str, RenderConfig] = {
