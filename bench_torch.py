@@ -18,8 +18,15 @@ GPU: prints ONE JSON line with bench.py's names, plus detail.device.
     after 1) (tracer_torch.api.benchmark_grad_step). A grad step that raises
     fails the run; bench.py records such an error in the line instead.
 
-It runs on the card only: without CUDA it raises. bench.py's --scaling
-table needs the port of tracer/dist/, which does not exist yet.
+It runs on the card only: without CUDA it raises.
+
+    python3 bench_torch.py --scaling
+
+prints bench.py's scaling table instead (BENCH_PRESET, BENCH_ITERS default
+5): with more than one card, tracer_torch.dist.scaling.scaling_sweep over
+1, 2, 4, ... cards (NCCL, a world of ranks a count); with one card, the
+card's row measured by api.benchmark and the 1-host and 4-host rows marked
+pending.
 """
 import json
 import os
@@ -95,10 +102,42 @@ def run(preset: str, iters: int, grad: bool, device="cuda") -> tuple[int, dict]:
     return bench_line(preset, frame, grad_steps(device))
 
 
+def scaling_rows(preset: str, iters: int, device="cuda", **overrides) -> list[str]:
+    """bench.py --scaling's table, as lines. On the card: with more than one
+    card, one measured row a count of cards of scaling_sweep; with one, the
+    card's row (api.benchmark) and the multi-card rows pending. device="cpu"
+    sweeps 1 and 2 gloo ranks: a proof of the harness, not a measurement."""
+    from tracer_torch.dist.scaling import scaling_sweep
+    from tracer_torch.utils.config import load_config
+
+    cfg = load_config(preset, **overrides)
+    lines = ["| Topology | rays/s | scaling efficiency | status |", "|---|---|---|---|"]
+    if torch.device(device).type == "cpu":
+        rows = scaling_sweep(cfg, device_counts=[1, 2], iters=iters, device="cpu")
+        kind, status = "CPU rank", "cpu (gloo; harness proof, timings not hardware)"
+    elif not torch.cuda.is_available():
+        raise RuntimeError("bench_torch.py --scaling measures the cards: CUDA is not available")
+    else:
+        n = torch.cuda.device_count()
+        kind, status = torch.cuda.get_device_name(0), "measured"
+        if n == 1:
+            mray = benchmark(cfg, iters=iters, device=device)["rays_per_s"] / 1e6
+            return lines + [f"| 1 card ({kind}) | {mray:.1f} Mrays/s | 100% (definition) | "
+                            f"measured |"] + [
+                f"| {label} | — | target >=85% | pending: this machine has {n} card |"
+                for label in ("1 host (4 cards)", "4 hosts (16 cards)")]
+        rows = scaling_sweep(cfg, iters=iters, device=device)
+    return lines + [f"| {r['devices']}x {kind} | {r['rays_per_s'] / 1e6:.1f} Mrays/s | "
+                    f"{r['efficiency'] * 100:.1f}% | {status} |" for r in rows]
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--scaling"]:
+        print("\n".join(scaling_rows(os.environ.get("BENCH_PRESET", "bench100k"),
+                                     int(os.environ.get("BENCH_ITERS", "5")))))
+        return 0
     if sys.argv[1:]:
-        raise SystemExit(f"bench_torch.py takes no arguments, got {sys.argv[1:]} (bench.py's "
-                         f"--scaling needs the port of tracer/dist/)")
+        raise SystemExit(f"bench_torch.py takes no arguments but --scaling, got {sys.argv[1:]}")
     rc, line = run(os.environ.get("BENCH_PRESET", "bench100k"),
                    int(os.environ.get("BENCH_ITERS", "10")),
                    os.environ.get("BENCH_GRAD", "1") != "0")

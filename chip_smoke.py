@@ -153,8 +153,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      same inputs and each from its own, in units of 2^-23 (the first stage
      past 4 is named with its operations), and where the replay-mode loss
      gap of phase 18 (a) comes from.
+  The distributed paths (tracer_torch.dist), phase 20, in a world of one
+  rank (NCCL on the card, a file:// store), each part with its seconds:
+  20. (a) make_sharded_accel_render_fn at data = 1 over build_tracers on
+     bench100k 1080p: bit-equal to render_wavefront over build_tracers,
+     launching exactly closest_hit_kernel, closest_fast_kernel and
+     anyhit_kernel (counts set to 0 just before the frame), its ms a frame
+     beside phase 6's; (b) the same on pod-1m 1080p, 1 bounce: bit-equal,
+     exactly the two stream kernels; (c) reshard_bounces=True on
+     sponza1080 1080p, 3 bounces: under the golden gate of the frame
+     without the re-shard, one all_to_all_single each way a bounce after
+     the first; (d) make_ring_render_fn over the shard accel (k_cap None,
+     with_aux), ring and reduce, on bench100k 1080p, 1 bounce: overflow 0,
+     exactly the two work-list kernels, under the golden gate of (a)'s
+     image, with the shard accel's build time and the peak memory; (e) the
+     brute ring and reduce on cornell256 256x256 against make_render_fn's
+     frame, no kernel; (f) make_sharded_grad_fn and make_overlapped_grad_fn
+     (4 buckets) on cornell256 256x256 and the overlapped step over
+     build_tracers on bunny-grad, from phase 18's off-centre camera against
+     a zeros target, on the card against the CPU (a world of one gloo rank
+     in a spawned process, run while the card works) under the grad gate of
+     17; (g) scaling_sweep on bench100k (one row) and bin/bench_torch
+     --scaling (the measured row, two pending); (h) dryrun.
 Each phase prints its wall time. The last lines are a JSON line of
-per-kernel results, the nvidia-smi line, and {"ok": true, "device": {...}}.
+per-kernel results (launches: on the main paths of phases 4, 11 and 15;
+dist_launches: on phase 20's (a), (b) and (d) ring frame), the nvidia-smi
+line, and {"ok": true, "device": {...}}.
 
 A kernel's bound is the larger of its operations over the card's fp32 peak
 and its bytes over the card's memory rate, counting what its function needs
@@ -2471,6 +2495,281 @@ def phase_19(smi: str, frame: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the distributed paths (tracer_torch.dist) in a world of one rank
+# ---------------------------------------------------------------------------
+
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-6  # the grad gate of phase 17
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_tier(what: str, launches: dict, tier: str | None):
+    """Every kernel of `tier` launched (none for tier None) and no other."""
+    want = TIERS[tier] if tier else ()
+    missing = [k for k in want if not launches.get(k)]
+    stray = [k for k in launches if k not in want]
+    check(not missing and not stray, f"{what} never launched {missing}, and launched {stray}")
+
+
+def host_ms(dev, fn, reps: int) -> float:
+    """Mean host-clock ms of fn over reps calls after one, a sync at each end."""
+    fn()
+    sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(dev)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def dist_tile_dp(mesh, smi, preset, tier, dev="cuda", reps: int = 5, **overrides):
+    """(a), (b): make_sharded_accel_render_fn at data = 1 over build_tracers:
+    bit-equal to render_wavefront over build_tracers of the same scene,
+    launching exactly the kernels of `tier`; its ms a frame (host clock)."""
+    from tracer_torch.dist.ray_dp import make_sharded_accel_render_fn
+
+    cfg = load_config(preset, **overrides)
+    scene, camera = api.get_scene(cfg, dev)
+    run = make_sharded_accel_render_fn(scene, cfg, mesh)
+    img, l_run = launched(run, scene, camera)
+    wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    with torch.inference_mode():
+        ref = whitted.render_wavefront(scene, generate_rays(camera, cfg.height, cfg.width), wcfg,
+                                       *api.build_tracers(scene, cfg))
+    ms = host_ms(dev, lambda: run(scene, camera), reps)
+    log(f"[dist] (tile DP) {preset} {cfg.width}x{cfg.height}, {cfg.max_bounces} bounce(s), "
+        f"data = 1: bit-equal to render_wavefront over build_tracers: {torch.equal(img, ref)}; "
+        f"launches {l_run}; {ms:.3f} ms a frame ({reps} after 1, accel built each frame), on "
+        f"{smi}")
+    check(torch.equal(img, ref), f"tile DP {preset}: not bit-equal to render_wavefront")
+    check(img.mean() > 0.01, f"tile DP {preset}: frame not lit")
+    check_tier(f"tile DP {preset}", l_run, tier)
+    return img, ms, l_run
+
+
+class CountingAllToAll:
+    """torch.distributed.all_to_all_single, counted, while installed."""
+
+    def __init__(self):
+        self.calls = 0
+        self.inner = torch.distributed.all_to_all_single
+
+    def __call__(self, *args, **kwargs):
+        self.calls += 1
+        return self.inner(*args, **kwargs)
+
+    def __enter__(self):
+        torch.distributed.all_to_all_single = self
+        return self
+
+    def __exit__(self, *exc):
+        torch.distributed.all_to_all_single = self.inner
+
+
+def dist_reshard(mesh, smi, dev="cuda", preset="sponza1080"):
+    """(c): reshard_bounces=True against the same frame without the re-shard,
+    under the golden gate; one exchange each way a bounce after the first."""
+    from tracer_torch.dist.ray_dp import make_sharded_accel_render_fn
+
+    cfg = load_config(preset)
+    scene, camera = api.get_scene(cfg, dev)
+    plain = make_sharded_accel_render_fn(scene, cfg, mesh)
+    resh = make_sharded_accel_render_fn(scene, cfg, mesh, reshard_bounces=True)
+    img_p = plain(scene, camera)
+    with CountingAllToAll() as a2a:
+        img_r, l_run = launched(resh, scene, camera)
+    ms_p = host_ms(dev, lambda: plain(scene, camera), 2)
+    ms_r = host_ms(dev, lambda: resh(scene, camera), 2)
+    log(f"[dist] (re-shard) {preset} {cfg.width}x{cfg.height}, {cfg.max_bounces} bounces: "
+        f"all_to_all_single {a2a.calls} calls, bit-equal to the plain frame "
+        f"{torch.equal(img_r, img_p)}, launches {l_run}; {ms_r:.3f} ms a frame against "
+        f"{ms_p:.3f} without the re-shard, on {smi}")
+    check(a2a.calls == 2 * (cfg.max_bounces - 1),
+          f"re-shard: {a2a.calls} exchanges for {cfg.max_bounces} bounces")
+    golden_gate(img_r.cpu().numpy(), img_p.cpu().numpy(), f"{preset} re-sharded vs plain")
+    return l_run
+
+
+def dist_ring(mesh, smi, ref_img, dev="cuda", preset="bench100k"):
+    """(d): make_ring_render_fn over the accel (k_cap None, with_aux), ring
+    and reduce: overflow 0, kernels 6-7 launched and no other, the image
+    under the golden gate of (a)'s; the shard accel's build and peak memory."""
+    from tracer_torch.dist import ring
+
+    cfg = load_config(preset, max_bounces=1)
+    scene, camera = api.get_scene(cfg, dev)
+    with torch.inference_mode():
+        rows = ring.pack_tri_rows(scene)
+        build_ms = host_ms(dev, lambda: ring.build_rows_accel(rows), 3)
+        accel = ring.build_rows_accel(rows)
+    log(f"[dist] (ring) {preset}: shard accel of {rows.shape[0]} rows, {accel.num_clusters} "
+        f"clusters: built in {build_ms:.3f} ms (host clock, mean of 3), on {smi}")
+    out = {}
+    for use_ring in (True, False):
+        what = f"{'ring' if use_ring else 'reduce'} accel {preset}"
+        run = ring.make_ring_render_fn(scene, cfg, mesh, use_ring=use_ring, use_accel=True,
+                                       with_aux=True, k_cap=None)
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        (img, aux), l_run = launched(run, scene, camera)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0
+        ms = host_ms(dev, lambda: run(scene, camera), 2)
+        log(f"[dist] ({what}) {cfg.width}x{cfg.height}: overflow {aux['overflow']}, launches "
+            f"{l_run}, peak device memory {peak:.2f} GiB, {ms:.3f} ms a frame, on {smi}")
+        check(aux["overflow"] == 0, f"{what}: overflow {aux['overflow']}")
+        check_tier(what, l_run, "worklist")
+        golden_gate(img.cpu().numpy(), ref_img.cpu().numpy(), f"{what} vs tile DP")
+        out[use_ring] = l_run
+    return out[True]
+
+
+def dist_brute_ring(mesh, smi, dev="cuda", preset="cornell256"):
+    """(e): the brute ring and reduce against make_render_fn's frame, no
+    kernel launched."""
+    from tracer_torch.dist import ring
+
+    cfg = load_config(preset)
+    scene, camera = api.get_scene(cfg, dev)
+    ref = api.make_render_fn(scene, cfg, dev)(scene, camera).cpu().numpy()
+    for use_ring in (True, False):
+        what = f"{'ring' if use_ring else 'reduce'} brute {preset}"
+        run = ring.make_ring_render_fn(scene, cfg, mesh, use_ring=use_ring, use_accel=False)
+        img, l_run = launched(run, scene, camera)
+        ms = host_ms(dev, lambda: run(scene, camera), 3)
+        log(f"[dist] ({what}) {cfg.width}x{cfg.height}: {ms:.3f} ms a frame, launches {l_run}, "
+            f"on {smi}")
+        check_tier(what, l_run, None)
+        golden_gate(img.cpu().numpy(), ref, f"{what} vs make_render_fn")
+
+
+GRAD_CASES = (("sharded", "cornell256"), ("overlapped", "cornell256"),
+              ("overlapped accel", "bunny-grad"))
+
+
+def dist_grads(mesh, dev):
+    """Each of GRAD_CASES on `dev`: make_sharded_grad_fn, or
+    make_overlapped_grad_fn with 4 buckets (over build_tracers of the
+    config for "accel"), from fit_scene's off-centre camera against a zeros
+    target -> {case: (loss, grads, host ms)}."""
+    from functools import partial
+
+    from tracer_torch.dist.grad_overlap import make_overlapped_grad_fn
+    from tracer_torch.dist.ray_dp import make_sharded_grad_fn
+
+    out = {}
+    for kind, preset in GRAD_CASES:
+        cfg = load_config(preset)
+        scene, camera = fit_scene(cfg, dev, off_center=True)
+        target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+        if kind == "sharded":
+            fn = make_sharded_grad_fn(scene, cfg, mesh)
+        else:
+            builder = partial(api.build_tracers, cfg=cfg) if "accel" in kind else None
+            fn = make_overlapped_grad_fn(cfg, mesh, n_buckets=4, tracer_builder=builder)
+        sync(dev)
+        t0 = time.perf_counter()
+        loss, grads = fn(scene, camera, target)
+        sync(dev)
+        out[kind] = (float(loss), grads.cpu().numpy(), (time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def dist_grads_world(rank):
+    """The CPU side of (f), in a world of one gloo rank."""
+    from tracer_torch.dist.mesh import make_render_mesh
+
+    return dist_grads(make_render_mesh(data=1, device="cpu"), "cpu")
+
+
+def dist_grad_gate(card: dict, cpu: dict, smi: str):
+    """(f): each case on the card against the CPU: loss to rtol 1e-5, the
+    vertex gradient nonzero and to rtol 2e-3 + atol 2e-6 of its largest."""
+    for (kind, preset) in GRAD_CASES:
+        (lc, gc, ms), (lh, gh, ms_cpu) = card[kind], cpu[kind]
+        scale = float(np.abs(gh).max())
+        excess = np.abs(gc - gh) - (GRAD_ATOL * scale + GRAD_RTOL * np.abs(gh))
+        rel = abs(lc - lh) / abs(lh)
+        log(f"[dist] (grad) {kind} {preset}: loss {lc:.8g} card, {lh:.8g} CPU (relative "
+            f"{rel:.3g}, gate 1e-5); gradient largest {scale:.4g}, worst excess over the gate "
+            f"{excess.max():.3g}; {ms:.1f} ms on the card (first call), {ms_cpu:.1f} on the "
+            f"CPU, on {smi}")
+        check(rel <= 1e-5, f"{kind} grad: card and CPU losses differ by {rel:.3g}")
+        check(scale > 0 and excess.max() <= 0, f"{kind} grad: gradients outside the grad gate")
+
+
+def dist_scaling(smi, frame_ms: float):
+    """(g): scaling_sweep on bench100k (one card: one row), then
+    bin/bench_torch --scaling: the measured row and two pending ones."""
+    from tracer_torch.dist.scaling import scaling_sweep
+
+    rows = scaling_sweep(load_config("bench100k"), iters=3)
+    log(f"[dist] (scaling) scaling_sweep bench100k: {json.dumps(rows)} (phase 6: "
+        f"{frame_ms:.3f} ms/frame), on {smi}")
+    check(len(rows) == 1 and rows[0]["devices"] == 1 and rows[0]["efficiency"] == 1.0,
+          f"scaling_sweep rows {rows}")
+    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "bench_torch"), "--scaling",
+                           "--preset", "bench100k", "--iters", "3"], capture_output=True,
+                          text=True, timeout=600)
+    check(proc.returncode == 0, f"bin/bench_torch --scaling failed:\n{proc.stderr[-4000:]}")
+    lines = proc.stdout.strip().splitlines()
+    for line in lines:
+        log(f"[dist] (scaling) {line}")
+    check(len(lines) == 5 and lines[2].startswith("| 1 card (") and "measured" in lines[2]
+          and all("pending" in line for line in lines[3:]),
+          "bin/bench_torch --scaling: not the one-card table")
+
+
+def phase_20(smi: str, frame: dict, dev="cuda") -> dict:
+    """Phase 20: the distributed paths in a world of one rank (NCCL on the
+    card), see the module docstring. Returns each kernel's launches over the
+    dist paths (a), (b) and (d)'s ring frame."""
+    from concurrent.futures import ThreadPoolExecutor
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from tracer_torch.dist.mesh import backend_for, make_render_mesh, spawn_world
+    from tracer_torch.dist.ray_dp import dryrun
+
+    launches = {}
+
+    def add(l_run):
+        for k, v in l_run.items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        # The CPU side of (f) runs in its own world while the card works.
+        cpu_grads = pool.submit(spawn_world, dist_grads_world, 1, device="cpu")
+        dist.init_process_group(backend_for(dev), init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1, timeout=timedelta(seconds=60),
+                                device_id=torch.device(dev, 0) if dev == "cuda" else None)
+        try:
+            mesh = make_render_mesh(data=1, geom=1, device=dev)
+            img, ms, l_run = timed("20 (a) tile DP bench100k", dist_tile_dp, mesh, smi,
+                                   "bench100k", "sorted", dev)
+            log(f"[dist] (tile DP) bench100k {ms:.3f} ms a frame against phase 6's "
+                f"{frame['ms_per_frame']:.3f} (make_render_fn's tiled tier)")
+            add(l_run)
+            add(timed("20 (b) tile DP pod-1m", dist_tile_dp, mesh, smi, "pod-1m", "streamed",
+                      dev, reps=2, max_bounces=1)[2])
+            timed("20 (c) re-shard", dist_reshard, mesh, smi, dev)
+            add(timed("20 (d) ring accel", dist_ring, mesh, smi, img, dev))
+            del img
+            timed("20 (e) brute ring", dist_brute_ring, mesh, smi, dev)
+            card = timed("20 (f) grads, card", dist_grads, mesh, dev)
+            dist_grad_gate(card, cpu_grads.result(timeout=600)[0], smi)
+            if dev == "cuda":
+                timed("20 (g) scaling", dist_scaling, smi, frame["ms_per_frame"])
+            timed("20 (h) dryrun", dryrun, dev)
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
 def timed(name: str, fn, *args, **kwargs):
     """fn(*args, **kwargs), then its wall time on a line of its own."""
     t0 = time.perf_counter()
@@ -2515,10 +2814,14 @@ def main() -> int:
     t19 = time.perf_counter()
     phase_19(smi, frame)
     log(f"[phase] 19: {time.perf_counter() - t19:.1f} s")
+    t20 = time.perf_counter()
+    dist_launches = phase_20(smi, frame)
+    log(f"[phase] 20: {time.perf_counter() - t20:.1f} s")
     log(f"[phase] all: {time.perf_counter() - t0:.1f} s")
 
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[k], **results[k]} for k, (src, rep) in KERNELS.items()]
+                "launches": launches[k], "dist_launches": dist_launches.get(k, 0),
+                **results[k]} for k, (src, rep) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

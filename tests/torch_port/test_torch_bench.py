@@ -94,8 +94,15 @@ def test_environment_is_honoured(monkeypatch, capsys):
     for var in ("BENCH_PRESET", "BENCH_ITERS", "BENCH_GRAD"):
         monkeypatch.delenv(var)
     assert bench_torch.main() == 0 and seen[-1] == ("bench100k", 10, True)
+    capsys.readouterr()
+    # --scaling prints scaling_rows' table, at BENCH_ITERS (default 5) as bench.py's does.
+    monkeypatch.setattr(bench_torch, "scaling_rows",
+                        lambda *a: seen.append(a) or ["| Topology |", "| row |"])
     monkeypatch.setattr(sys, "argv", ["bench_torch.py", "--scaling"])
-    with pytest.raises(SystemExit, match="--scaling"):
+    assert bench_torch.main() == 0 and seen[-1] == ("bench100k", 5)
+    assert capsys.readouterr().out == "| Topology |\n| row |\n"
+    monkeypatch.setattr(sys, "argv", ["bench_torch.py", "--bogus"])
+    with pytest.raises(SystemExit, match="--bogus"):
         bench_torch.main()
 
 

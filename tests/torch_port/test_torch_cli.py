@@ -130,8 +130,8 @@ def test_clis_refuse_without_cuda(tmp_path):
 
 def test_bench_torch_cpu(tmp_path):
     """bin/bench_torch --cpu: bench_torch.py's line (its metric, the frame's
-    ms and overflow 0, the device named), exit 0; --scaling is refused with
-    a message that names dist/."""
+    ms and overflow 0, the device named), exit 0; --scaling --cpu prints
+    bench.py's scaling table over 1 and 2 gloo ranks, the first at 100 %."""
     proc = _cli(tmp_path, "bench_torch", "--cpu", "--preset", "cornell256", "--iters", "1",
                 "--no-grad")
     assert proc.returncode == 0, proc.stderr
@@ -139,9 +139,13 @@ def test_bench_torch_cpu(tmp_path):
     assert line["metric"] == "rays_per_s_per_chip_100ktri_1080p" and line["value"] > 0
     assert line["detail"]["overflow"] == 0 and line["detail"]["device"] == "cpu"
     assert line["detail"]["preset"] == "cornell256" and "grad_step_ms" not in line["detail"]
-    proc = _cli(tmp_path, "bench_torch", "--scaling")
-    assert proc.returncode != 0 and proc.stdout == ""
-    assert "tracer/dist/" in proc.stderr
+    proc = _cli(tmp_path, "bench_torch", "--scaling", "--cpu", "--preset", _config(tmp_path),
+                "--iters", "1")
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    assert lines[0] == "| Topology | rays/s | scaling efficiency | status |" and len(lines) == 4
+    assert lines[2].startswith("| 1x CPU rank |") and "| 100.0% |" in lines[2]
+    assert lines[3].startswith("| 2x CPU rank |") and lines[3].endswith("timings not hardware) |")
 
 
 def test_dist_config_matches_reference():

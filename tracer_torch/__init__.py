@@ -16,7 +16,11 @@ and bin/bench_torch prints the benchmark line. Beside them: OBJ scenes
 (scene/io.py, with the native parser of cpp/objloader.cpp), the LBVH tier
 (bvh/lbvh.py), the debug guard (utils/debug.py) and the port's own
 bindings to the oracles it is held to (refcpu/: the fp64 C++ renderer of
-cpp/oracle.cpp and a numpy copy of the reference's oracle).
+cpp/oracle.cpp and a numpy copy of the reference's oracle). dist/ spreads
+frames and grad steps over ranks with torch.distributed (NCCL on cards,
+gloo on the CPU): tile data parallelism, the all-to-all re-shard of bounce
+wavefronts, the overlapped bucketed grad all-reduce, sharded geometry (ring
+and reduce) and the scaling sweep.
 
 It imports torch and numpy only. Every entry point takes an explicit
 `device`, or the device of the tensors it is given; on CPU tensors each
@@ -35,10 +39,14 @@ _LAZY = {"render": "tracer_torch.api", "grad_step": "tracer_torch.api",
          "triangle_affine_maps": "tracer_torch.core.intersect",
          "intersect_packed": "tracer_torch.core.intersect",
          "intersect_brute": "tracer_torch.core.intersect"}
-__all__ = list(_LAZY)
+__all__ = [*_LAZY, "dist"]
 
 
 def __getattr__(name):
+    if name == "dist":
+        import importlib
+
+        return importlib.import_module("tracer_torch.dist")
     if name not in _LAZY:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     import importlib

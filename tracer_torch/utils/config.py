@@ -40,8 +40,10 @@ class RenderConfig:
 @dataclasses.dataclass(frozen=True)
 class DistConfig:
     """Distribution configuration: the fields and defaults of the
-    reference's (read by the distributed tiers, which the port does not
-    have yet)."""
+    reference's. data_axis x geom_axis is the shape of dist.make_render_mesh
+    (ranks on the "data" axis split the image rows, ranks on "geom" the
+    geometry, dist/ring.py); coordinator, num_processes and process_id are
+    the arguments of dist.init_multihost."""
 
     data_axis: int = 1              # cards used for tile/ray data parallelism
     geom_axis: int = 1              # cards the geometry is sharded over (ring)
