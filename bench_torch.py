@@ -102,7 +102,7 @@ def run(preset: str, iters: int, grad: bool, device="cuda") -> tuple[int, dict]:
     return bench_line(preset, frame, grad_steps(device))
 
 
-def scaling_rows(preset: str, iters: int, device="cuda", **overrides) -> list[str]:
+def scaling_rows(preset: str, iters: int, device="cuda") -> list[str]:
     """bench.py --scaling's table, as lines. On the card: with more than one
     card, one measured row a count of cards of scaling_sweep; with one, the
     card's row (api.benchmark) and the multi-card rows pending. device="cpu"
@@ -110,7 +110,7 @@ def scaling_rows(preset: str, iters: int, device="cuda", **overrides) -> list[st
     from tracer_torch.dist.scaling import scaling_sweep
     from tracer_torch.utils.config import load_config
 
-    cfg = load_config(preset, **overrides)
+    cfg = load_config(preset)
     lines = ["| Topology | rays/s | scaling efficiency | status |", "|---|---|---|---|"]
     if torch.device(device).type == "cpu":
         rows = scaling_sweep(cfg, device_counts=[1, 2], iters=iters, device="cpu")

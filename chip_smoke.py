@@ -2507,11 +2507,14 @@ def sync(dev):
         torch.cuda.synchronize()
 
 
-def check_tier(what: str, launches: dict, tier: str | None):
-    """Every kernel of `tier` launched (none for tier None) and no other."""
-    want = TIERS[tier] if tier else ()
+def check_tier(what: str, launches: dict, tier: str | None, need=None):
+    """Every kernel of `tier` launched, or those of `need` where the data
+    decides whether the others run (none for tier None), and no kernel
+    outside the tier."""
+    allowed = TIERS[tier] if tier else ()
+    want = allowed if need is None else need
     missing = [k for k in want if not launches.get(k)]
-    stray = [k for k in launches if k not in want]
+    stray = [k for k in launches if k not in allowed]
     check(not missing and not stray, f"{what} never launched {missing}, and launched {stray}")
 
 
@@ -2590,6 +2593,9 @@ def dist_reshard(mesh, smi, dev="cuda", preset="sponza1080"):
         f"{ms_p:.3f} without the re-shard, on {smi}")
     check(a2a.calls == 2 * (cfg.max_bounces - 1),
           f"re-shard: {a2a.calls} exchanges for {cfg.max_bounces} bounces")
+    # The sorted tracers. closest_fast runs only on tiles of at most FAST_BATCH
+    # candidates (trace_tiles_split), so the frame's data decides whether it runs.
+    check_tier(f"re-shard {preset}", l_run, "sorted", need=("closest", "anyhit"))
     golden_gate(img_r.cpu().numpy(), img_p.cpu().numpy(), f"{preset} re-sharded vs plain")
     return l_run
 

@@ -46,7 +46,7 @@ def inputs():
 def world(inputs):
     scene, camera, target = inputs
     return spawn_world(dist_workers.grad_overlap_world, N, leaves(scene), leaves(camera), target,
-                       CFG, ACCEL)
+                       CFG, ACCEL, device="cpu")
 
 
 def _result(world, name):

@@ -15,6 +15,7 @@ import socket
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import jax
@@ -55,7 +56,7 @@ def test_every_public_function_is_ported(module):
 
 @pytest.fixture(scope="module")
 def world():
-    return spawn_world(dist_workers.mesh_world, 8, LAYOUTS)
+    return spawn_world(dist_workers.mesh_world, 8, LAYOUTS, device="cpu")
 
 
 @pytest.mark.parametrize("layout", LAYOUTS, ids=["8x1", "4x2", "2x4", "1x8"])
@@ -81,7 +82,8 @@ def test_mesh_refusals(world):
 def test_spawn_world_fails_when_a_rank_fails(how, message):
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match=message):
-        spawn_world(dist_workers.dying_world, 2, how, timeout=30.0, join_timeout=120.0)
+        spawn_world(dist_workers.dying_world, 2, how, device="cpu", timeout=30.0,
+                    join_timeout=120.0)
     assert time.monotonic() - t0 < 60.0
 
 
@@ -126,9 +128,11 @@ def _free_port() -> int:
 def test_two_process_init_multihost(tmp_path):
     cfg = j_load_config("cornell256", height=32, width=32)
     scene, cam = j_get_scene(cfg)
-    ref = np.asarray(render_image(scene, cam, cfg.height, cfg.width,
-                                  JWhittedConfig(max_bounces=cfg.max_bounces,
-                                                 smooth_shading=cfg.smooth_shading)))
+    # Compiled: eagerly the reference's frame takes seconds of op compiles.
+    ref = np.asarray(jax.jit(partial(
+        render_image, height=cfg.height, width=cfg.width,
+        cfg=JWhittedConfig(max_bounces=cfg.max_bounces,
+                           smooth_shading=cfg.smooth_shading)))(scene, cam))
     np.save(tmp_path / "ref.npy", ref)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env.update(COORD=f"127.0.0.1:{_free_port()}", TRACER_ROOT=str(ROOT),

@@ -57,7 +57,7 @@ def inputs():
 def world(inputs):
     scene, camera, cam_off, target = inputs
     return spawn_world(dist_workers.ray_dp_world, N, leaves(scene), leaves(camera),
-                       leaves(cam_off), target, CFG, ODD, ACCEL)
+                       leaves(cam_off), target, CFG, ODD, ACCEL, device="cpu")
 
 
 @pytest.fixture(scope="module")

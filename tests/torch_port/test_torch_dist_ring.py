@@ -1,8 +1,9 @@
 """tracer_torch.dist.ring against tracer.dist.ring on the CPU.
 
 Single-process pieces on the same inputs (the reference's scene arrays fed
-to the port through tracer_torch.bridge; the reference run eagerly): the
-packed rows and their padding bit for bit; the shard-local accel exactly
+to the port through tracer_torch.bridge; the reference's accel passes
+jitted, the rest run eagerly): the packed rows and their padding bit for
+bit; the shard-local accel exactly
 (order, tri_ids, bounds; tri_w to rtol 1e-6); the brute hit distances and
 the accel passes (t to rtol 1e-6; rows, occlusion and the k-cap's excess
 exact), uncapped and at a cap of 2 that drops candidates; the shading of a
@@ -18,6 +19,8 @@ of the 8 virtual devices under tests/dist/gates.py:dist_check, every
 rank's result equal, and the overflow equal to the reference's (over 0 at
 the cap, 0 otherwise). The cameras look 0.0123 and 0.0071 off their points."""
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -50,6 +53,10 @@ J_BIG = j_load_config("bunny-grad", **BIG)
 CFG_BIG = load_config("bunny-grad", **BIG)
 LAYOUTS = ((2, 2), (1, 4))
 ACCEL_FIELDS = ("tri_w", "tri_ids", "cluster_lo", "cluster_hi", "super_lo", "super_hi", "shade")
+# The reference's accel passes, compiled: eagerly they take seconds each.
+# (Its accel build stays eager: compiled, XLA contracts tri_w's products.)
+j_accel_trace_rows = jax.jit(jring.accel_trace_rows, static_argnames=("k_cap",))
+j_accel_any_hit = jax.jit(jring.accel_any_hit, static_argnames=("k_cap",))
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -146,7 +153,7 @@ def bunny_accel(bunny):
 @pytest.mark.parametrize("k_cap", [None, 2])
 def test_accel_trace_rows_matches(k_cap, bunny_accel):
     ja, ta, o, d, _ = bunny_accel
-    wt, wrow, wex = jring.accel_trace_rows(jnp.asarray(o), jnp.asarray(d), ja, k_cap=k_cap)
+    wt, wrow, wex = j_accel_trace_rows(jnp.asarray(o), jnp.asarray(d), ja, k_cap=k_cap)
     gt, grow, gex = ring.accel_trace_rows(_t(o), _t(d), ta, k_cap=k_cap)
     np.testing.assert_allclose(gt.numpy(), np.asarray(wt), rtol=1e-6)
     np.testing.assert_array_equal(grow.numpy(), np.asarray(wrow))
@@ -158,8 +165,8 @@ def test_accel_trace_rows_matches(k_cap, bunny_accel):
 @pytest.mark.parametrize("k_cap", [None, 2])
 def test_accel_any_hit_matches(k_cap, bunny_accel):
     ja, ta, o, d, tmax = bunny_accel
-    wocc, wex = jring.accel_any_hit(jnp.asarray(o), jnp.asarray(d), ja, jnp.asarray(tmax),
-                                    k_cap=k_cap)
+    wocc, wex = j_accel_any_hit(jnp.asarray(o), jnp.asarray(d), ja, jnp.asarray(tmax),
+                                 k_cap=k_cap)
     gocc, gex = ring.accel_any_hit(_t(o), _t(d), ta, _t(tmax), k_cap=k_cap)
     np.testing.assert_array_equal(gocc.numpy(), np.asarray(wocc))
     assert int(gex) == int(wex)
@@ -206,42 +213,56 @@ CASES = ([("cornell", layout, use_ring, False, None) for layout in LAYOUTS
          + [("bunny", (2, 2), use_ring, True, 2) for use_ring in (True, False)])
 
 
+def _reference(case, cornell, bunny):
+    """The reference's make_ring_render_fn of the case on the first 4 of the
+    virtual devices -> (image, overflow)."""
+    name, layout, use_ring, use_accel, k_cap = case
+    scene, camera = cornell if name == "cornell" else bunny
+    cfg = J_CFG if name == "cornell" else J_BIG
+    mesh = j_make_render_mesh(jax.devices()[:4], *layout)
+    img, aux = jring.make_ring_render_fn(scene, cfg, mesh, use_ring=use_ring,
+                                         use_accel=use_accel, with_aux=True,
+                                         k_cap=k_cap)(scene, camera)
+    return np.asarray(img), int(aux["overflow"])
+
+
 @pytest.fixture(scope="module")
 def world(cornell, bunny):
-    """Every rank's results of dist_workers.ring_world."""
+    """(every rank's results of dist_workers.ring_world, {case: the
+    reference's (image, overflow)}). The ranks run while the reference
+    compiles its cases, four at a time."""
     scenes = {"cornell": (leaves(cornell[0]), leaves(cornell[1]), CFG),
               "bunny": (leaves(bunny[0]), leaves(bunny[1]), CFG_BIG)}
-    return spawn_world(dist_workers.ring_world, 4, scenes, CASES)
+    with ThreadPoolExecutor(1) as ranks, ThreadPoolExecutor(4) as refs:
+        got = ranks.submit(spawn_world, dist_workers.ring_world, 4, scenes, CASES, device="cpu")
+        want = dict(zip(CASES, refs.map(partial(_reference, cornell=cornell, bunny=bunny),
+                                        CASES)))
+        return got.result(), want
 
 
-def _check_case(world, case, scene, camera, cfg):
+def _check_case(world, case):
     """Every rank's (image, overflow) of the case equal; the image under
     dist_check of the reference's; the overflow the reference's."""
-    _, layout, use_ring, use_accel, k_cap = case
-    mesh = j_make_render_mesh(jax.devices()[:4], *layout)
-    want, aux = jring.make_ring_render_fn(scene, cfg, mesh, use_ring=use_ring,
-                                          use_accel=use_accel, with_aux=True,
-                                          k_cap=k_cap)(scene, camera)
-    got, overflow = world[0][case]
-    for res in world[1:]:
+    ranks, refs = world
+    want, want_overflow = refs[case]
+    got, overflow = ranks[0][case]
+    for res in ranks[1:]:
         np.testing.assert_array_equal(res[case][0], got)
         assert res[case][1] == overflow
-    assert got.shape == want.shape and np.asarray(want).max() > 0.05
-    dist_check(got, np.asarray(want))
-    assert overflow == int(aux["overflow"])
+    assert got.shape == want.shape and want.max() > 0.05
+    dist_check(got, want)
+    assert overflow == want_overflow
     return overflow
 
 
 @pytest.mark.parametrize("use_accel", [False, True], ids=["brute", "accel"])
 @pytest.mark.parametrize("use_ring", [True, False], ids=["ring", "reduce"])
 @pytest.mark.parametrize("layout", LAYOUTS, ids=["2x2", "1x4"])
-def test_ring_render_matches_reference(layout, use_ring, use_accel, world, cornell, bunny):
-    name, (scene, camera), cfg = ("bunny", bunny, J_BIG) if use_accel else ("cornell", cornell,
-                                                                          J_CFG)
-    assert _check_case(world, (name, layout, use_ring, use_accel, None), scene, camera,
-                       cfg) == 0
+def test_ring_render_matches_reference(layout, use_ring, use_accel, world):
+    name = "bunny" if use_accel else "cornell"
+    assert _check_case(world, (name, layout, use_ring, use_accel, None)) == 0
 
 
 @pytest.mark.parametrize("use_ring", [True, False], ids=["ring", "reduce"])
-def test_ring_accel_overflow_matches_reference(use_ring, world, bunny):
-    assert _check_case(world, ("bunny", (2, 2), use_ring, True, 2), *bunny, J_BIG) > 0
+def test_ring_accel_overflow_matches_reference(use_ring, world):
+    assert _check_case(world, ("bunny", (2, 2), use_ring, True, 2)) > 0

@@ -15,14 +15,12 @@ bug).
 """
 from __future__ import annotations
 
-import dataclasses
-
 import torch
 import torch.distributed as dist
 
-from tracer_torch.core.camera import Camera, generate_rays_band
-from tracer_torch.dist.ray_dp import _data_coords
-from tracer_torch.render.whitted import WhittedConfig, make_brute_tracers, render_wavefront
+from tracer_torch.core.camera import Camera
+from tracer_torch.dist.ray_dp import _data_coords, band_grad
+from tracer_torch.render.whitted import make_brute_tracers
 from tracer_torch.scene.types import Scene
 
 
@@ -33,7 +31,6 @@ def make_overlapped_grad_fn(cfg, mesh, n_buckets: int = 4, tracer_builder=None):
     backward passes over H / (data * n_buckets) rows each, all-reducing
     each bucket's vertex gradient as soon as it exists. builder(scene)
     gives the tracers (default: brute force)."""
-    wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
     builder = tracer_builder or make_brute_tracers
     n_data, i, group = _data_coords(mesh)
     if cfg.height % (n_data * n_buckets):
@@ -41,29 +38,20 @@ def make_overlapped_grad_fn(cfg, mesh, n_buckets: int = 4, tracer_builder=None):
                          f"buckets {n_buckets}")
     rows = cfg.height // n_data
     bh = rows // n_buckets
-    n_px = cfg.height * cfg.width * 3
 
     def step(scene: Scene, camera: Camera, target: torch.Tensor):
-        verts = scene.verts.detach().requires_grad_(True)
         losses, grads, handles = [], [], []
         for b in range(n_buckets):
-            y0 = i * rows + b * bh
-            s = dataclasses.replace(scene, verts=verts)
-            trace_fn, occlude_fn = builder(s)
-            rays = generate_rays_band(camera, cfg.height, cfg.width, y0, bh)
-            img = render_wavefront(s, rays, wcfg, trace_fn, occlude_fn)
-            loss_b = ((img - target[y0:y0 + bh]) ** 2).sum() / n_px
-            (g,) = torch.autograd.grad(loss_b, verts, allow_unused=True)
-            g = torch.zeros_like(verts) if g is None else g
+            loss_b, g = band_grad(scene, camera, target, cfg, builder, i * rows + b * bh, bh)
             handles.append(dist.all_reduce(g, group=group, async_op=True))
-            losses.append(loss_b.detach())
+            losses.append(loss_b)
             grads.append(g)
         loss_all = torch.stack(losses)
         handles.append(dist.all_reduce(loss_all, group=group, async_op=True))
         for h in handles:
             h.wait()
         loss = loss_all.new_zeros(())
-        total = torch.zeros_like(verts)
+        total = torch.zeros_like(grads[0])
         for b in range(n_buckets):
             loss = loss + loss_all[b]
             total = total + grads[b]

@@ -11,23 +11,24 @@ The backend follows the device the caller names: NCCL for CUDA tensors,
 gloo for CPU tensors. A CUDA mesh over a group that is not NCCL raises;
 nothing falls back to gloo on the card.
 
-spawn_world runs a function on k ranks of a fresh world (spawned
-processes, a file:// store, a timeout on the group and on the wait), for
-scaling.scaling_sweep and the tests. The reference needs none: JAX is
+spawn_world runs a function on k ranks of a fresh world (processes forked
+from multiprocessing's fork server, a file:// store, a timeout on the group
+and on the wait), for scaling.scaling_sweep and the tests. The reference needs none: JAX is
 single-controller.
 """
 from __future__ import annotations
 
 import datetime
+import multiprocessing
 import os
-import queue
+import pickle
 import tempfile
 import time
-import traceback
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+from torch.multiprocessing.spawn import ProcessException
 
 DATA_AXIS = "data"
 GEOM_AXIS = "geom"
@@ -96,83 +97,78 @@ def init_multihost(coordinator: str, num_processes: int, process_id: int, device
 # Spawned worlds
 # ---------------------------------------------------------------------------
 
-def _rank_main(rank, world, store, device, timeout, fn, args, results):
+def _rank_main(rank, world, tmp, device, timeout, fn, args):
+    torch.set_num_threads(1)
+    backend = backend_for(device)
+    card = None
+    if backend == "nccl":
+        card = torch.device("cuda", rank)
+        torch.cuda.set_device(card)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/store", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=timeout),
+                            device_id=card)
     try:
-        torch.set_num_threads(1)
-        backend = backend_for(device)
-        card = None
-        if backend == "nccl":
-            card = torch.device("cuda", rank)
-            torch.cuda.set_device(card)
-        dist.init_process_group(backend, init_method=f"file://{store}", world_size=world,
-                                rank=rank, timeout=datetime.timedelta(seconds=timeout),
-                                device_id=card)
-        try:
-            out = fn(rank, *args)
-            dist.barrier()
-        finally:
-            dist.destroy_process_group()
-        results.put((rank, True, out))
-    except BaseException:  # reported to the parent, which raises
-        results.put((rank, False, traceback.format_exc()))
-        raise
+        out = fn(rank, *args)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f"result_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
 
 
-def spawn_world(fn, world_size: int, *args, device="cpu", timeout: float = 60.0,
+def _failures(ctx) -> list[str]:
+    """Each failed rank of a joined ProcessContext: its traceback, else its
+    exit code."""
+    out = []
+    for r, p in enumerate(ctx.processes):
+        if p.exitcode == 0:
+            continue
+        if os.path.exists(ctx.error_files[r]):
+            with open(ctx.error_files[r], "rb") as f:
+                out.append(f"rank {r}: {pickle.load(f)}")
+            os.unlink(ctx.error_files[r])
+        else:
+            out.append(f"rank {r}: exited with code {p.exitcode}")
+    return out
+
+
+def spawn_world(fn, world_size: int, *args, device="cuda", timeout: float = 60.0,
                 join_timeout: float = 600.0) -> list:
     """Run fn(rank, *args) on each rank of a new world of `world_size`
-    spawned processes -> [result of rank 0, rank 1, ...].
+    processes -> [result of rank 0, rank 1, ...].
 
     Each rank sets torch to one thread, joins the world through a file://
     store in a temporary directory over the backend of `device` (on CUDA,
     rank r on card r) with `timeout` seconds on every collective, runs fn,
     and leaves. fn and its arguments are pickled (fn must be importable by
     name) and so is its result. A rank that raises or dies fails the call:
-    the others are stopped and a RuntimeError here lists each failed rank's
-    traceback or exit code, as it says when the world outlasts
-    `join_timeout` seconds."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    results = ctx.Queue()
+    torch.multiprocessing's ProcessContext stops the others, and the
+    RuntimeError here lists each failed rank's traceback or exit code, as
+    it says when the world outlasts `join_timeout` seconds."""
+    name = getattr(fn, "__name__", fn)
+    # A spawned interpreter takes seconds of CPU to import torch: the ranks
+    # fork from multiprocessing's fork server instead, which imports torch
+    # and this package once (nothing there touches a card or starts a thread).
+    multiprocessing.set_forkserver_preload(["torch", "tracer_torch.dist"])
     with tempfile.TemporaryDirectory(prefix="tracer_world_") as tmp:
-        store = os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, world_size, store, device, timeout, fn, args, results))
-                 for r in range(world_size)]
-        for p in procs:
-            p.start()
-        out, errors = {}, {}
+        ctx = torch.multiprocessing.start_processes(
+            _rank_main, args=(world_size, tmp, device, timeout, fn, args), nprocs=world_size,
+            join=False, daemon=True, start_method="forkserver")
         deadline = time.monotonic() + join_timeout
-        grace = None  # once a rank failed: a moment for the others' reports
         try:
-            while len(out) + len(errors) < world_size:
-                now = time.monotonic()
-                if grace is not None and now > grace:
-                    break
-                if now > deadline:
-                    errors[-1] = f"the world of {world_size} outlasted {join_timeout} s"
-                    break
-                try:
-                    rank, ok, value = results.get(timeout=0.2)
-                except queue.Empty:
-                    for r, p in enumerate(procs):
-                        if r not in out and p.exitcode not in (None, 0):
-                            errors.setdefault(r, f"exited with code {p.exitcode}")
-                else:
-                    if ok:
-                        out[rank] = value
-                    else:
-                        errors[rank] = value
-                if errors and grace is None:
-                    grace = time.monotonic() + 2.0
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0), grace_period=2.0):
+                if time.monotonic() >= deadline:
+                    raise RuntimeError(f"spawn_world({name}): the world of {world_size} "
+                                       f"outlasted {join_timeout} s")
+        except ProcessException as e:
+            raise RuntimeError(f"spawn_world({name}) failed:\n" + "\n".join(_failures(ctx))) from e
         finally:
-            for p in procs:
-                p.join(timeout=0.5 if errors else 10.0)
-            for p in procs:
+            for p in ctx.processes:
                 if p.is_alive():
                     p.kill()
                     p.join(timeout=5.0)
-            results.close()
-    if errors:
-        raise RuntimeError(f"spawn_world({getattr(fn, '__name__', fn)}) failed:\n"
-                           + "\n".join(f"rank {r}: {m}" for r, m in sorted(errors.items())))
-    return [out[r] for r in range(world_size)]
+        out = []
+        for r in range(world_size):
+            with open(os.path.join(tmp, f"result_{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out

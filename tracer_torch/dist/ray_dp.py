@@ -138,20 +138,34 @@ def make_sharded_accel_render_fn(scene: Scene, cfg, mesh, tracer_builder=None,
     n, i, group = _data_coords(mesh)
     if cfg.height % n:
         raise ValueError(f"height {cfg.height} not divisible by data={n}")
+    if not reshard_bounces:
+        return make_sharded_render_fn(scene, cfg, mesh, tracer_builder)
     band = cfg.height // n
 
     def run(scene: Scene, camera: Camera) -> torch.Tensor:
         with torch.inference_mode():
             rays = generate_rays_band(camera, cfg.height, cfg.width, i * band, band)
             trace_fn, occlude_fn = tracer_builder(scene)
-            if reshard_bounces:
-                img = _resharded_bands(scene, rays, wcfg, trace_fn, occlude_fn, group)
-                img = img.reshape(band, cfg.width, 3)
-            else:
-                img = render_wavefront(scene, rays, wcfg, trace_fn, occlude_fn)
-            return gather_rows(img, cfg.height, group)
+            img = _resharded_bands(scene, rays, wcfg, trace_fn, occlude_fn, group)
+            return gather_rows(img.reshape(band, cfg.width, 3), cfg.height, group)
 
     return run
+
+
+def band_grad(scene: Scene, camera: Camera, target: torch.Tensor, cfg, builder, y0: int,
+              rows: int):
+    """(loss, d loss / d verts) of image rows [y0, y0 + rows): their share
+    of the whole image's mean((img - target)**2), rendered over
+    builder(scene with the verts)."""
+    wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
+    verts = scene.verts.detach().requires_grad_(True)
+    s = dataclasses.replace(scene, verts=verts)
+    trace_fn, occlude_fn = builder(s)
+    rays = generate_rays_band(camera, cfg.height, cfg.width, y0, rows)
+    img = render_wavefront(s, rays, wcfg, trace_fn, occlude_fn)
+    loss = ((img - target[y0:y0 + rows]) ** 2).sum() / (cfg.height * cfg.width * 3)
+    (grads,) = torch.autograd.grad(loss, verts, allow_unused=True)
+    return loss.detach(), torch.zeros_like(verts) if grads is None else grads
 
 
 def make_sharded_grad_fn(scene: Scene, cfg, mesh, tracer_builder=None):
@@ -160,22 +174,11 @@ def make_sharded_grad_fn(scene: Scene, cfg, mesh, tracer_builder=None):
     rank rendering its band over builder(scene with the verts) (default:
     brute force); the band's sum and its vertex gradient are all-reduced
     (SUM) over the data group."""
-    wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
     builder = tracer_builder or make_brute_tracers
     n, i, group = _data_coords(mesh)
-    n_px = cfg.height * cfg.width * 3
 
     def step(scene: Scene, camera: Camera, target: torch.Tensor):
-        y0, rows = band_rows(cfg.height, n, i)
-        verts = scene.verts.detach().requires_grad_(True)
-        s = dataclasses.replace(scene, verts=verts)
-        trace_fn, occlude_fn = builder(s)
-        rays = generate_rays_band(camera, cfg.height, cfg.width, y0, rows)
-        img = render_wavefront(s, rays, wcfg, trace_fn, occlude_fn)
-        loss = ((img - target[y0:y0 + rows]) ** 2).sum() / n_px
-        (grads,) = torch.autograd.grad(loss, verts, allow_unused=True)
-        grads = torch.zeros_like(verts) if grads is None else grads
-        loss = loss.detach()
+        loss, grads = band_grad(scene, camera, target, cfg, builder, *band_rows(cfg.height, n, i))
         dist.all_reduce(loss, group=group)
         dist.all_reduce(grads, group=group)
         return loss, grads
