@@ -175,7 +175,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      in a spawned process, run while the card works) under the grad gate of
      17; (g) scaling_sweep on bench100k (one row) and bin/bench_torch
      --scaling (the measured row, two pending); (h) dryrun.
-Each phase prints its wall time. The last lines are a JSON line of
+Each phase prints its wall time. The run adopts its orphans and, when it
+ends, reaps its children: a process it started that is still running
+then is killed and fails the run. The last lines are a JSON line of
 per-kernel results (launches: on the main paths of phases 4, 11 and 15;
 dist_launches: on phase 20's (a), (b) and (d) ring frame), the nvidia-smi
 line, and {"ok": true, "device": {...}}.
@@ -323,6 +325,60 @@ def phase_build():
 def check(ok: bool, msg: str):
     if not ok:
         raise SystemExit(msg)
+
+
+def become_subreaper():
+    """Adopt this run's orphans (Linux prctl PR_SET_CHILD_SUBREAPER): a
+    process whose parent ended before it, such as a helper of a subprocess,
+    becomes this process's child, where stop_children finds it."""
+    import ctypes
+
+    if ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0) != 0:
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _children() -> dict[int, str]:
+    """This process's live children -> their command lines."""
+    me, out = os.getpid(), {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state, ppid = f.read().rsplit(")", 1)[1].split()[:2]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace").strip()
+        except OSError:
+            continue
+        if int(ppid) == me and state != "Z":
+            out[int(pid)] = cmd
+    return out
+
+
+def _reap():
+    while True:
+        try:
+            if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                return
+        except ChildProcessError:
+            return
+
+
+def stop_children(grace: float = 5.0) -> list[str]:
+    """Reap this run's children; kill those still running after `grace`
+    seconds -> the command lines of the killed ones."""
+    deadline = time.monotonic() + grace
+    while True:
+        _reap()
+        left = _children()
+        if not left or time.monotonic() >= deadline:
+            break
+        time.sleep(0.1)
+    for pid in left:
+        try:
+            os.kill(pid, 9)
+            os.waitpid(pid, 0)
+        except (ProcessLookupError, ChildProcessError):
+            pass
+    return list(left.values())
 
 
 def count_stats(counts: torch.Tensor) -> str:
@@ -2738,7 +2794,8 @@ def phase_20(smi: str, frame: dict, dev="cuda") -> dict:
 
     import torch.distributed as dist
 
-    from tracer_torch.dist.mesh import backend_for, make_render_mesh, spawn_world
+    from tracer_torch.dist.mesh import (backend_for, make_render_mesh, spawn_world,
+                                        stop_fork_server)
     from tracer_torch.dist.ray_dp import dryrun
 
     launches = {}
@@ -2773,6 +2830,7 @@ def phase_20(smi: str, frame: dict, dev="cuda") -> dict:
             timed("20 (h) dryrun", dryrun, dev)
         finally:
             dist.destroy_process_group()
+    stop_fork_server()
     return launches
 
 
@@ -2784,7 +2842,8 @@ def timed(name: str, fn, *args, **kwargs):
     return out
 
 
-def main() -> int:
+def run_phases() -> tuple[str, str, list]:
+    """Phases 1-20 -> (the card's name, its nvidia-smi line, the kernels)."""
     t0 = time.perf_counter()
     name, smi = timed("device", phase_device)
     timed("build", phase_build)
@@ -2828,6 +2887,16 @@ def main() -> int:
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k], "dist_launches": dist_launches.get(k, 0),
                 **results[k]} for k, (src, rep) in KERNELS.items()]
+    return name, smi, kernels
+
+
+def main() -> int:
+    become_subreaper()
+    try:
+        name, smi, kernels = run_phases()
+    finally:
+        stray = stop_children()
+    check(not stray, f"processes still running at the end of the run (killed): {stray}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

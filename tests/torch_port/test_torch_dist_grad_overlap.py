@@ -11,6 +11,7 @@ rtol 1e-6, gradient to rel-L2 1e-5, as tests/dist/test_grad_overlap.py
 holds the reference), and neither is the data size times the other (the
 double reduction the reference's comment records)."""
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import jax
@@ -42,23 +43,12 @@ def inputs():
     return scene, camera, target.astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def world(inputs):
-    scene, camera, target = inputs
-    return spawn_world(dist_workers.grad_overlap_world, N, leaves(scene), leaves(camera), target,
-                       CFG, ACCEL, device="cpu")
+NAMES = ("bucketed", "unbucketed", "accel")
 
 
-def _result(world, name):
-    loss, grads = world[0][name]
-    for res in world[1:]:
-        assert res[name][0] == loss
-        np.testing.assert_array_equal(res[name][1], grads)
-    return loss, grads
-
-
-@pytest.mark.parametrize("name", ["bucketed", "unbucketed", "accel"])
-def test_grad_step_matches_reference(name, world, inputs):
+def _reference(name, inputs):
+    """The reference's grad step of the case on the first N virtual devices
+    -> (loss, vertex gradient)."""
     scene, camera, target = inputs
     mesh = j_make_render_mesh(jax.devices()[:N], data=N, geom=1)
     if name == "bucketed":
@@ -69,9 +59,40 @@ def test_grad_step_matches_reference(name, world, inputs):
         fn = jgo.make_overlapped_grad_fn(J_ACCEL, mesh, n_buckets=2,
                                          tracer_builder=partial(j_build_tracers, cfg=J_ACCEL))
     loss, grads = fn(scene, camera, jnp.asarray(target))
+    return float(loss), np.asarray(grads)
+
+
+@pytest.fixture(scope="module")
+def both(inputs):
+    """(every rank's results of dist_workers.grad_overlap_world, {case: the
+    reference's (loss, gradient)}). The ranks run while the reference
+    computes its cases."""
+    scene, camera, target = inputs
+    with ThreadPoolExecutor(1) as ranks, ThreadPoolExecutor(len(NAMES)) as refs:
+        got = ranks.submit(spawn_world, dist_workers.grad_overlap_world, N, leaves(scene),
+                           leaves(camera), target, CFG, ACCEL, device="cpu")
+        want = dict(zip(NAMES, refs.map(partial(_reference, inputs=inputs), NAMES)))
+        return got.result(), want
+
+
+@pytest.fixture(scope="module")
+def world(both):
+    return both[0]
+
+
+def _result(world, name):
+    loss, grads = world[0][name]
+    for res in world[1:]:
+        assert res[name][0] == loss
+        np.testing.assert_array_equal(res[name][1], grads)
+    return loss, grads
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_grad_step_matches_reference(name, world, both):
+    loss, want = both[1][name]
     got_loss, got = _result(world, name)
-    np.testing.assert_allclose(got_loss, float(loss), rtol=1e-5)
-    want = np.asarray(grads)
+    np.testing.assert_allclose(got_loss, loss, rtol=1e-5)
     assert np.abs(want).max() > 0
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-6 * np.abs(want).max())
 

@@ -4,7 +4,8 @@ Mesh(devices.reshape(data, geom)) over the 8 virtual devices, with the same
 data groups (a column) and geom groups (a row), for (data, geom) = (8, 1),
 (4, 2), (2, 4) and (1, 8); it refuses a shape that does not fit the world
 and a CUDA mesh over gloo. spawn_world fails, and does not hang, when a rank
-dies or raises while another waits in a collective. Two OS processes join
+dies or raises while another waits in a collective, and stop_fork_server
+stops the helper processes its worlds leave. Two OS processes join
 one world through init_multihost (tcp://) and each holds its band of the
 row-split cornell frame to the reference's single-device render, as
 tests/dist/test_multihost.py does."""
@@ -16,6 +17,7 @@ import subprocess
 import sys
 import time
 from functools import partial
+from multiprocessing import forkserver
 from pathlib import Path
 
 import jax
@@ -28,7 +30,8 @@ from tracer.render.whitted import WhittedConfig as JWhittedConfig, render_image
 from tracer.utils.config import load_config as j_load_config
 import tracer.dist as jdist
 import tracer_torch.dist as tdist
-from tracer_torch.dist.mesh import backend_for, spawn_world
+from tracer_torch.dist import mesh
+from tracer_torch.dist.mesh import backend_for, spawn_world, stop_fork_server
 
 import dist_workers
 
@@ -85,6 +88,27 @@ def test_spawn_world_fails_when_a_rank_fails(how, message):
         spawn_world(dist_workers.dying_world, 2, how, device="cpu", timeout=30.0,
                     join_timeout=120.0)
     assert time.monotonic() - t0 < 60.0
+
+
+def _running(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def test_stop_fork_server_leaves_no_process_behind(world):
+    """The fork server a world forked from, and the resource tracker it
+    started, are running after the world; stop_fork_server (which also
+    runs at exit) stops them and waits for them."""
+    fs = forkserver._forkserver
+    assert fs in mesh._started
+    pids = [h._forkserver_pid if h is fs else h._pid for h in mesh._started]
+    assert pids and all(pid is not None and _running(pid) for pid in pids)
+    stop_fork_server()
+    assert not mesh._started and fs._forkserver_pid is None
+    assert not [pid for pid in pids if _running(pid)]
 
 
 _CHILD = r"""

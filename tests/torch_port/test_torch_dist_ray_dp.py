@@ -17,6 +17,8 @@ projected edge):
     gate), the same on every rank;
   * dryrun at world 4, which reaches the sharded-geometry branch."""
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -53,16 +55,46 @@ def inputs():
     return scene, camera, cam_off, target.astype(np.float32)
 
 
-@pytest.fixture(scope="module")
-def world(inputs):
+REFS = ("brute", "odd", "accel", "grad")
+
+
+def _reference(which, inputs):
+    """The reference's sharded render of the case on the first N virtual
+    devices, or ("grad") its sharded grad step's (loss, vertex gradient)."""
     scene, camera, cam_off, target = inputs
-    return spawn_world(dist_workers.ray_dp_world, N, leaves(scene), leaves(camera),
-                       leaves(cam_off), target, CFG, ODD, ACCEL, device="cpu")
+    mesh = j_make_render_mesh(jax.devices()[:N], data=N, geom=1)
+    if which == "grad":
+        loss, grads = jray_dp.make_sharded_grad_fn(scene, J_CFG, mesh)(scene, cam_off,
+                                                                      jnp.asarray(target))
+        return float(loss), np.asarray(grads)
+    if which == "accel":
+        fn = jray_dp.make_sharded_accel_render_fn(scene, J_ACCEL, mesh)
+    else:
+        fn = jray_dp.make_sharded_render_fn(scene, J_ODD if which == "odd" else J_CFG, mesh)
+    return np.asarray(fn(scene, camera))
 
 
 @pytest.fixture(scope="module")
-def mesh():
-    return j_make_render_mesh(jax.devices()[:N], data=N, geom=1)
+def both(inputs):
+    """(every rank's results of dist_workers.ray_dp_world, {case: the
+    reference's}). The ranks run while the reference computes its cases."""
+    scene, camera, cam_off, target = inputs
+    with ThreadPoolExecutor(1) as ranks, ThreadPoolExecutor(len(REFS)) as refs:
+        got = ranks.submit(spawn_world, dist_workers.ray_dp_world, N, leaves(scene),
+                           leaves(camera), leaves(cam_off), target, CFG, ODD, ACCEL,
+                           device="cpu")
+        want = dict(zip(REFS, refs.map(partial(_reference, inputs=inputs), REFS)))
+        return got.result(), want
+
+
+@pytest.fixture(scope="module")
+def world(both):
+    return both[0]
+
+
+@pytest.fixture(scope="module")
+def refs(both):
+    return both[1]
 
 
 def _same_on_every_rank(world, key):
@@ -72,13 +104,8 @@ def _same_on_every_rank(world, key):
 
 
 @pytest.mark.parametrize("which", ["brute", "odd", "accel"])
-def test_sharded_render_matches_reference(which, world, inputs, mesh):
-    scene, camera, _, _ = inputs
-    if which == "accel":
-        fn = jray_dp.make_sharded_accel_render_fn(scene, J_ACCEL, mesh)
-    else:
-        fn = jray_dp.make_sharded_render_fn(scene, J_ODD if which == "odd" else J_CFG, mesh)
-    want = np.asarray(fn(scene, camera))
+def test_sharded_render_matches_reference(which, world, refs):
+    want = refs[which]
     got = _same_on_every_rank(world, which)
     assert got.shape == want.shape and want.max() > 0.05
     dist_check(got, want)
@@ -95,14 +122,11 @@ def test_shard_rays_gives_each_rank_its_band(world, inputs):
         assert_unit_close(np.asarray(rays.d)[y0:y0 + rows], d)
 
 
-def test_sharded_grad_matches_reference(world, inputs, mesh):
-    scene, _, cam_off, target = inputs
-    loss, grads = jray_dp.make_sharded_grad_fn(scene, J_CFG, mesh)(scene, cam_off,
-                                                                  jnp.asarray(target))
+def test_sharded_grad_matches_reference(world, refs):
+    loss, want = refs["grad"]
     got_loss = _same_on_every_rank(world, "loss")
     got = _same_on_every_rank(world, "grads")
-    np.testing.assert_allclose(got_loss, float(loss), rtol=1e-5)
-    want = np.asarray(grads)
+    np.testing.assert_allclose(got_loss, loss, rtol=1e-5)
     assert np.abs(want).max() > 0
     np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-6 * np.abs(want).max())
 

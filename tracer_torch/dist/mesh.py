@@ -13,17 +13,21 @@ nothing falls back to gloo on the card.
 
 spawn_world runs a function on k ranks of a fresh world (processes forked
 from multiprocessing's fork server, a file:// store, a timeout on the group
-and on the wait), for scaling.scaling_sweep and the tests. The reference needs none: JAX is
-single-controller.
+and on the wait), for scaling.scaling_sweep and the tests; stop_fork_server,
+which also runs at exit, stops the processes it leaves for the next world.
+The reference needs none: JAX is single-controller.
 """
 from __future__ import annotations
 
+import atexit
 import datetime
 import multiprocessing
 import os
 import pickle
 import tempfile
+import threading
 import time
+from multiprocessing import forkserver, resource_tracker
 
 import torch
 import torch.distributed as dist
@@ -132,6 +136,36 @@ def _failures(ctx) -> list[str]:
     return out
 
 
+_helpers_lock = threading.Lock()
+_started: list = []     # the helper processes spawn_world started and has not stopped
+
+
+def _fork_server():
+    """The ranks fork from multiprocessing's fork server, which imports torch
+    and this package once (nothing there touches a card or starts a thread):
+    a spawned interpreter would take seconds of CPU a rank to import torch.
+    The server, and the resource tracker it starts, serve every later world
+    of this process until stop_fork_server."""
+    fs, rt = forkserver._forkserver, resource_tracker._resource_tracker
+    with _helpers_lock:
+        multiprocessing.set_forkserver_preload(["torch", "tracer_torch.dist"])
+        _started.extend(h for h, pid in ((fs, fs._forkserver_pid), (rt, rt._pid))
+                        if pid is None and h not in _started)
+
+
+@atexit.register
+def stop_fork_server() -> None:
+    """Stop the fork server and the resource tracker that spawn_world
+    started, and wait for them; the next world starts them anew. Call it
+    when no world runs. It runs at exit as well, so that no process of
+    spawn_world outlives the interpreter. (multiprocessing has no public
+    way to stop them: _stop is private, and unchanged since Python 3.8.)"""
+    with _helpers_lock:
+        for h in _started:
+            h._stop()
+        _started.clear()
+
+
 def spawn_world(fn, world_size: int, *args, device="cuda", timeout: float = 60.0,
                 join_timeout: float = 600.0) -> list:
     """Run fn(rank, *args) on each rank of a new world of `world_size`
@@ -144,12 +178,11 @@ def spawn_world(fn, world_size: int, *args, device="cuda", timeout: float = 60.0
     name) and so is its result. A rank that raises or dies fails the call:
     torch.multiprocessing's ProcessContext stops the others, and the
     RuntimeError here lists each failed rank's traceback or exit code, as
-    it says when the world outlasts `join_timeout` seconds."""
+    it says when the world outlasts `join_timeout` seconds. The fork server
+    the ranks fork from stays for the next world, until stop_fork_server or
+    the interpreter's exit."""
     name = getattr(fn, "__name__", fn)
-    # A spawned interpreter takes seconds of CPU to import torch: the ranks
-    # fork from multiprocessing's fork server instead, which imports torch
-    # and this package once (nothing there touches a card or starts a thread).
-    multiprocessing.set_forkserver_preload(["torch", "tracer_torch.dist"])
+    _fork_server()
     with tempfile.TemporaryDirectory(prefix="tracer_world_") as tmp:
         ctx = torch.multiprocessing.start_processes(
             _rank_main, args=(world_size, tmp, device, timeout, fn, args), nprocs=world_size,
