@@ -1,0 +1,19 @@
+"""adam_ms.grad: the grad step's optimizer.step() (the program span
+"grad.adam"), stream ms a step.
+
+A unit's mean over the units (frames or steps) that the program's recorder
+(tracer_torch.utils.metrics.span_totals) kept while the profiled slice
+ran; None where it kept none or the program has no recorder."""
+SPANS = {}
+
+
+def read(t):
+    try:
+        from tracer_torch.utils.metrics import span_totals
+    except ImportError:
+        return None
+    tot = span_totals("grad.step")
+    if not tot:
+        return None
+    s = tot["spans"].get("grad.adam")
+    return None if s is None else s["stream_ms"] / tot["units"]

@@ -41,7 +41,7 @@ from tracer_torch.scene.io import load_obj
 from tracer_torch.scene.types import (
     Scene, compute_vertex_normals_torch, make_vertex_normal_fn)
 from tracer_torch.utils.config import RenderConfig, load_config
-from tracer_torch.utils.metrics import profile_trace
+from tracer_torch.utils.metrics import profile_trace, span
 
 # Clusters (of CLUSTER_SIZE triangles) up to which a use_bvh + use_pallas
 # config renders through the tiled tier; past it, through the streamed one.
@@ -156,7 +156,7 @@ def make_render_fn(scene: Scene, cfg: RenderConfig, device):
         for name, x in (("scene", scene.verts), ("camera", camera.position)):
             if x.device.type != device.type:
                 raise ValueError(f"{name} lives on {x.device}, the render fn on {device}")
-        with torch.inference_mode():
+        with torch.inference_mode(), span("frame"):
             if state["scene"] is not scene:
                 state["accel"] = build_scene_accel(scene) if cfg.use_bvh else None
                 state["scene"] = scene
@@ -234,16 +234,17 @@ def _apply_grad_params(scene: Scene, camera: Camera, p: dict, normal_fn=None):
     where given, by compute_vertex_normals_torch's scatter otherwise),
     "albedo", "cam_pos"."""
     s = scene
-    if "verts" in p:
-        normals = (normal_fn(p["verts"]) if normal_fn is not None
-                   else compute_vertex_normals_torch(p["verts"], s.tris))
-        s = dataclasses.replace(s, verts=p["verts"], normals=normals)
-    if "albedo" in p:
-        s = dataclasses.replace(s, materials=dataclasses.replace(s.materials,
-                                                                 albedo=p["albedo"]))
-    cam = camera
-    if "cam_pos" in p:
-        cam = dataclasses.replace(cam, position=p["cam_pos"])
+    with span("grad.params"):
+        if "verts" in p:
+            normals = (normal_fn(p["verts"]) if normal_fn is not None
+                       else compute_vertex_normals_torch(p["verts"], s.tris))
+            s = dataclasses.replace(s, verts=p["verts"], normals=normals)
+        if "albedo" in p:
+            s = dataclasses.replace(s, materials=dataclasses.replace(s.materials,
+                                                                     albedo=p["albedo"]))
+        cam = camera
+        if "cam_pos" in p:
+            cam = dataclasses.replace(cam, position=p["cam_pos"])
     return s, cam
 
 
@@ -274,15 +275,20 @@ def image_loss(scene: Scene, camera: Camera, target: torch.Tensor, cfg: RenderCo
     brute force without; no kernel), and an overflow of 0."""
     wcfg = WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
     if tiled:
-        img, aux = render_tiled(scene, build_scene_accel(scene), camera, cfg.height, cfg.width,
-                                wcfg, with_aux=True)
-        return torch.mean((img - target) ** 2), aux["overflow"]
-    if tracers is None:
-        cfg_plain = cfg.replace(use_pallas=False)
-        tracers = lambda s: build_tracers(s, cfg_plain)  # noqa: E731
-    img = render_wavefront(scene, generate_rays(camera, cfg.height, cfg.width), wcfg,
-                           *tracers(scene))
-    return torch.mean((img - target) ** 2), 0
+        with span("grad.accel"):
+            accel = build_scene_accel(scene)
+        img, aux = render_tiled(scene, accel, camera, cfg.height, cfg.width, wcfg,
+                                with_aux=True)
+        overflow = aux["overflow"]
+    else:
+        if tracers is None:
+            cfg_plain = cfg.replace(use_pallas=False)
+            tracers = lambda s: build_tracers(s, cfg_plain)  # noqa: E731
+        img = render_wavefront(scene, generate_rays(camera, cfg.height, cfg.width), wcfg,
+                               *tracers(scene))
+        overflow = 0
+    with span("grad.loss"):
+        return torch.mean((img - target) ** 2), overflow
 
 
 def make_grad_step_fn(cfg: RenderConfig, scene: Scene | None = None,
@@ -335,10 +341,14 @@ def make_grad_step_fn(cfg: RenderConfig, scene: Scene | None = None,
                         ("target", target), *params.items()):
             if x.device.type != device.type:
                 raise ValueError(f"{name} lives on {x.device}, the grad step on {device}")
-        optimizer.zero_grad(set_to_none=True)
-        loss, overflow = loss_fn(scene, camera, target, params)
-        loss.backward()
-        optimizer.step()
+        with span("grad.step"):
+            with span("grad.zero"):
+                optimizer.zero_grad(set_to_none=True)
+            loss, overflow = loss_fn(scene, camera, target, params)
+            with span("grad.backward"):
+                loss.backward()
+            with span("grad.adam"):
+                optimizer.step()
         return loss.detach(), params, optimizer, {"overflow": overflow}
 
     return step

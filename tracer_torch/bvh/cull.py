@@ -21,6 +21,7 @@ import torch
 
 from tracer_torch.bvh.cluster import SUPER_FACTOR
 from tracer_torch.core.types import T_FAR
+from tracer_torch.utils.metrics import readback, span
 
 _EPS = 1e-12
 
@@ -164,7 +165,7 @@ def cull_clusters_sorted(accel, o: torch.Tensor, d: torch.Tensor, t_max):
     counts = ok.sum(1, dtype=torch.int32)
     ids = torch.arange(accel.num_clusters, dtype=torch.int32, device=o.device)[None]
     words = torch.sort(pack_candidates(t_lo, ids, ok), dim=1).values
-    k = _round8(counts.max().item()) if n_tiles else 8
+    k = _round8(readback(counts.max(), "cull.k")) if n_tiles else 8
     excess = torch.clamp_min(counts - k, 0).sum()
     return _cut_words(words, k), counts, excess
 
@@ -183,57 +184,60 @@ def cull_clusters_sorted2(accel, o: torch.Tensor, d: torch.Tensor, t_max):
     n_sc = accel.super_lo.shape[0]
     F = SUPER_FACTOR
     if n_sc <= 1:
-        words, counts, excess = cull_clusters_sorted(accel, o, d, t_max)
-        return words, counts, excess, (int(counts.max()), 0)
+        with span("cull.stage1"):
+            words, counts, excess = cull_clusters_sorted(accel, o, d, t_max)
+        return words, counts, excess, (readback(counts.max(), "cull.need"), 0)
     dev = o.device
-    o_lo, o_hi, d_lo, d_hi = tile_bounds(o, d)
-    n_tiles = o_lo.shape[0]
-    t_max_tile = _tile_tmax(t_max, n_tiles, dev)
+    with span("cull.stage1"):
+        o_lo, o_hi, d_lo, d_hi = tile_bounds(o, d)
+        n_tiles = o_lo.shape[0]
+        t_max_tile = _tile_tmax(t_max, n_tiles, dev)
 
-    # Stage 1: superclusters (Ntiles, Nsc), untruncated.
-    ok_s, t_s = frustum_aabb_entry(
-        o_lo[:, None], o_hi[:, None], d_lo[:, None], d_hi[:, None],
-        accel.super_lo[None], accel.super_hi[None], t_max_tile)
-    sup_counts = ok_s.sum(1, dtype=torch.int32)
-    sc_ids = torch.arange(n_sc, dtype=torch.int32, device=dev)[None]
-    words_s1 = torch.sort(pack_candidates(t_s, sc_ids, ok_s), dim=1).values
-    S = int(sup_counts.max())
+        # Stage 1: superclusters (Ntiles, Nsc), untruncated.
+        ok_s, t_s = frustum_aabb_entry(
+            o_lo[:, None], o_hi[:, None], d_lo[:, None], d_hi[:, None],
+            accel.super_lo[None], accel.super_hi[None], t_max_tile)
+        sup_counts = ok_s.sum(1, dtype=torch.int32)
+        sc_ids = torch.arange(n_sc, dtype=torch.int32, device=dev)[None]
+        words_s1 = torch.sort(pack_candidates(t_s, sc_ids, ok_s), dim=1).values
+        S = readback(sup_counts.max(), "cull.s")
 
-    # Cluster AABB table by supercluster; padding clusters (a short last
-    # supercluster) get lo > hi finite sentinels: infeasible by construction.
-    big = 3e37
-    pad = n_sc * F - n_cl
-    lo_t = torch.cat([accel.cluster_lo, accel.cluster_lo.new_full((pad, 3), big)])
-    hi_t = torch.cat([accel.cluster_hi, accel.cluster_hi.new_full((pad, 3), -big)])
-    lo_t = lo_t.reshape(n_sc, F, 3)
-    hi_t = hi_t.reshape(n_sc, F, 3)
-    lane = torch.arange(F, dtype=torch.int32, device=dev)
+    with span("cull.stage2"):
+        # Cluster AABB table by supercluster; padding clusters (a short last
+        # supercluster) get lo > hi finite sentinels: infeasible by construction.
+        big = 3e37
+        pad = n_sc * F - n_cl
+        lo_t = torch.cat([accel.cluster_lo, accel.cluster_lo.new_full((pad, 3), big)])
+        hi_t = torch.cat([accel.cluster_hi, accel.cluster_hi.new_full((pad, 3), -big)])
+        lo_t = lo_t.reshape(n_sc, F, 3)
+        hi_t = hi_t.reshape(n_sc, F, 3)
+        lane = torch.arange(F, dtype=torch.int32, device=dev)
 
-    parts_w, parts_c = [], []
-    chunk = max(1, _STAGE2_BYTES // max(1, S * F * 6 * 4))
-    for a in range(0, n_tiles if S > 0 else 0, chunk):
-        b = min(a + chunk, n_tiles)
-        sid = torch.clamp_max(words_s1[a:b, :S] & _CL_MASK, n_sc - 1)
-        slot_ok = (torch.arange(S, device=dev)[None] < sup_counts[a:b, None])[..., None, None]
-        box_lo = torch.where(slot_ok, lo_t[sid.long()], big)
-        box_hi = torch.where(slot_ok, hi_t[sid.long()], -big)
-        ok2, t2 = frustum_aabb_entry(
-            o_lo[a:b, None, None], o_hi[a:b, None, None],
-            d_lo[a:b, None, None], d_hi[a:b, None, None],
-            box_lo, box_hi, t_max_tile[a:b, :, None])
-        cl_ids = torch.clamp_max(sid[..., None] * F + lane, n_cl - 1)
-        ok2 = ok2.reshape(b - a, S * F)
-        w = pack_candidates(t2.reshape(b - a, S * F), cl_ids.reshape(b - a, S * F), ok2)
-        parts_w.append(torch.sort(w, dim=1).values)
-        parts_c.append(ok2.sum(1, dtype=torch.int32))
-    if parts_c:
-        counts = torch.cat(parts_c)
-        k = _round8(counts.max().item())
-        words = torch.cat([_cut_words(w, k) for w in parts_w])
-    else:  # no tile reaches any supercluster
-        counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-        k = 8
-        words = torch.full((n_tiles, k), WORD_INVALID, dtype=torch.int32, device=dev)
-    sup_excess = torch.clamp_min(sup_counts - S, 0).sum()
-    excess = torch.clamp_min(counts - k, 0).sum() + sup_excess
-    return words, counts, excess, (int(counts.max()) if n_tiles else 0, S)
+        parts_w, parts_c = [], []
+        chunk = max(1, _STAGE2_BYTES // max(1, S * F * 6 * 4))
+        for a in range(0, n_tiles if S > 0 else 0, chunk):
+            b = min(a + chunk, n_tiles)
+            sid = torch.clamp_max(words_s1[a:b, :S] & _CL_MASK, n_sc - 1)
+            slot_ok = (torch.arange(S, device=dev)[None] < sup_counts[a:b, None])[..., None, None]
+            box_lo = torch.where(slot_ok, lo_t[sid.long()], big)
+            box_hi = torch.where(slot_ok, hi_t[sid.long()], -big)
+            ok2, t2 = frustum_aabb_entry(
+                o_lo[a:b, None, None], o_hi[a:b, None, None],
+                d_lo[a:b, None, None], d_hi[a:b, None, None],
+                box_lo, box_hi, t_max_tile[a:b, :, None])
+            cl_ids = torch.clamp_max(sid[..., None] * F + lane, n_cl - 1)
+            ok2 = ok2.reshape(b - a, S * F)
+            w = pack_candidates(t2.reshape(b - a, S * F), cl_ids.reshape(b - a, S * F), ok2)
+            parts_w.append(torch.sort(w, dim=1).values)
+            parts_c.append(ok2.sum(1, dtype=torch.int32))
+        if parts_c:
+            counts = torch.cat(parts_c)
+            k = _round8(readback(counts.max(), "cull.k"))
+            words = torch.cat([_cut_words(w, k) for w in parts_w])
+        else:  # no tile reaches any supercluster
+            counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+            k = 8
+            words = torch.full((n_tiles, k), WORD_INVALID, dtype=torch.int32, device=dev)
+        sup_excess = torch.clamp_min(sup_counts - S, 0).sum()
+        excess = torch.clamp_min(counts - k, 0).sum() + sup_excess
+    return words, counts, excess, (readback(counts.max(), "cull.need") if n_tiles else 0, S)

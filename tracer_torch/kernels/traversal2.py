@@ -43,6 +43,7 @@ from tracer_torch.kernels._launch import (  # noqa: F401 (LAUNCHES is read throu
     LAUNCHES, check_dense, check_rays, launch as _launch, run_segments, sm_count)
 from tracer_torch.kernels.traversal import (
     _homog, KEY_MISS, T_MIN, tile_rays, tiled_tmax, untile)
+from tracer_torch.utils.metrics import readback
 
 _CL_MASK = (1 << CLUSTER_BITS) - 1
 _INT_MAX = 2147483647
@@ -397,8 +398,8 @@ def trace_tiles_split(o_t, d_t, accel, words, counts):
     words_s = words[order].contiguous()
     counts_s = counts[order].contiguous()
     w = accel.tri_w
-    P, Z = (int(x) for x in torch.stack(
-        [(counts > FAST_BATCH).sum(), (counts > 0).sum()]).tolist())
+    P, Z = (int(x) for x in readback(torch.stack(
+        [(counts > FAST_BATCH).sum(), (counts > 0).sum()]), "closest.regions"))
     excess = (counts_s[P:Z] > FAST_BATCH).sum() + (counts_s[Z:] > 0).sum()
     parts_bt, parts_bid = [], []
     if P > 0:
@@ -457,8 +458,8 @@ def any_hit_tiles_graded(o_t, d_t, t_max_t, accel, words, counts):
     Returns (occ (Nt, TR) bool, excess, (need_b1, need_zero)) with need_b1
     = #tiles with count > 1, need_zero = #tiles with count > 0, and excess
     0: no tile lies outside a region that is exact for it."""
-    need = tuple(int(x) for x in torch.stack(
-        [(counts > 1).sum(), (counts > 0).sum()]).tolist())
+    need = tuple(int(x) for x in readback(torch.stack(
+        [(counts > 1).sum(), (counts > 0).sum()]), "anyhit.regions"))
     occ = any_hit_tiles_sorted(o_t, d_t, t_max_t, accel, words, counts)
     return occ, torch.zeros((), dtype=torch.int64, device=o_t.device), need
 

@@ -30,6 +30,7 @@ from tracer_torch.core.types import T_FAR, RAY_EPS, dot, normalize
 from tracer_torch.kernels.traversal import untile, generate_rays_tiled, T_MIN
 from tracer_torch.kernels.traversal2 import trace_tiles_split, any_hit_tiles_graded
 from tracer_torch.render.whitted import WhittedConfig, phong_specular
+from tracer_torch.utils.metrics import readback, span
 
 
 def mt_from_edges(o, d, v0, e1, e2, t_min=T_MIN, eps=1e-12, bary_eps=1e-5):
@@ -56,7 +57,8 @@ def _trace_rows(accel: ClusterAccel, o_t, d_t):
     sel, o_t, d_t = accel.detach(), o_t.detach(), d_t.detach()
     words, counts, excess, need = cull_clusters_sorted2(sel, o_t, d_t, T_FAR)
     _bt, gid, t_excess, split_need = trace_tiles_split(o_t, d_t, sel, words, counts)
-    rows = accel.shade[gid.clamp_min(0).long()]
+    with span("render.rows"):
+        rows = accel.shade[gid.clamp_min(0).long()]
     return gid, rows, excess + t_excess, need, split_need
 
 
@@ -75,7 +77,8 @@ def _segment_rays(light_pos, p_t, eps_t: float = RAY_EPS):
 def _segment_occluded(accel: ClusterAccel, light_pos, p_t, eps_t: float = RAY_EPS):
     """Occlusion of the segments light <-> p -> (occ, excess, need, sneed)."""
     sel = accel.detach()
-    o_t, d_t, t_max_t = _segment_rays(light_pos, p_t, eps_t)
+    with span("render.lights"):
+        o_t, d_t, t_max_t = _segment_rays(light_pos, p_t, eps_t)
     words, counts, excess, need = cull_clusters_sorted2(sel, o_t, d_t, t_max_t)
     occ, t_excess, sneed = any_hit_tiles_graded(o_t, d_t, t_max_t, sel, words, counts)
     return occ, excess + t_excess, need, sneed
@@ -121,14 +124,15 @@ def render_tiled(scene, accel: ClusterAccel, camera: Camera, height: int,
     closest wavefront per bounce plus each light's lit segments); the
     need_* entries are the exact sizes each pass ran at."""
     dev = camera.position.device
-    o_t, d_t, tiling = generate_rays_tiled(camera, height, width, tr)
-    shape = tuple(o_t.shape[:2])
-    sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
-    radiance = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
-    throughput = torch.ones(shape + (3,), dtype=torch.float32, device=dev)
-    live = torch.ones(shape, dtype=torch.bool, device=dev)
-    overflow = torch.zeros((), dtype=torch.int64, device=dev)
-    live_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    with span("render.rays"):
+        o_t, d_t, tiling = generate_rays_tiled(camera, height, width, tr)
+        shape = tuple(o_t.shape[:2])
+        sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=dev)
+        radiance = torch.zeros(shape + (3,), dtype=torch.float32, device=dev)
+        throughput = torch.ones(shape + (3,), dtype=torch.float32, device=dev)
+        live = torch.ones(shape, dtype=torch.bool, device=dev)
+        overflow = torch.zeros((), dtype=torch.int64, device=dev)
+        live_rays = torch.zeros((), dtype=torch.int64, device=dev)
     needs = dict.fromkeys(("need_closest", "need_shadow", "need_s", "need_split",
                            "need_zero", "need_sh_b1", "need_sh_zero"), 0)
 
@@ -143,48 +147,54 @@ def render_tiled(scene, accel: ClusterAccel, camera: Camera, height: int,
         grow("need_s", need[1])
         grow("need_split", sneed[0])
         grow("need_zero", sneed[1])
-        found, p, n = _surface(o_t, d_t, gid, rows, cfg.smooth_shading)
-        valid = found & live
-        albedo = rows[..., 18:21]
-        emission = rows[..., 21:24]
-        mirror = rows[..., 24:25]
-        spec = rows[..., 26]
-        shin = rows[..., 27]
+        with span("render.surface"):
+            found, p, n = _surface(o_t, d_t, gid, rows, cfg.smooth_shading)
+            valid = found & live
+            albedo = rows[..., 18:21]
+            emission = rows[..., 21:24]
+            mirror = rows[..., 24:25]
+            spec = rows[..., 26]
+            shin = rows[..., 27]
+            direct = torch.zeros_like(p)
 
-        direct = torch.zeros_like(p)
         for li in range(scene.lights.count):
-            lpos = scene.lights.position[li]
-            lint = scene.lights.intensity[li]
-            dist2, wi, cos, lit, target = _light_target(p, n, valid, lpos)
-            live_rays = live_rays + lit.sum()
+            with span("render.lights"):
+                lpos = scene.lights.position[li]
+                lint = scene.lights.intensity[li]
+                dist2, wi, cos, lit, target = _light_target(p, n, valid, lpos)
+                live_rays = live_rays + lit.sum()
             occ, exc, need, sneed = _segment_occluded(accel, lpos, target)
             overflow = overflow + exc
             grow("need_shadow", need[0])
             grow("need_s", need[1])
             grow("need_sh_b1", sneed[0])
             grow("need_sh_zero", sneed[1])
-            vis = torch.where(occ | ~lit, 0.0, 1.0)
-            falloff = (vis / torch.clamp_min(dist2, 1e-20))[..., None] * lint
-            brdf = (albedo / math.pi * cos[..., None]
-                    + phong_specular(d_t, n, wi, spec, shin)[..., None])
-            direct = direct + brdf * falloff
+            with span("render.shade"):
+                vis = torch.where(occ | ~lit, 0.0, 1.0)
+                falloff = (vis / torch.clamp_min(dist2, 1e-20))[..., None] * lint
+                brdf = (albedo / math.pi * cos[..., None]
+                        + phong_specular(d_t, n, wi, spec, shin)[..., None])
+                direct = direct + brdf * falloff
 
-        local = emission + albedo * cfg.ambient + direct
-        miss_contrib = torch.where((live & ~found)[..., None], sky, 0.0)
-        surf_contrib = torch.where(valid[..., None], local * (1.0 - mirror), 0.0)
-        radiance = radiance + throughput * (surf_contrib + miss_contrib)
+        with span("render.shade"):
+            local = emission + albedo * cfg.ambient + direct
+            miss_contrib = torch.where((live & ~found)[..., None], sky, 0.0)
+            surf_contrib = torch.where(valid[..., None], local * (1.0 - mirror), 0.0)
+            radiance = radiance + throughput * (surf_contrib + miss_contrib)
 
-        if bounce + 1 < cfg.max_bounces:
-            refl_d = d_t - 2.0 * dot(d_t, n, keepdim=True) * n
-            live = valid & (mirror[..., 0] > 0.0)
-            # Dead rays (a miss, or a non-mirror surface) get d = 0: the
-            # cull ignores them and all-dead tiles cost no kernel work.
-            m = live[..., None]
-            o_t = torch.where(m, p + n * RAY_EPS, 0.0)
-            d_t = torch.where(m, normalize(refl_d), 0.0)
-            throughput = throughput * mirror
+            if bounce + 1 < cfg.max_bounces:
+                refl_d = d_t - 2.0 * dot(d_t, n, keepdim=True) * n
+                live = valid & (mirror[..., 0] > 0.0)
+                # Dead rays (a miss, or a non-mirror surface) get d = 0: the
+                # cull ignores them and all-dead tiles cost no kernel work.
+                m = live[..., None]
+                o_t = torch.where(m, p + n * RAY_EPS, 0.0)
+                d_t = torch.where(m, normalize(refl_d), 0.0)
+                throughput = throughput * mirror
 
-    img = untile(radiance, tiling)
+    with span("render.untile"):
+        img = untile(radiance, tiling)
     if with_aux:
-        return img, {"overflow": int(overflow), "live_rays": int(live_rays), **needs}
+        return img, {"overflow": readback(overflow, "render.overflow"),
+                     "live_rays": readback(live_rays, "render.live_rays"), **needs}
     return img
