@@ -84,16 +84,32 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      aux {"overflow": 0}, no kernel launched, and a 64x64 frame of each on
      the card against the CPU under the golden gate; where pixels differ,
      their primary hits and first-light occlusion on both devices.
+  The backward of the tiled grad step's row gathers, before phase 17:
+  rows sum: gather.cu's segmented row sum (kernels/gather.py rows_sum) at
+     the bunny512 fit's shapes (the 262,144 rays' slot ids, 32 columns; the
+     82,048 slots' 3 corners, 3 columns; the slots' materials, 3 columns),
+     gradient rows from a fixed seed: two runs bit-equal, each within fp32
+     re-association of a float64 sum (as is the plain version,
+     index_add_), the wrapper's and the kernel's ms beside the byte bound
+     and beside ATen's index_put_(accumulate=True) at the same shapes (the
+     backward of x[idx] it replaces, as the yardstick).
   The grad step (tracer_torch.api.make_grad_step_fn: the tiled tier's three
-  traversal2.cu kernels on detached inputs under autograd, or the plain
-  cluster tier with each candidate slot checkpointed), phase 17:
+  traversal2.cu kernels on detached inputs under autograd, the shade rows'
+  and the slots' gathers summed back by gather.cu, or the plain cluster
+  tier with each candidate slot checkpointed), phase 17:
   17. (a, b) bunny-grad at 64x64 with use_pallas, target a CPU frame + 0.05:
      one SGD(1.0) step on the card and on the CPU for verts, albedo and
      cam_pos through the tiled tier ("auto") and the jnp tier ("off"): loss
      to rtol 1e-5, each gradient nonzero and to rtol 2e-3 + atol 2e-6 of
-     its largest entry; (c) one tiled bunny512 step launches
+     its largest entry (each family's worst entry logged with its values
+     and tolerance), five row sums on the card in the tiled tier and none
+     in the jnp tier; (c) one tiled bunny512 step launches
      closest_hit_kernel, closest_fast_kernel (where the frame has count-1
-     tiles) and anyhit_kernel, and nothing else (counts printed); (d)
+     tiles), anyhit_kernel and five row sums (shade rows; vertices,
+     normals, albedo by slot; face normals by vertex), and nothing else
+     (counts printed), and, under a
+     profiler, the row sums' span lands under "grad.backward" in the step's
+     unit; (d)
      bench_torch.py's three grad steps, each with its peak device memory,
      overflow and launches (the jnp tier none), the jnp tier's peak without
      the checkpoint at 128x128 and at full size (out of memory is logged,
@@ -109,13 +125,16 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      point: tiled (bunny-grad with use_pallas), edge-aware accel and jnp
      (bunny-grad), edge-aware brute and replay (cornell256); the grad gate
      of 17 for vert_offset and albedo; the tiled mode launches
-     closest_hit_kernel and anyhit_kernel, no mode another kernel; (b)
+     closest_hit_kernel, anyhit_kernel and five row sums, the edge-aware
+     accel mode four (its shade rows carry the vertices' gradients), the
+     jnp mode one (the vertex normals), no mode another kernel; (b)
      the fits bin/fit_torch runs, at the presets' full size (verts, Adam
      5e-3, a target moved by its seeded offset): bunny-grad jnp and
      edge-aware accel, cornell256 replay and edge-aware brute, 10 steps
      each, bunny512 tiled, 5 steps: the loss falls, ms a step (host clock,
      mean after the first), peak device memory, launches (tiled: one of
-     each traversal2.cu kernel a step; the others none); (c) a 6-step fit
+     each traversal2.cu kernel and four row sums a step; edge-aware accel:
+     three row sums a step; jnp one; the others none); (c) a 6-step fit
      checkpointed every 3, resumed to 9: exactly 3 more steps; (d)
      bin/trace_torch as a subprocess on cornell256, bench100k and
      sponza1080 (3 bounces, 2 lights): exit 0, the PNG read back of the
@@ -178,7 +197,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
 Each phase prints its wall time. The run adopts its orphans and, when it
 ends, reaps its children: a process it started that is still running
 then is killed and fails the run. The last lines are a JSON line of
-per-kernel results (launches: on the main paths of phases 4, 11 and 15;
+per-kernel results (launches: on the main paths of phases 4, 11 and 15,
+whose frames launch no row sum, and rows_sum's in 17 (c)'s tiled grad step;
 dist_launches: on phase 20's (a), (b) and (d) ring frame), the nvidia-smi
 line, and {"ok": true, "device": {...}}.
 
@@ -218,7 +238,8 @@ from tracer_torch.core.types import T_FAR  # noqa: E402
 from tracer_torch.diff.fit import (  # noqa: E402
     FitConfig, fit, init_params, latest_checkpoint, make_loss_fn)
 from tracer_torch.kernels import (  # noqa: E402
-    _build, _launch, stream as st, traversal as t1, traversal2 as t2, traversal3 as t3)
+    _build, _launch, gather, stream as st, traversal as t1, traversal2 as t2,
+    traversal3 as t3)
 from tracer_torch.kernels.traversal import (  # noqa: E402
     _homog, generate_rays_tiled, tile_rays, tiled_tmax, untile)
 from tracer_torch.refcpu import cpp as cpp_oracle  # noqa: E402
@@ -246,9 +267,11 @@ KERNELS = {
                      "tracer/kernels/traversal3.py:122"),
     "pair_anyhit": ("tracer_torch/kernels/csrc/traversal3.cu",
                     "tracer/kernels/traversal3.py:162"),
+    "rows_sum": ("tracer_torch/kernels/csrc/gather.cu", None),   # replaces none
 }
-KERNEL_FUNCTIONS = ({"closest_hit_kernel", "closest_hit_finish_kernel"}
-                    | {f"{k}_kernel" for k in KERNELS if k != "closest"})
+KERNEL_FUNCTIONS = ({"closest_hit_kernel", "closest_hit_finish_kernel",
+                     "rows_sum_cols_kernel", "rows_sum_scan_kernel"}
+                    | {f"{k}_kernel" for k in KERNELS if k not in ("closest", "rows_sum")})
 # The kernels each tier's frame must launch; it must launch none of the others.
 TIERS = {"tiled": ("closest", "closest_fast", "anyhit"),
          "sorted": ("closest", "closest_fast", "anyhit"),
@@ -1615,7 +1638,19 @@ def phase_profile(cfg, scene=None, camera=None, accel=None):
 
 
 GRAD_FAMILIES = ("verts", "albedo", "cam_pos")
-TIERED = ("closest", "closest_fast", "anyhit")
+# The kernels a tiled grad step or fit may launch: the tier's traversal and
+# the backward of its row gathers.
+TIERED = ("closest", "closest_fast", "anyhit", "rows_sum")
+# Row sums (gather.cu) one backward launches, one a gather whose source
+# carries gradients, by diff.fit mode on FIT_MODES' and FIT_RUNS' presets:
+# (without, with the albedo optimised). make_vertex_normal_fn's gather of
+# the face normals in every mode that shades bunny-grad's smooth normals;
+# the accel tiers' shade rows add the slots' vertices and normals, and the
+# slots' albedo where it is optimised; the tiled tier adds the rays' shade
+# rows. The tiled grad step with verts and albedo launches the tiled fit's
+# with-albedo count; the grad step's jnp tier, whose normals are
+# compute_vertex_normals_torch's scatter, launches none.
+ROWS_SUMS = {"tiled": (4, 5), "edge accel": (3, 4), "jnp": (1, 1)}
 
 
 def zero_launches():
@@ -1645,30 +1680,45 @@ def phase_grad_devices(cfg, devs=("cuda", "cpu")):
     target = api.make_render_fn(scene, cfg, "cpu")(scene, camera).numpy() + np.float32(0.05)
     for mode in ("auto", "off"):
         tier = "tiled" if api.use_tiled_grad(scene, cfg, mode) else "jnp"
+        zero_launches()
         (la, ga), (lb, gb) = (sgd_grads(cfg, mode, dev, target) for dev in devs)
+        sums = t2.LAUNCHES["rows_sum"]
         rel = abs(la - lb) / abs(lb)
-        parts = []
+        parts, worst = [], {}
         for k in GRAD_FAMILIES:
             a, b = ga[k], gb[k]
             tol = 2e-3 * np.abs(b) + 2e-6 * np.abs(b).max() + 1e-10
-            worst = float((np.abs(a - b) / tol).max())
+            ratio = np.abs(a - b) / tol
+            at = np.unravel_index(np.argmax(ratio), ratio.shape)
+            worst[k] = float(ratio[at])
             parts.append(f"{k} max|g| {np.abs(b).max():.4g}, max|diff| "
-                         f"{np.abs(a - b).max():.3g} ({worst:.3f} of the tolerance)")
-            check(np.abs(a).max() > 0 and np.abs(b).max() > 0, f"{tier} tier: {k} gradient 0")
-            check(worst <= 1.0, f"{tier} tier: {k} gradients differ, {devs[0]} vs {devs[1]}")
+                         f"{np.abs(a - b).max():.3g}, worst at {tuple(map(int, at))}: "
+                         f"{a[at]:.6g} vs {b[at]:.6g}, tolerance {tol[at]:.3g} "
+                         f"({worst[k]:.3f} of it)")
         log(f"[grad] {cfg.scene} {cfg.width}x{cfg.height}, {tier} tier, {devs[0]} vs {devs[1]}: "
-            f"loss {la:.9g} vs {lb:.9g} (rel {rel:.3g}); " + "; ".join(parts))
+            f"loss {la:.9g} vs {lb:.9g} (rel {rel:.3g}); {sums} row sums; " + "; ".join(parts))
+        # The jnp tier's vertex normals are compute_vertex_normals_torch's
+        # scatter (make_grad_step_fn gives make_vertex_normal_fn's gather to
+        # the tiled tier only), so it launches no row sum.
+        want = ROWS_SUMS["tiled"][1] if tier == "tiled" and devs[0] == "cuda" else 0
+        check(sums == want, f"{tier} tier: {sums} row sums, want {want}")
+        for k in GRAD_FAMILIES:
+            check(np.abs(ga[k]).max() > 0 and np.abs(gb[k]).max() > 0,
+                  f"{tier} tier: {k} gradient 0")
+            check(worst[k] <= 1.0, f"{tier} tier: {k} gradients differ, {devs[0]} vs {devs[1]}, "
+                                   f"{worst[k]:.3f} of the tolerance (see the line above)")
         check(rel <= 1e-5, f"{tier} tier: loss {la} vs {lb}")
 
 
-def phase_grad_launches(dev="cuda"):
+def phase_grad_launches(dev="cuda") -> int:
     """(c): one tiled bunny512 grad step launches the tiled tier's kernels
-    (closest_fast only where the frame has count-1 tiles) and no other."""
+    (closest_fast only where the frame has count-1 tiles) and no other.
+    Returns the row sums it launched."""
     cfg = load_config("bunny512")
     scene, camera = api.get_scene(cfg, dev)
     _, aux = api.make_render_fn(scene, cfg, dev)(scene, camera, with_aux=True)
-    want = ["closest", "anyhit"] + (["closest_fast"] if aux["need_zero"] > aux["need_split"]
-                                    else [])
+    want = ["closest", "anyhit", "rows_sum"] + (["closest_fast"]
+                                                if aux["need_zero"] > aux["need_split"] else [])
     p = api.grad_params(scene, camera, GRAD_FAMILIES)
     step = api.make_grad_step_fn(cfg, scene, camera, device=dev)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
@@ -1685,6 +1735,29 @@ def phase_grad_launches(dev="cuda"):
     stray = [k for k, v in launches.items() if v and k not in want]
     check(not missing and not stray,
           f"the tiled grad step never launched {missing}, and launched {stray}")
+    check(launches["rows_sum"] == ROWS_SUMS["tiled"][1],
+          f"the tiled grad step launched {launches['rows_sum']} row sums, want "
+          f"{ROWS_SUMS['tiled'][1]} (shade rows; vertices, normals, albedo by slot; face "
+          f"normals by vertex)")
+    from torch.profiler import ProfilerActivity, profile
+
+    from tracer_torch.utils import metrics
+
+    metrics.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        step(scene, camera, target, p, opt)
+    recs = [r for r in metrics.span_records() if r.name == "grad.rows_sum"]
+    tot = metrics.span_totals("grad.step")
+    metrics.reset()
+    log(f"[grad] one profiled tiled bunny512 step: {len(recs)} \"grad.rows_sum\" spans, parents "
+        f"{sorted({r.parent for r in recs})}, units {sorted({r.unit for r in recs})}; "
+        f"{tot['spans']['grad.rows_sum']['stream_ms']:.4f} stream ms, rows_summed "
+        f"{tot['counters'].get('rows_summed')}" if recs else
+        "[grad] one profiled tiled bunny512 step: no \"grad.rows_sum\" span")
+    check(len(recs) == ROWS_SUMS["tiled"][1] and tot["units"] == 1
+          and {(r.parent, r.unit) for r in recs} == {("grad.backward", 0)},
+          "the row sums' spans did not land under grad.backward in the step's unit")
+    return launches["rows_sum"]
 
 
 def grad_run(what: str, dev="cuda", **kw) -> dict:
@@ -1784,12 +1857,142 @@ def phase_grad_split(reps: int = 5, dev="cuda"):
         f"{busy:.3f} ms, {idle}")
 
 
-def phase_grad(smi: str, frame: dict, dev="cuda", mem_hw: int = 128):
+def rows_sum_cases(dev="cuda") -> list:
+    """The bunny512 fit's row gathers as (name, idx, n_rows, w): the rays'
+    shade slots (the preset frame's closest-hit slot ids, misses at slot
+    0), the slots' 3 corners (vertex ids) and the slots' materials
+    (padding slots read triangle 0's)."""
+    cfg = load_config("bunny512")
+    scene, camera = api.get_scene(cfg, dev)
+    accel = build_scene_accel(scene)
+    o_t, d_t, _ = generate_rays_tiled(camera, cfg.height, cfg.width, 64)
+    with torch.no_grad():
+        gid = tiled._trace_rows(accel, o_t, d_t)[0]
+    slot_tri = accel.tri_ids.reshape(-1).long().clamp_min(0)
+    return [("shade rows by ray", gid.reshape(-1).long().clamp_min(0), accel.shade.shape[0], 32),
+            ("vertices by slot corner", scene.tris.long()[slot_tri].reshape(-1),
+             scene.verts.shape[0], 3),
+            ("albedo by slot", scene.mat_id.long()[slot_tri], scene.materials.albedo.shape[0],
+             3)]
+
+
+def rows_sum_fuzz(dev="cuda", cases: int = 300, seed: int = 18):
+    """gather.cu's row sum on `cases` random problems against a float64
+    index_add_: sizes from 1 to 300,000 entries, widths 1 to 32, indices
+    uniform, or a few rows repeated in long runs, or runs of random length;
+    each run twice (equal bits) and within the re-association bound of
+    phase_rows_sum (levels from the size). Returns the worst error / bound."""
+    gen = torch.Generator().manual_seed(seed)
+    worst = 0.0
+    for case in range(cases):
+        n = int(torch.randint(0, 19, (1,), generator=gen)) and int(
+            10 ** (torch.rand(1, generator=gen).item() * 5.5))
+        n_rows = max(1, int(10 ** (torch.rand(1, generator=gen).item() * 5)))
+        w = [1, 2, 3, 4, 5, 8, 16, 31, 32][int(torch.randint(0, 9, (1,), generator=gen))]
+        kind = case % 3
+        if kind == 0:
+            idx = torch.randint(0, n_rows, (n,), generator=gen)
+        elif kind == 1:
+            hot = torch.randint(0, n_rows, (3,), generator=gen)
+            idx = torch.where(torch.rand(n, generator=gen) < 0.9,
+                              hot[torch.randint(0, 3, (n,), generator=gen)],
+                              torch.randint(0, n_rows, (n,), generator=gen))
+        else:
+            lens = torch.randint(1, 400, (n // 20 + 1,), generator=gen)
+            idx = torch.repeat_interleave(torch.randint(0, n_rows, (lens.numel(),), generator=gen),
+                                          lens)[:n]
+            idx = idx[torch.randperm(idx.numel(), generator=gen)] if case % 2 else idx
+        idx = idx.to(dev)
+        g = torch.randn((idx.numel(), w), generator=gen).to(dev)
+        a = gather.rows_sum(g, idx, n_rows)
+        b = gather.rows_sum(g, idx, n_rows)
+        exact = torch.zeros((n_rows, w), dtype=torch.float64, device=dev).index_add_(
+            0, idx, g.double())
+        scale = torch.zeros_like(exact).index_add_(0, idx, g.double().abs())
+        levels, m = 1, idx.numel()
+        while m > gather.CHUNK:
+            m, levels = 2 * -(-m // gather.CHUNK), levels + 1
+        err = float(((a.double() - exact).abs() / (127 * levels * 2.0 ** -24 * scale
+                                                   + 1e-30)).max()) if n else 0.0
+        check(torch.equal(float_bits(a), float_bits(b)),
+              f"rows_sum fuzz case {case} (n {n}, rows {n_rows}, w {w}): two runs differ")
+        check(err <= 1.0, f"rows_sum fuzz case {case} (n {n}, rows {n_rows}, w {w}, kind "
+                          f"{kind}): {err:.3f} of the re-association bound")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_rows_sum(smi: str, results: dict, dev="cuda", reps: int = 20):
+    """gather.cu's segmented row sum at the fit's shapes (see the module
+    docstring): bits across two runs, each against a float64 sum within
+    fp32 re-association, times beside the byte bound and ATen's
+    index_put_(accumulate=True)."""
+    gen = torch.Generator(device=dev).manual_seed(20261018)
+    worst = {}
+    for name, idx, n_rows, w in rows_sum_cases(dev):
+        n = idx.numel()
+        g = torch.randn((n, w), generator=gen, device=dev)
+        zero_launches()
+        a = gather.rows_sum(g, idx, n_rows)
+        b = gather.rows_sum(g, idx, n_rows)
+        plain = gather.rows_sum_plain(g, idx, n_rows)
+        sync(dev)
+        check(t2.LAUNCHES["rows_sum"] == (2 if dev == "cuda" else 0),
+              f"rows_sum {name}: launches {t2.LAUNCHES['rows_sum']}")
+        same = torch.equal(float_bits(a), float_bits(b))
+        exact = torch.zeros((n_rows, w), dtype=torch.float64, device=dev).index_add_(
+            0, idx, g.double())
+        scale = torch.zeros_like(exact).index_add_(0, idx, g.double().abs())
+        # A sum of m terms in any order is within (m - 1) u sum|x| of the
+        # exact one (u = 2^-24); the kernel adds at most 127 terms a level,
+        # 3 levels here: 381 u.
+        bound = 381 * 2.0 ** -24 * scale + 1e-30
+        err_k = float(((a.double() - exact).abs() / bound).max())
+        err_p = float(((plain.double() - exact).abs() / bound).max())
+        counts = torch.bincount(idx, minlength=n_rows)
+        ms = cuda_ms(lambda: gather.rows_sum(g, idx, n_rows), reps)
+        keys, perm = torch.sort(idx, stable=True)
+        ka, kb = gather.slot_counts(n)
+        pk = torch.empty(ka + kb, dtype=torch.int64, device=dev)
+        pv = torch.empty((ka + kb, w), device=dev)
+        out = torch.zeros((n_rows, w), device=dev)
+        alone = device_ms(lambda: _launch.launch("rows_sum", "gr_rows_sum", g.device, keys, perm,
+                                                 g, n, w, out, pk, pv, pk[ka:], pv[ka:]), reps)
+        aten = cuda_ms(lambda: torch.zeros((n_rows, w), device=dev).index_put_(
+            (idx,), g, accumulate=True), 3)
+        plain_ms = cuda_ms(lambda: gather.rows_sum_plain(g, idx, n_rows), reps)
+        # rows_sum(g, idx) -> out reads each index and gradient row once and
+        # writes each output row once.
+        nbytes = n * (8 + 4 * w) + n_rows * 4 * w
+        bound_ms = nbytes / PEAK_BYTES * 1e3
+        log(f"[rows sum] {name}: {n} entries of {w} floats into {n_rows} rows, "
+            f"{int((counts > 0).sum())} rows hit, longest run {int(counts.max())}: two runs "
+            f"bit-equal {same}; worst error / (381 u sum|g|): kernel {err_k:.4f}, plain "
+            f"(index_add_) {err_p:.4f}; wrapper (sort, zeroes, kernel) {ms:.4f} ms, kernel "
+            f"alone {alone:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at "
+            f"3.35 TB/s); ATen index_put_(accumulate=True) {aten:.4f} ms; plain "
+            f"(index_add_, float atomics) {plain_ms:.4f} ms; on {smi}")
+        check(same, f"rows_sum {name}: two runs differ")
+        check(err_k <= 1.0, f"rows_sum {name}: {err_k:.3f} of the re-association bound")
+        worst[name] = {"ms": ms, "alone_ms": alone, "aten_ms": aten, "plain_ms": plain_ms,
+                       "bound_ms": bound_ms, "bytes": nbytes, "err": err_k}
+    fuzz = rows_sum_fuzz(dev)
+    log(f"[rows sum] 300 random problems (1 to 300,000 entries, widths 1 to 32; uniform, "
+        f"hot rows, runs): bits equal across two runs, worst error / bound {fuzz:.4f}")
+    shade = worst["shade rows by ray"]
+    results["rows_sum"] = {"max_abs_err": max(v["err"] for v in worst.values()),
+                           "ms": shade["ms"], "plain_ms": shade["plain_ms"],
+                           "library_ms": shade["aten_ms"], "bound_ms": shade["bound_ms"],
+                           "bound_by": "bytes", "cases": worst}
+
+
+def phase_grad(smi: str, frame: dict, dev="cuda", mem_hw: int = 128) -> int:
     """Phase 17: the grad step on the card (see the module docstring); the
-    jnp tier's memory with and without the checkpoint also at mem_hw^2."""
+    jnp tier's memory with and without the checkpoint also at mem_hw^2.
+    Returns the row sums of (c)'s tiled bunny512 step."""
     phase_grad_devices(load_config("bunny-grad", height=64, width=64, use_pallas=True),
                        (dev, "cpu"))
-    phase_grad_launches(dev)
+    rows_sums = phase_grad_launches(dev)
     grads = {}
     for key, kw in bench_torch.GRAD_RUNS.items():
         res = grad_run(key, dev, **kw)
@@ -1812,6 +2015,7 @@ def phase_grad(smi: str, frame: dict, dev="cuda", mem_hw: int = 128):
     log(f"[grad] bench_torch.py line, on {smi}:")
     print(json.dumps(line), flush=True)
     check(rc == 0, f"bench_torch.py's line says exit code {rc}")
+    return rows_sums
 
 
 # Phase 18: the fit's five loss modes, (mode, preset, config overrides,
@@ -1903,10 +2107,14 @@ def phase_fit_devices(size: int = 64, devs=("cuda", "cpu")):
             f"the scene's frames differ in {int((err > 1e-4).sum())} pixels by more than 1e-4 "
             f"(max {err.max():.3g})")
         check(rel <= 1e-5, f"fit {mode}: loss {la} vs {lb}")
-        tiled_card = mode == "tiled" and devs[0] == "cuda"
+        card = devs[0] == "cuda"
+        tiled_card = mode == "tiled" and card
+        sums = ROWS_SUMS.get(mode, (0, 0))[1] if card else 0
         check((not tiled_card or launches["closest"] > 0 and launches["anyhit"] > 0)
-              and not any(v for k, v in launches.items() if not (tiled_card and k in TIERED)),
-              f"fit {mode}: launches {launches}")
+              and launches["rows_sum"] == sums
+              and not any(v for k, v in launches.items()
+                          if k != "rows_sum" and not (tiled_card and k in TIERED)),
+              f"fit {mode}: launches {launches}, want {sums} row sums")
 
 
 class StepClock:
@@ -1960,9 +2168,11 @@ def phase_fit_runs(dev="cuda"):
             f"launches {launches} ({sum(launches.values()) / steps:g} a step)")
         check(np.isfinite(losses).all() and losses[-1] < losses[0],
               f"fit {mode} on {preset}: the loss did not fall: {losses}")
-        check(all(launches[k] == steps for k in want)
-              and not any(v for k, v in launches.items() if k not in want),
-              f"fit {mode} on {preset}: launches {launches}, want one of {want} a step")
+        sums = ROWS_SUMS.get(mode, (0, 0))[0] * steps
+        check(all(launches[k] == steps for k in want) and launches["rows_sum"] == sums
+              and not any(v for k, v in launches.items() if k not in want + ("rows_sum",)),
+              f"fit {mode} on {preset}: launches {launches}, want one of {want} and "
+              f"{sums // steps} row sums a step")
 
 
 def phase_fit_resume(dev="cuda"):
@@ -2874,7 +3084,8 @@ def run_phases() -> tuple[str, str, list]:
     del scene, camera, accel
     for preset in ("cornell256", "bunny-grad"):
         timed(f"routing {preset}", phase_routing, preset)
-    timed("grad", phase_grad, smi, frame)
+    timed("rows sum", phase_rows_sum, smi, results)
+    launches["rows_sum"] = timed("grad", phase_grad, smi, frame)
     timed("fit", phase_fit, smi)
     t19 = time.perf_counter()
     phase_19(smi, frame)

@@ -27,7 +27,8 @@ FRAME_SPANS = {
     "readback.render.live_rays": "ROOT"}
 GRAD_SPANS = {"grad.zero": "grad.step", "grad.params": "grad.step",
               "grad.accel": "grad.step", "grad.loss": "grad.step",
-              "grad.backward": "grad.step", "grad.adam": "grad.step"}
+              "grad.backward": "grad.step", "grad.rows_sum": "grad.backward",
+              "grad.adam": "grad.step"}
 # The read-backs of one bounce and one light, in order: the closest-hit
 # pass's cull and wrapper, the shadow pass's, the frame's end.
 READBACKS = ["cull.s", "cull.k", "cull.need", "closest.regions",
@@ -115,6 +116,21 @@ def test_a_frame_records_every_span(bunny):
     assert tot["dropped"] == 0 and metrics.span_totals("grad.step") == {}
 
 
+def gathered_rows(bunny) -> tuple[int, int, int]:
+    """(rays, slots, incidences): the entries of the tiled step's per-ray
+    shade gather (the tiles' rays), of each per-slot gather of
+    build_clusters (the padded slots) and of make_vertex_normal_fn's gather
+    (vertices x the largest vertex degree)."""
+    from tracer_torch.bvh.cluster import build_scene_accel
+    from tracer_torch.kernels.traversal import generate_rays_tiled
+
+    cfg, scene, camera = bunny
+    o_t, _, _ = generate_rays_tiled(camera, cfg.height, cfg.width, 64)
+    degree = int(torch.bincount(scene.tris.reshape(-1).long()).max())
+    return (o_t.shape[0] * o_t.shape[1], build_scene_accel(scene).shade.shape[0],
+            scene.verts.shape[0] * degree)
+
+
 def test_a_grad_step_records_every_span(bunny):
     _, events = profiled(grad_step, bunny)
     want = dict(GRAD_SPANS, **{k: v.replace("ROOT", "grad.step") for k, v in FRAME_SPANS.items()})
@@ -122,8 +138,37 @@ def test_a_grad_step_records_every_span(bunny):
     assert [r.name.removeprefix("readback.") for r in recs
             if r.name.startswith("readback.")] == READBACKS
     tot = metrics.span_totals("grad.step")
-    assert tot["units"] == 1 and tot["counters"] == {"readbacks": len(READBACKS)}
+    # The row sums: the shade rows a ray; of each slot its 3 corners'
+    # vertices, their 3 normals (verts) and its albedo (albedo); the face
+    # normals of each vertex's incidences (verts).
+    rays, slots, incidences = gathered_rows(bunny)
+    assert tot["units"] == 1 and tot["counters"] == {
+        "readbacks": len(READBACKS), "rows_summed": rays + 7 * slots + incidences}
+    assert tot["spans"]["grad.rows_sum"]["calls"] == 5
     assert metrics.span_totals("frame") == {}
+
+
+def test_a_backward_on_another_thread_lands_in_the_step(bunny, monkeypatch):
+    """On a card autograd runs the backward on a thread of its own (with the
+    profiler's thread-local state); the recorder's units and open spans are
+    the process's, so the row sums' spans and counts land under the main
+    thread's "grad.backward" in its "grad.step" unit. Here a plain thread,
+    which torch gives no profiler state, stands in with the check forced on."""
+    import threading
+
+    cfg, scene, camera = bunny
+    params = api.grad_params(scene, camera, ("verts", "albedo"))
+    loss, _ = api.image_loss(*api._apply_grad_params(scene, camera, params), torch.zeros(16, 16, 3),
+                             cfg, tiled=True)
+    monkeypatch.setattr(metrics, "_on", lambda: True)
+    with metrics.span("grad.step"), metrics.span("grad.backward"):
+        worker = threading.Thread(target=loss.backward)
+        worker.start()
+        worker.join()
+    recs = [r for r in metrics.span_records() if r.name == "grad.rows_sum"]
+    assert len(recs) == 4 and {(r.parent, r.unit) for r in recs} == {("grad.backward", 0)}
+    rays, slots, _ = gathered_rows(bunny)
+    assert metrics.span_totals("grad.step")["counters"] == {"rows_summed": rays + 7 * slots}
 
 
 def test_units_and_counters_of_several_roots(bunny):

@@ -16,6 +16,7 @@ import torch
 
 from tracer_torch.bvh.morton import morton3d, quantize_positions
 from tracer_torch.core.intersect import triangle_affine_maps
+from tracer_torch.kernels.gather import gather_rows
 
 CLUSTER_SIZE = 128
 SUPER_FACTOR = 16
@@ -114,20 +115,23 @@ def build_clusters(verts: torch.Tensor, tris: torch.Tensor,
     sc_lo = _pad_to(cluster_lo, n_sc * SUPER_FACTOR, float("inf"))
     sc_hi = _pad_to(cluster_hi, n_sc * SUPER_FACTOR, float("-inf"))
 
+    # The slots' gathers of what can carry gradients (vertices, normals,
+    # materials) go through gather_rows: the same values as x[idx], and a
+    # backward that sums long runs of one row (every body slot's material)
+    # in parallel.
     vm = slot_valid[:, None].to(verts.dtype)
     tri_p = tl[order_p]
-    pv0 = verts[tri_p[:, 0]] * vm
-    pe1 = (verts[tri_p[:, 1]] - verts[tri_p[:, 0]]) * vm
-    pe2 = (verts[tri_p[:, 2]] - verts[tri_p[:, 0]]) * vm
-    cols = [pv0, pe1, pe2]
+    pv = gather_rows(verts, tri_p)                        # (n_pad, 3 corners, 3)
+    cols = [pv[:, 0] * vm, (pv[:, 1] - pv[:, 0]) * vm, (pv[:, 2] - pv[:, 0]) * vm]
     if scene is not None:
         mats = scene.materials
         mat = scene.mat_id.long()[order_p]
-        cols += [scene.normals[tri_p[:, k]] * vm for k in range(3)]
-        cols += [mats.albedo[mat] * vm, mats.emission[mat] * vm,
-                 mats.mirror[mat][:, None] * vm]
-        spec = mats.specular[mat][:, None] * vm
-        shin = mats.shininess[mat][:, None] * vm
+        pn = gather_rows(scene.normals, tri_p)
+        cols += [pn[:, k] * vm for k in range(3)]
+        cols += [gather_rows(mats.albedo, mat) * vm, gather_rows(mats.emission, mat) * vm,
+                 gather_rows(mats.mirror, mat)[:, None] * vm]
+        spec = gather_rows(mats.specular, mat)[:, None] * vm
+        shin = gather_rows(mats.shininess, mat)[:, None] * vm
     else:
         spec = shin = verts.new_zeros((n_pad, 1))
         cols.append(verts.new_zeros((n_pad, 16)))

@@ -21,7 +21,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("traversal2.cu", "stream.cu", "traversal.cu", "traversal3.cu")
+SOURCES = ("traversal2.cu", "stream.cu", "traversal.cu", "traversal3.cu", "gather.cu")
 HEADERS = ("common.cuh", "sorted.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -53,6 +53,8 @@ _SIGNATURES = {
     "wl_anyhit": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P, _P],
     "pr_closest": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P],   # traversal3.cu
     "pr_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    # gather.cu. keys, perm, vals, n, w, out, ka, va, kb, vb, stream
+    "gr_rows_sum": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 

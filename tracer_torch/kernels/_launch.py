@@ -12,7 +12,8 @@ import torch
 LAUNCHES = {"closest": 0, "closest_fast": 0, "anyhit": 0,              # traversal2.cu
             "closest_stream": 0, "anyhit_stream": 0,                   # stream.cu
             "worklist_closest": 0, "worklist_anyhit": 0,               # traversal.cu
-            "pair_closest": 0, "pair_anyhit": 0}                       # traversal3.cu
+            "pair_closest": 0, "pair_anyhit": 0,                       # traversal3.cu
+            "rows_sum": 0}                                             # gather.cu
 
 
 def check_dense(dev, *pairs):

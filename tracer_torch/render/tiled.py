@@ -13,9 +13,11 @@ them: the accel fields the culls and kernels read, the rays and the shadow
 targets. Discrete selection is piecewise constant; hit attributes (t, u, v,
 normal, position) are recomputed from the gathered shade rows, and that
 recompute is differentiable w.r.t. vertices, normals, materials and camera,
-so autograd flows through this integrator with no backward kernel. The
-gather `accel.shade[gid]` is where gradients enter. Edge terms (a silhouette
-that moves) are not differentiated.
+so autograd flows through this integrator with no backward kernel of its
+own. The gather of the shade rows by slot id (kernels/gather.py
+`gather_rows`, whose backward is the segmented row sum of csrc/gather.cu) is
+where gradients enter. Edge terms (a silhouette that moves) are not
+differentiated.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from tracer_torch.bvh.cluster import ClusterAccel
 from tracer_torch.bvh.cull import cull_clusters_sorted2
 from tracer_torch.core.camera import Camera
 from tracer_torch.core.types import T_FAR, RAY_EPS, dot, normalize
+from tracer_torch.kernels.gather import gather_rows
 from tracer_torch.kernels.traversal import untile, generate_rays_tiled, T_MIN
 from tracer_torch.kernels.traversal2 import trace_tiles_split, any_hit_tiles_graded
 from tracer_torch.render.whitted import WhittedConfig, phong_specular
@@ -58,7 +61,7 @@ def _trace_rows(accel: ClusterAccel, o_t, d_t):
     words, counts, excess, need = cull_clusters_sorted2(sel, o_t, d_t, T_FAR)
     _bt, gid, t_excess, split_need = trace_tiles_split(o_t, d_t, sel, words, counts)
     with span("render.rows"):
-        rows = accel.shade[gid.clamp_min(0).long()]
+        rows = gather_rows(accel.shade, gid.long())
     return gid, rows, excess + t_excess, need, split_need
 
 

@@ -7,6 +7,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from tracer_torch.kernels.gather import gather_rows
+
 
 def _f32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(x, np.float32), device=device)
@@ -129,8 +131,11 @@ def make_vertex_normal_fn(tris_np, n_verts: int, *, device):
     """A differentiable verts -> normals closure over a fixed topology: a
     (V, D) face-incidence table (D the largest vertex degree) is built once
     in numpy and moved to `device`, and each call sums every vertex's D
-    face normals by one gather. Padding slots index a zero face normal
-    appended past the real faces. Deterministic on every device."""
+    face normals by one gather (kernels/gather.py `gather_rows`: its
+    backward sums in one fixed order, where ATen's backward of x[idx] on
+    the CPU varies its order from call to call). Padding slots index a zero
+    face normal appended past the real faces. Deterministic on every
+    device."""
     tris_np = np.asarray(tris_np)
     n_faces = len(tris_np)
     # (vertex, face) incidence pairs grouped by vertex with a stable sort: a
@@ -149,7 +154,7 @@ def make_vertex_normal_fn(tris_np, n_verts: int, *, device):
     def normals_of(verts: torch.Tensor) -> torch.Tensor:
         fn = _face_normals(verts, tris_dev)
         fn_pad = torch.cat([fn, fn.new_zeros((1, 3))])
-        return _unit(fn_pad[inc_dev].sum(dim=1))
+        return _unit(gather_rows(fn_pad, inc_dev).sum(dim=1))
 
     return normals_of
 
