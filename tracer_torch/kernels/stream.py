@@ -19,6 +19,12 @@ and was not faster over a whole pass: PERF.md). Each kernel has:
 The reference's k_cap / s_cap / k_occ caps have no counterpart: the cull
 (bvh/cull.py) runs at the exact run-time sizes, so every pass has excess 0
 by construction; the excess is still computed and reported.
+
+Under a profiler the tile passes record the spans "stream.closest" and
+"stream.anyhit" (a wrapper's work, its kernel launch included),
+"stream.recover" (recover_hit after the closest-hit pass) and the counter
+"stream_words": the candidate words a pass hands its kernel, tiles x k,
+from the list's shape (no read-back).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from tracer_torch.kernels.traversal import _homog, tile_rays, tiled_tmax, untile
 from tracer_torch.kernels.traversal2 import (
     _check_cuda, _closest_out, _launch, _launch_anyhit, anyhit_plain, check_quads,
     closest_hit_plain, recover_hit)
+from tracer_torch.utils.metrics import count, span
 
 # Ring stages of cluster blocks in flight per tile (kNBuf of csrc/stream.cu).
 NBUF = 4
@@ -70,8 +77,10 @@ def anyhit_stream(o4, d4, tmax, w, words, counts):
 def trace_tiles_streamed(o_t, d_t, accel, words, counts):
     """Closest hit over every tile in its own order (a tile with count 0
     gives T_FAR / -1) -> (bt (Nt, TR), gid (Nt, TR) slot cl*C + lane or -1)."""
-    o4, d4 = _homog(o_t, d_t)
-    return closest_stream(o4, d4, accel.tri_w, words.contiguous(), counts.contiguous())
+    with span("stream.closest"):
+        count("stream_words", words.shape[0] * words.shape[1])
+        o4, d4 = _homog(o_t, d_t)
+        return closest_stream(o4, d4, accel.tri_w, words.contiguous(), counts.contiguous())
 
 
 def any_hit_tiles_streamed(o_t, d_t, t_max_t, accel, words, counts):
@@ -79,10 +88,13 @@ def any_hit_tiles_streamed(o_t, d_t, t_max_t, accel, words, counts):
     and dead rays (d == 0) get t_max = 0 so they cannot raise a tile's
     early-out bound (they never hit: den == 0); the kernel's segment table
     puts the heaviest tiles first."""
-    valid = (d_t != 0.0).any(-1)
-    tmax = torch.where(valid, t_max_t, 0.0)
-    o4, d4 = _homog(o_t, d_t)
-    return anyhit_stream(o4, d4, tmax, accel.tri_w, words.contiguous(), counts.contiguous())
+    with span("stream.anyhit"):
+        count("stream_words", words.shape[0] * words.shape[1])
+        valid = (d_t != 0.0).any(-1)
+        tmax = torch.where(valid, t_max_t, 0.0)
+        o4, d4 = _homog(o_t, d_t)
+        return anyhit_stream(o4, d4, tmax, accel.tri_w, words.contiguous(),
+                             counts.contiguous())
 
 
 def make_streamed_tracers_aux(scene, accel, tr: int = 64):
@@ -94,7 +106,8 @@ def make_streamed_tracers_aux(scene, accel, tr: int = 64):
         o_t, d_t, tiling = tile_rays(ray.o, ray.d, tr)
         words, counts, excess, need = cull_clusters_sorted2(accel, o_t, d_t, T_FAR)
         bt, gid = trace_tiles_streamed(o_t, d_t, accel, words, counts)
-        hit = recover_hit(scene, ray, untile(bt, tiling), untile(gid, tiling), accel)
+        with span("stream.recover"):
+            hit = recover_hit(scene, ray, untile(bt, tiling), untile(gid, tiling), accel)
         return hit, {"excess": excess, "need_k": need[0], "need_s": need[1]}
 
     def occlude_fn(ray: Ray, t_max):

@@ -6,6 +6,12 @@ bool, so the same integrator drives the brute-force tracers and the
 streamed kernel tier (kernels/stream.py). The bounce loop runs over the
 whole wavefront; dead rays carry d = 0 and zero throughput instead of
 leaving it.
+
+Under a profiler the shading records the spans "wavefront.surface" (the
+shading frame and material rows), "wavefront.lights" (each light's shadow
+rays) and "wavefront.shade" (BRDF, falloff, the bounce's radiance and its
+mirror continuation); the tracers run outside them, so they hold the
+integrator's own work and no cull or traversal.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from tracer_torch.core import intersect as ci
 from tracer_torch.core.camera import generate_rays
 from tracer_torch.core.types import RAY_EPS, Hit, Ray, dot, normalize, take
+from tracer_torch.utils.metrics import readback, span
 
 TraceFn = Callable[[Ray], Hit]
 OccludeFn = Callable[[Ray, torch.Tensor], torch.Tensor]
@@ -92,13 +99,16 @@ def direct_lighting(scene, p, n, d, albedo, spec, shin, valid, occlude_fn: Occlu
     light; `d` is the incoming unit ray direction."""
     total = torch.zeros_like(p)
     for li in range(scene.lights.count):
-        ray, t_max, dist2, wi, cos = shadow_ray(p, n, valid, scene.lights.position[li])
+        with span("wavefront.lights"):
+            ray, t_max, dist2, wi, cos = shadow_ray(p, n, valid, scene.lights.position[li])
         occluded = occlude_fn(ray, t_max)
-        vis = torch.where(occluded | ~valid, 0.0, 1.0)
-        falloff = (vis / torch.clamp_min(dist2, 1e-20))[..., None] * scene.lights.intensity[li]
-        brdf = (albedo / math.pi * cos[..., None]
-                + phong_specular(d, n, wi, spec, shin)[..., None])
-        total = total + brdf * falloff
+        with span("wavefront.shade"):
+            vis = torch.where(occluded | ~valid, 0.0, 1.0)
+            falloff = ((vis / torch.clamp_min(dist2, 1e-20))[..., None]
+                       * scene.lights.intensity[li])
+            brdf = (albedo / math.pi * cos[..., None]
+                    + phong_specular(d, n, wi, spec, shin)[..., None])
+            total = total + brdf * falloff
     return total
 
 
@@ -115,24 +125,26 @@ def bounce_step(scene, ray: Ray, throughput, live, cfg: WhittedConfig,
     """One Whitted bounce on an explicit wavefront state -> (contrib,
     next_ray, next_throughput, next_live): the radiance this bounce adds per
     ray, and the mirror continuation."""
-    sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=ray.o.device)
     hit = trace_fn(ray)
-    valid = hit.valid & live
-    p, n, mat = shading_frame(scene, ray, hit, cfg.smooth_shading)
-    albedo, emission, mirror, spec, shin = material_rows(scene.materials, mat)
+    with span("wavefront.surface"):
+        valid = hit.valid & live
+        p, n, mat = shading_frame(scene, ray, hit, cfg.smooth_shading)
+        albedo, emission, mirror, spec, shin = material_rows(scene.materials, mat)
 
     direct = direct_lighting(scene, p, n, ray.d, albedo, spec, shin, valid, occlude_fn)
-    local = emission + albedo * cfg.ambient + direct
-    miss_contrib = torch.where((live & ~hit.valid)[..., None], sky, 0.0)
-    surf_contrib = torch.where(valid[..., None], local * (1.0 - mirror), 0.0)
-    contrib = throughput * (surf_contrib + miss_contrib)
+    with span("wavefront.shade"):
+        sky = torch.tensor(cfg.sky_color, dtype=torch.float32, device=ray.o.device)
+        local = emission + albedo * cfg.ambient + direct
+        miss_contrib = torch.where((live & ~hit.valid)[..., None], sky, 0.0)
+        surf_contrib = torch.where(valid[..., None], local * (1.0 - mirror), 0.0)
+        contrib = throughput * (surf_contrib + miss_contrib)
 
-    refl_d = ray.d - 2.0 * dot(ray.d, n, keepdim=True) * n
-    next_live = valid & (mirror[..., 0] > 0.0)
-    # Dead rays bounce with d = 0: the tracers skip them for free.
-    m = next_live[..., None]
-    next_ray = Ray(o=torch.where(m, p + n * RAY_EPS, 0.0),
-                   d=torch.where(m, normalize(refl_d), 0.0))
+        refl_d = ray.d - 2.0 * dot(ray.d, n, keepdim=True) * n
+        next_live = valid & (mirror[..., 0] > 0.0)
+        # Dead rays bounce with d = 0: the tracers skip them for free.
+        m = next_live[..., None]
+        next_ray = Ray(o=torch.where(m, p + n * RAY_EPS, 0.0),
+                       d=torch.where(m, normalize(refl_d), 0.0))
     return contrib, next_ray, throughput * mirror, next_live
 
 
@@ -152,8 +164,9 @@ def render_wavefront(scene, ray: Ray, cfg: WhittedConfig, trace_fn: TraceFn,
 def render_wavefront_aux(scene, ray: Ray, cfg: WhittedConfig, trace_fn_aux, occlude_fn_aux):
     """render_wavefront over tracers that also return their cull's aux
     {"excess", "need_k", "need_s"} (kernels/stream.py). Returns (radiance,
-    aux) with aux["overflow"] the excess summed over every pass, and the
-    needs max-combined: "need_trace_k" over the closest-hit passes,
+    aux) with aux["overflow"] the excess summed over every pass (on the
+    device, read once at the end: the read-back "wavefront.overflow"), and
+    the needs max-combined: "need_trace_k" over the closest-hit passes,
     "need_occ_k" over the occlusion passes, "need_s" over both."""
     tot = {"overflow": 0, "need_trace_k": 0, "need_occ_k": 0, "need_s": 0}
 
@@ -173,7 +186,9 @@ def render_wavefront_aux(scene, ray: Ray, cfg: WhittedConfig, trace_fn_aux, occl
         return occ
 
     radiance = render_wavefront(scene, ray, cfg, trace_fn, occlude_fn)
-    return radiance, {**tot, "overflow": int(tot["overflow"])}
+    over = tot["overflow"]
+    over = readback(over, "wavefront.overflow") if torch.is_tensor(over) else over
+    return radiance, {**tot, "overflow": over}
 
 
 def render_image(scene, camera, height: int, width: int, cfg: WhittedConfig = WhittedConfig(),
