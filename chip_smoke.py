@@ -8,6 +8,17 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   2. build: compiles the CUDA kernels of tracer_torch/kernels/csrc/ with nvcc
      (one process per source, all started together) and prints each
      kernel's ptxas register and spill lines;
+  cull: the cull kernels of cull.cu (bvh/cull.py's kernel path of
+     cull_clusters_sorted2) against its plain version at every cull pass of
+     a frame of each cell's scene: bench100k and bunny512 at the preset
+     camera (primary and shadow), pod-1m (1 bounce) at a camera of the
+     cell pod-1m.pan's path (primary and both lights' shadows): words,
+     counts, excess and need equal and no spill counted, stage 1's sorted
+     survivors, tile bounds and t_max equal to the plain stage 1's; again with
+     SORT_CAP the largest power of two below S, so that tiles leave the
+     kernels unsorted for torch.sort: equal, one spill counted; each
+     stage's kernel alone (CUDA events behind a spin), the kernel path and
+     the plain version, and each stage's bound;
   The tiled tier, on the bench100k frame (102,402 triangles, 1920x1080):
   3. kernels: at the frame's own shapes (its primary-ray cull and its
      shadow-segment cull; the 256 heaviest tiles plus every 16th tile), each
@@ -105,8 +116,9 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      and tolerance), five row sums on the card in the tiled tier and none
      in the jnp tier; (c) one tiled bunny512 step launches
      closest_hit_kernel, closest_fast_kernel (where the frame has count-1
-     tiles), anyhit_kernel and five row sums (shade rows; vertices,
-     normals, albedo by slot; face normals by vertex), and nothing else
+     tiles), anyhit_kernel, the two cull kernels and five row sums (shade
+     rows; vertices, normals, albedo by slot; face normals by vertex), and
+     nothing else
      (counts printed), and, under a
      profiler, the row sums' span lands under "grad.backward" in the step's
      unit; (d)
@@ -133,7 +145,8 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      edge-aware accel, cornell256 replay and edge-aware brute, 10 steps
      each, bunny512 tiled, 5 steps: the loss falls, ms a step (host clock,
      mean after the first), peak device memory, launches (tiled: one of
-     each traversal2.cu kernel and four row sums a step; edge-aware accel:
+     each traversal2.cu kernel, four row sums and the same number of cull
+     kernels a step; edge-aware accel:
      three row sums a step; jnp one; the others none); (c) a 6-step fit
      checkpointed every 3, resumed to 9: exactly 3 more steps; (d)
      bin/trace_torch as a subprocess on cornell256, bench100k and
@@ -176,10 +189,11 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
   rank (NCCL on the card, a file:// store), each part with its seconds:
   20. (a) make_sharded_accel_render_fn at data = 1 over build_tracers on
      bench100k 1080p: bit-equal to render_wavefront over build_tracers,
-     launching exactly closest_hit_kernel, closest_fast_kernel and
-     anyhit_kernel (counts set to 0 just before the frame), its ms a frame
-     beside phase 6's; (b) the same on pod-1m 1080p, 1 bounce: bit-equal,
-     exactly the two stream kernels; (c) reshard_bounces=True on
+     launching exactly closest_hit_kernel, closest_fast_kernel,
+     anyhit_kernel and the two cull kernels (counts set to 0 just before the
+     frame), its ms a frame beside phase 6's; (b) the same on pod-1m 1080p,
+     1 bounce: bit-equal, exactly the two stream kernels and the two cull
+     kernels; (c) reshard_bounces=True on
      sponza1080 1080p, 3 bounces: under the golden gate of the frame
      without the re-shard, one all_to_all_single each way a bounce after
      the first; (d) make_ring_render_fn over the shard accel (k_cap None,
@@ -213,6 +227,7 @@ occludes one triangle test.
 """
 import dataclasses
 import json
+import math
 import os
 import re
 import subprocess
@@ -229,8 +244,8 @@ sys.path.insert(0, ROOT)
 
 import bench_torch  # noqa: E402
 from tracer_torch import api  # noqa: E402
-from tracer_torch.bvh import lbvh  # noqa: E402
-from tracer_torch.bvh.cluster import build_scene_accel  # noqa: E402
+from tracer_torch.bvh import cull, lbvh  # noqa: E402
+from tracer_torch.bvh.cluster import SUPER_FACTOR, build_scene_accel  # noqa: E402
 from tracer_torch.bvh.cull import (  # noqa: E402
     CLUSTER_BITS, cull_clusters, cull_clusters_sorted, cull_clusters_sorted2)
 from tracer_torch.core.camera import Camera, generate_rays, generate_rays_band  # noqa: E402
@@ -268,14 +283,18 @@ KERNELS = {
     "pair_anyhit": ("tracer_torch/kernels/csrc/traversal3.cu",
                     "tracer/kernels/traversal3.py:162"),
     "rows_sum": ("tracer_torch/kernels/csrc/gather.cu", None),   # replaces none
+    "cull_stage1": ("tracer_torch/kernels/csrc/cull.cu", None),   # replaces none
+    "cull_stage2": ("tracer_torch/kernels/csrc/cull.cu", None),   # replaces none
 }
 KERNEL_FUNCTIONS = ({"closest_hit_kernel", "closest_hit_finish_kernel",
                      "rows_sum_cols_kernel", "rows_sum_scan_kernel"}
                     | {f"{k}_kernel" for k in KERNELS if k not in ("closest", "rows_sum")})
 # The kernels each tier's frame must launch; it must launch none of the others.
-TIERS = {"tiled": ("closest", "closest_fast", "anyhit"),
-         "sorted": ("closest", "closest_fast", "anyhit"),
-         "streamed": ("closest_stream", "anyhit_stream"),
+# The tiled, sorted and streamed tiers cull with cull_clusters_sorted2.
+CULL_KERNELS = ("cull_stage1", "cull_stage2")
+TIERS = {"tiled": ("closest", "closest_fast", "anyhit", *CULL_KERNELS),
+         "sorted": ("closest", "closest_fast", "anyhit", *CULL_KERNELS),
+         "streamed": ("closest_stream", "anyhit_stream", *CULL_KERNELS),
          "worklist": ("worklist_closest", "worklist_anyhit"),
          "pair": ("pair_closest", "pair_anyhit")}
 
@@ -1640,7 +1659,7 @@ def phase_profile(cfg, scene=None, camera=None, accel=None):
 GRAD_FAMILIES = ("verts", "albedo", "cam_pos")
 # The kernels a tiled grad step or fit may launch: the tier's traversal and
 # the backward of its row gathers.
-TIERED = ("closest", "closest_fast", "anyhit", "rows_sum")
+TIERED = ("closest", "closest_fast", "anyhit", "rows_sum", *CULL_KERNELS)
 # Row sums (gather.cu) one backward launches, one a gather whose source
 # carries gradients, by diff.fit mode on FIT_MODES' and FIT_RUNS' presets:
 # (without, with the albedo optimised). make_vertex_normal_fn's gather of
@@ -1717,8 +1736,8 @@ def phase_grad_launches(dev="cuda") -> int:
     cfg = load_config("bunny512")
     scene, camera = api.get_scene(cfg, dev)
     _, aux = api.make_render_fn(scene, cfg, dev)(scene, camera, with_aux=True)
-    want = ["closest", "anyhit", "rows_sum"] + (["closest_fast"]
-                                                if aux["need_zero"] > aux["need_split"] else [])
+    want = ["closest", "anyhit", "rows_sum", *CULL_KERNELS] + (
+        ["closest_fast"] if aux["need_zero"] > aux["need_split"] else [])
     p = api.grad_params(scene, camera, GRAD_FAMILIES)
     step = api.make_grad_step_fn(cfg, scene, camera, device=dev)
     target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
@@ -1855,6 +1874,173 @@ def phase_grad_split(reps: int = 5, dev="cuda"):
     idle = f"idle {1.0 - busy / wall:.1%}" if busy > 0.0 else "idle share not measured"
     log(f"[grad] one profiled tiled bunny512 step: wall {wall:.3f} ms, device busy "
         f"{busy:.3f} ms, {idle}")
+
+
+# The frames whose cull passes phase_cull captures: (preset, overrides,
+# camera of the pan path or None for the preset's).
+CULL_CELLS = (("bench100k", {}, None), ("bunny512", {}, None),
+              ("pod-1m", {"max_bounces": 1}, 40))
+# Arithmetic operations a (tile, box) test of csrc/cull.cu: per axis two
+# subtractions, two divides and four min/max.
+FLOPS_CULL = 24
+
+
+def pan_camera(camera, i: int, period: int = 120):
+    """Camera i of the cell pod-1m.pan's path (rtbench/traffic/pan.json): at
+    (12, 1.7, 8), looking 8 ahead at height 1.4, fov 55, turned i / period of
+    a turn from the preset camera's heading."""
+    pos, look = camera.position.tolist(), camera.look_at.tolist()
+    a = math.atan2(look[2] - pos[2], look[0] - pos[0]) + 2.0 * math.pi * i / period
+    return Camera.make((12.0, 1.7, 8.0), (12.0 + 8.0 * math.cos(a), 1.4, 8.0 + 8.0 * math.sin(a)),
+                       fov_y_deg=55.0, device=camera.position.device)
+
+
+def cull_passes(cfg, dev, pan: int | None) -> list:
+    """The inputs (accel, o, d, t_max) of every cull_clusters_sorted2 pass
+    of one frame of cfg through make_render_fn (its tiled or streamed tier),
+    at the preset's camera or camera `pan` of the pan path."""
+    scene, camera = api.get_scene(cfg, dev)
+    if pan is not None:
+        camera = pan_camera(camera, pan)
+    got = []
+
+    def capture(accel, o, d, t_max):
+        got.append((accel, o, d, t_max))
+        return cull.cull_clusters_sorted2(accel, o, d, t_max)
+
+    saved = tiled.cull_clusters_sorted2, st.cull_clusters_sorted2
+    tiled.cull_clusters_sorted2 = st.cull_clusters_sorted2 = capture
+    try:
+        api.make_render_fn(scene, cfg, dev)(scene, camera)
+    finally:
+        tiled.cull_clusters_sorted2, st.cull_clusters_sorted2 = saved
+    return got
+
+
+def spill_counts(fn) -> list:
+    """fn()'s calls of bvh/cull.py's count, as (name, n)."""
+    seen = []
+    saved = cull.count
+    cull.count = lambda name, n=1: seen.append((name, n))
+    try:
+        fn()
+    finally:
+        cull.count = saved
+    return seen
+
+
+def same_cull(a, b) -> bool:
+    (wa, ca, xa, na), (wb, cb, xb, nb) = a, b
+    return (wa.shape == wb.shape and torch.equal(wa, wb) and torch.equal(ca, cb)
+            and int(xa) == int(xb) and na == nb)
+
+
+def same_stage1(accel, o, d, t_max, words_s1, sup_counts, tiles_b) -> bool:
+    """cull_stage1's survivors (each row's sorted prefix), counts, tile
+    bounds and t_max equal the plain version's stage 1 (its first S sorted
+    words, its tile_bounds and _tile_tmax)."""
+    bounds = cull.tile_bounds(o, d)
+    tm = cull._tile_tmax(t_max, o.shape[0], o.device)
+    ok, t = cull.frustum_aabb_entry(*(b[:, None] for b in bounds), accel.super_lo[None],
+                                    accel.super_hi[None], tm)
+    ids = torch.arange(ok.shape[1], dtype=torch.int32, device=o.device)[None]
+    plain = torch.sort(cull.pack_candidates(t, ids, ok), dim=1).values
+    s = int(sup_counts.max())
+    live = torch.arange(s, device=o.device)[None] < sup_counts[:, None]
+    return (torch.equal(sup_counts, ok.sum(1, dtype=torch.int32))
+            and torch.equal(torch.where(live, words_s1[:, :s], cull.WORD_INVALID), plain[:, :s])
+            and torch.equal(tiles_b[:, :13], torch.cat([*bounds, tm], 1)))
+
+
+def cull_bounds(accel, o, t_max, words_s1, sup_counts, k: int) -> tuple[dict, dict]:
+    """Each cull stage's bound on one pass: FLOPS_CULL operations a (tile,
+    box) pair tested (stage 1 every supercluster, stage 2 each survivor's
+    real members), against each input read once and each output written
+    once (stage 1: the rays, 24 B a ray and 4 more with a per-ray t_max, the
+    boxes, the survivors' words, a count and 64 B of bounds a tile; stage 2:
+    the bounds, the survivors' words, the clusters' boxes, k words and a
+    count a tile)."""
+    n_tiles, tr, _ = o.shape
+    n_sc, n_cl = accel.super_lo.shape[0], accel.num_clusters
+    per_ray = isinstance(t_max, torch.Tensor) and t_max.ndim > 0
+    s = int(sup_counts.max())
+    live = torch.arange(s, device=o.device)[None] < sup_counts[:, None]
+    sid = words_s1[:, :s].long() & ((1 << CLUSTER_BITS) - 1)
+    members = int(torch.where(live, (n_cl - sid * SUPER_FACTOR).clamp(0, SUPER_FACTOR), 0).sum())
+    n_words = int(sup_counts.sum())
+    one = bound(FLOPS_CULL * n_tiles * n_sc, n_tiles, tr, n_words, n_sc * 24 + n_tiles * 64,
+                24 + 4 * per_ray, 0)
+    two = bound(FLOPS_CULL * members, n_tiles, 0, n_words + n_tiles * k,
+                n_cl * 24 + n_tiles * 64, 0, 0)
+    return one, two
+
+
+def compare_cull(smi, what, accel, o, d, t_max, plain_reps: int, reps: int = 10) -> dict:
+    """cull_clusters_sorted2's kernel path against its plain version on one
+    pass: words, counts, excess and need equal with no spill; then with
+    SORT_CAP the largest power of two below S, so that tiles leave the
+    kernels unsorted, equal again with one spill; each stage's kernel alone
+    (device_ms), the kernel path and the plain version (cuda_ms) and each
+    stage's bound. Returns the two kernels' entries of the kernels line."""
+    plain = cull.cull_clusters_sorted2_plain(accel, o, d, t_max)
+    out = []
+    seen = spill_counts(lambda: out.append(cull._cull_sorted2_cuda(accel, o, d, t_max)))
+    check(same_cull(out[0], plain) and seen == [("cull_spills", 0)],
+          f"{what}: the cull kernels differ from the plain version (counted {seen})")
+    m, s = plain[3]
+    cap = 1 << max(0, (s - 1).bit_length() - 1)
+    saved, cull.SORT_CAP = cull.SORT_CAP, cap
+    try:
+        out.clear()
+        forced = spill_counts(lambda: out.append(cull._cull_sorted2_cuda(accel, o, d, t_max)))
+    finally:
+        cull.SORT_CAP = saved
+    check(same_cull(out[0], plain) and forced == [("cull_spills", int(max(s, m) > cap))],
+          f"{what}: with SORT_CAP {cap} the cull kernels differ from the plain version "
+          f"(counted {forced})")
+    words_s1, sup_counts, tiles_b = cull.cull_stage1(o, d, t_max, accel.super_lo, accel.super_hi)
+    check(same_stage1(accel, o, d, t_max, words_s1, sup_counts, tiles_b),
+          f"{what}: cull_stage1 differs from the plain version's stage 1")
+    one_ms = device_ms(lambda: cull.cull_stage1(o, d, t_max, accel.super_lo, accel.super_hi),
+                       reps)
+    two_ms = device_ms(lambda: cull.cull_stage2(tiles_b, words_s1, sup_counts, s,
+                                                accel.cluster_lo, accel.cluster_hi), reps)
+    path_ms = cuda_ms(lambda: cull._cull_sorted2_cuda(accel, o, d, t_max), reps)
+    plain_ms = cuda_ms(lambda: cull.cull_clusters_sorted2_plain(accel, o, d, t_max), plain_reps)
+    b1, b2 = cull_bounds(accel, o, t_max, words_s1, sup_counts, plain[0].shape[1])
+    log(f"[cull] {what}: {o.shape[0]} tiles of {o.shape[1]} rays, "
+        f"{accel.super_lo.shape[0]} superclusters, {accel.num_clusters} clusters, "
+        f"{'per-ray' if isinstance(t_max, torch.Tensor) else 'scalar'} t_max, S {s}, "
+        f"k {plain[0].shape[1]} ({count_stats(plain[1])}): words, counts, excess and need "
+        f"equal to the plain version, 0 spills, stage 1's survivors, bounds and t_max equal; "
+        f"SORT_CAP {cap}: equal, {forced[0][1]} spill; "
+        f"stage 1 alone {one_ms:.4f} ms (bound {b1['bound_ms']:.5f} by {b1['bound_by']}), "
+        f"stage 2 alone {two_ms:.4f} ms (bound {b2['bound_ms']:.5f} by {b2['bound_by']}); "
+        f"the kernels' pass {path_ms:.4f} ms, the plain version's {plain_ms:.4f} ms; on {smi}")
+    return {"cull_stage1": {"max_abs_err": 0.0, "ms": one_ms, "plain_ms": plain_ms, **b1},
+            "cull_stage2": {"max_abs_err": 0.0, "ms": two_ms, "plain_ms": plain_ms, **b2}}
+
+
+def phase_cull(smi: str, results: dict, dev="cuda"):
+    """cull: (see the module docstring). The kernels line's entries are the
+    pod-1m primary pass's."""
+    for preset, overrides, pan in CULL_CELLS:
+        cfg = load_config(preset, **overrides)
+        with torch.inference_mode():
+            passes = cull_passes(cfg, dev, pan)
+            check(len(passes) >= 2, f"{preset}: {len(passes)} cull passes in a frame")
+            for i, (accel, o, d, t_max) in enumerate(passes):
+                zero_launches()
+                r = compare_cull(smi, f"{preset} pass {i + 1} of {len(passes)}"
+                                 + (f" at pan camera {pan}" if pan is not None else ""),
+                                 accel, o, d, t_max, plain_reps=2 if preset == "pod-1m" else 5)
+                check(all(t2.LAUNCHES[k] > 0 for k in CULL_KERNELS),
+                      f"{preset}: the cull kernels never launched: {t2.LAUNCHES}")
+                if preset == "pod-1m" and i == 0:
+                    results.update(r)
+        del passes
+        torch.cuda.empty_cache()
+
 
 
 def rows_sum_cases(dev="cuda") -> list:
@@ -2169,10 +2355,13 @@ def phase_fit_runs(dev="cuda"):
         check(np.isfinite(losses).all() and losses[-1] < losses[0],
               f"fit {mode} on {preset}: the loss did not fall: {losses}")
         sums = ROWS_SUMS.get(mode, (0, 0))[0] * steps
+        culls = CULL_KERNELS if mode == "tiled" else ()
         check(all(launches[k] == steps for k in want) and launches["rows_sum"] == sums
-              and not any(v for k, v in launches.items() if k not in want + ("rows_sum",)),
-              f"fit {mode} on {preset}: launches {launches}, want one of {want} and "
-              f"{sums // steps} row sums a step")
+              and all(launches[k] > 0 and launches[k] % steps == 0 for k in culls)
+              and not any(v for k, v in launches.items()
+                          if k not in want + culls + ("rows_sum",)),
+              f"fit {mode} on {preset}: launches {launches}, want one of {want}, "
+              f"{sums // steps} row sums and the same cull launches each step")
 
 
 def phase_fit_resume(dev="cuda"):
@@ -2556,7 +2745,7 @@ def phase_goldens(dev="cuda") -> dict:
     golden_gate(img, ref[y0:y0 + hb], f"sponza1080 rows {y0}-{y0 + hb} of {cfg.height}, "
                 f"{scene.num_tris} triangles, 3 bounces, 2 lights, render_wavefront over "
                 f"trace_tiles_sorted / any_hit_tiles_sorted (launches {l_band})", 0.025)
-    check(set(l_band) == {"closest", "anyhit"}, f"the sponza band launched {l_band}")
+    check(set(l_band) == {"closest", "anyhit", *CULL_KERNELS}, f"the sponza band launched {l_band}")
 
     cfg = load_config("cornell256")
     scene, camera = api.get_scene(cfg, dev)
@@ -3058,6 +3247,7 @@ def run_phases() -> tuple[str, str, list]:
     name, smi = timed("device", phase_device)
     timed("build", phase_build)
     results, launches = {}, {}
+    timed("cull", phase_cull, smi, results)
     bench = load_config("bench100k")
     timed("kernels", phase_kernels, results, bench, torch.device("cuda"))
     launches.update(timed("frame", phase_frame, bench, "cuda", "tiled"))

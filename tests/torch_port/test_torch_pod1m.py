@@ -163,7 +163,8 @@ def test_a_profiled_streamed_frame_records_its_spans(hall, streamed, monkeypatch
     tot = metrics.span_totals("frame")
     assert len(words) == 6 and words[:3] == words[3:]
     assert tot["units"] == 1 and tot["counters"] == {"readbacks": len(READBACKS),
-                                                     "stream_words": sum(words[3:])}
+                                                     "stream_words": sum(words[3:]),
+                                                     "cull_spills": 3}
     calls = {k: v["calls"] for k, v in tot["spans"].items()}
     assert calls["stream.closest"] == calls["stream.recover"] == 1
     assert calls["stream.anyhit"] == calls["wavefront.lights"] == 2

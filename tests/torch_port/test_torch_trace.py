@@ -110,7 +110,8 @@ def test_a_frame_records_every_span(bunny):
     assert [r.name.removeprefix("readback.") for r in recs
             if r.name.startswith("readback.")] == READBACKS
     tot = metrics.span_totals("frame")
-    assert tot["units"] == 1 and tot["counters"] == {"readbacks": len(READBACKS)}
+    assert tot["units"] == 1 and tot["counters"] == {"readbacks": len(READBACKS),
+                                                     "cull_spills": 2}
     assert tot["spans"]["cull.stage1"]["calls"] == tot["spans"]["cull.stage2"]["calls"] == 2
     assert all(s["stream_ms"] == s["host_ms"] >= 0 for s in tot["spans"].values())
     assert tot["dropped"] == 0 and metrics.span_totals("grad.step") == {}
@@ -143,7 +144,8 @@ def test_a_grad_step_records_every_span(bunny):
     # normals of each vertex's incidences (verts).
     rays, slots, incidences = gathered_rows(bunny)
     assert tot["units"] == 1 and tot["counters"] == {
-        "readbacks": len(READBACKS), "rows_summed": rays + 7 * slots + incidences}
+        "readbacks": len(READBACKS), "rows_summed": rays + 7 * slots + incidences,
+        "cull_spills": 2}
     assert tot["spans"]["grad.rows_sum"]["calls"] == 5
     assert metrics.span_totals("frame") == {}
 
@@ -183,7 +185,8 @@ def test_units_and_counters_of_several_roots(bunny):
     assert recs[0].name == "outside" and recs[0].unit is None
     assert len({r.unit for r in recs[1:]}) == 2
     tot = metrics.span_totals("frame")
-    assert tot["units"] == 2 and tot["counters"] == {"readbacks": 2 * len(READBACKS)}
+    assert tot["units"] == 2 and tot["counters"] == {"readbacks": 2 * len(READBACKS),
+                                                     "cull_spills": 4}
     assert "outside" not in tot["spans"] and tot["spans"]["frame"]["calls"] == 2
 
 

@@ -14,6 +14,17 @@ the exact supercluster width S = max(sup_counts) and the word lists are cut
 at the exact k = max(counts) rounded up to 8, so no candidate is ever
 dropped. `excess` is still computed with the reference's formula, so
 `excess == 0` stays a checked fact.
+
+cull_clusters_sorted2, the two-stage cull of the frames and the grad step,
+is a wrapper: CPU tensors take its plain version (ATen ops,
+cull_clusters_sorted2_plain), CUDA tensors the two kernels of csrc/cull.cu
+(cull_stage1, cull_stage2; launch counters LAUNCHES["cull_stage1"] and
+["cull_stage2"] of kernels/_launch.py), which give the same words, counts,
+excess and need bit for bit. Both record the spans "cull.stage1" and
+"cull.stage2", the read-backs "cull.s", "cull.k" and "cull.need", and the
+counter "cull_spills": the passes whose words torch.sort ordered, which is
+every pass of the plain version and, on the card, a pass whose fullest tile
+held more words than a block sorts (see _cull_sorted2_cuda).
 """
 from __future__ import annotations
 
@@ -21,7 +32,8 @@ import torch
 
 from tracer_torch.bvh.cluster import SUPER_FACTOR
 from tracer_torch.core.types import T_FAR
-from tracer_torch.utils.metrics import readback, span
+from tracer_torch.kernels._launch import check_dense, launch
+from tracer_torch.utils.metrics import count, readback, span
 
 _EPS = 1e-12
 
@@ -32,8 +44,15 @@ CLUSTER_BITS = 17
 _CL_MASK = (1 << CLUSTER_BITS) - 1
 WORD_INVALID = 0x7FFFFFFF
 
-# Fetched stage-2 boxes per chunk of tiles (Nt * S * SUPER_FACTOR * 6 f32).
+# Fetched stage-2 boxes per chunk of tiles (Nt * S * SUPER_FACTOR * 6 f32),
+# in the plain version.
 _STAGE2_BYTES = 1 << 30
+
+# The most words a block of the cull kernels sorts in shared memory
+# (kSortCap of csrc/cull.cu); a tile with more writes them unsorted. And
+# the floats a tile's bounds and t_max take between the kernels.
+SORT_CAP = 8192
+TILE_FLOATS = 16
 
 
 def _round8(v: int) -> int:
@@ -178,15 +197,27 @@ def cull_clusters_sorted2(accel, o: torch.Tensor, d: torch.Tensor, t_max):
     Ncl.
 
     Returns (words, counts, excess, need) with need = (max cluster count,
-    max supercluster count): the reference's need_k and need_s. Stage 2
-    runs in chunks of tiles so that its fetched boxes stay near 1 GB."""
+    max supercluster count): the reference's need_k and need_s. CPU tensors
+    take cull_clusters_sorted2_plain; CUDA tensors the two kernels of
+    csrc/cull.cu (the same words, counts, excess and need), or it raises.
+    One supercluster takes the single-stage cull on either device."""
+    if accel.super_lo.shape[0] > 1 and o.device.type != "cpu":
+        return _cull_sorted2_cuda(accel, o, d, t_max)
+    count("cull_spills")   # the plain version sorts every pass with torch.sort
+    if accel.super_lo.shape[0] > 1:
+        return cull_clusters_sorted2_plain(accel, o, d, t_max)
+    with span("cull.stage1"):
+        words, counts, excess = cull_clusters_sorted(accel, o, d, t_max)
+    return words, counts, excess, (readback(counts.max(), "cull.need"), 0)
+
+
+def cull_clusters_sorted2_plain(accel, o: torch.Tensor, d: torch.Tensor, t_max):
+    """cull_clusters_sorted2 in ATen ops, for more than one supercluster.
+    Stage 2 runs in chunks of tiles so that its fetched boxes stay near
+    1 GB."""
     n_cl = accel.num_clusters
     n_sc = accel.super_lo.shape[0]
     F = SUPER_FACTOR
-    if n_sc <= 1:
-        with span("cull.stage1"):
-            words, counts, excess = cull_clusters_sorted(accel, o, d, t_max)
-        return words, counts, excess, (readback(counts.max(), "cull.need"), 0)
     dev = o.device
     with span("cull.stage1"):
         o_lo, o_hi, d_lo, d_hi = tile_bounds(o, d)
@@ -234,10 +265,117 @@ def cull_clusters_sorted2(accel, o: torch.Tensor, d: torch.Tensor, t_max):
             counts = torch.cat(parts_c)
             k = _round8(readback(counts.max(), "cull.k"))
             words = torch.cat([_cut_words(w, k) for w in parts_w])
-        else:  # no tile reaches any supercluster
-            counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-            k = 8
-            words = torch.full((n_tiles, k), WORD_INVALID, dtype=torch.int32, device=dev)
+        else:
+            counts, k, words = _no_candidates(n_tiles, dev)
         sup_excess = torch.clamp_min(sup_counts - S, 0).sum()
         excess = torch.clamp_min(counts - k, 0).sum() + sup_excess
+    return words, counts, excess, (readback(counts.max(), "cull.need") if n_tiles else 0, S)
+
+
+def _no_candidates(n_tiles: int, dev):
+    """(counts, k, words) of a pass in which no tile reaches a supercluster."""
+    return (torch.zeros(n_tiles, dtype=torch.int32, device=dev), 8,
+            torch.full((n_tiles, 8), WORD_INVALID, dtype=torch.int32, device=dev))
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _block(bound: int) -> tuple[int, int]:
+    """(threads, cap) of a cull kernel's launch whose tiles hold at most
+    `bound` words: a thread for every 4 words, 64 to 256 threads a block,
+    and a shared buffer of the next power of two of bound words, at most
+    SORT_CAP."""
+    return min(256, max(64, _pow2(-(-bound // 4)))), min(SORT_CAP, _pow2(max(1, bound)))
+
+
+def _check_rays(o, d, t_max) -> bool:
+    """Raise unless o, d are (Nt, TR, 3) float32 on one device and a per-ray
+    t_max (Nt, TR) float32 there too; returns whether t_max is per ray."""
+    per_ray = isinstance(t_max, torch.Tensor) and t_max.ndim > 0
+    rays = (o, d, t_max) if per_ray else (o, d)
+    if o.ndim != 3 or o.shape[2] != 3 or d.shape != o.shape or (
+            per_ray and t_max.shape != o.shape[:2]):
+        raise ValueError(f"the cull takes o, d (Nt, TR, 3) and t_max (Nt, TR) or a scalar, got "
+                         f"{[tuple(x.shape) for x in rays]}")
+    if any(x.dtype != torch.float32 or x.device != o.device for x in rays):
+        raise ValueError(f"the cull kernels take float32 rays on one device, got "
+                         f"{[(x.dtype, str(x.device)) for x in rays]}")
+    return per_ray
+
+
+def cull_stage1(o: torch.Tensor, d: torch.Tensor, t_max, box_lo: torch.Tensor,
+                box_hi: torch.Tensor):
+    """Stage 1 on the card (cull_stage1_kernel): o, d (Nt, TR, 3) float32 of
+    any strides, t_max scalar or (Nt, TR), the supercluster boxes (Nsc, 3)
+    -> (words (Nt, Nsc) int32: row t's first counts[t] entries the tile's
+    surviving words, sorted where counts[t] <= SORT_CAP, the rest of the row
+    unwritten; counts (Nt,) int32; tiles (Nt, TILE_FLOATS) float32: the
+    tile's tile_bounds o_lo, o_hi, d_lo, d_hi and _tile_tmax)."""
+    dev = o.device
+    check_dense(dev, (box_lo, torch.float32), (box_hi, torch.float32))
+    if _check_rays(o, d, t_max):   # tm, its strides, its columns, the scalar
+        tm = (t_max, *t_max.stride(), t_max.shape[1], 0.0)
+    else:
+        tm = (None, 0, 0, 0, float(t_max))
+    n_tiles, tr, _ = o.shape
+    n_box = box_lo.shape[0]
+    words = torch.empty((n_tiles, n_box), dtype=torch.int32, device=dev)
+    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    tiles = torch.empty((n_tiles, TILE_FLOATS), dtype=torch.float32, device=dev)
+    launch("cull_stage1", "cu_stage1", dev, o, d, *o.stride(), *d.stride(), *tm, n_tiles, tr,
+           box_lo, box_hi, n_box, *_block(n_box), words, counts, tiles)
+    return words, counts, tiles
+
+
+def cull_stage2(tiles: torch.Tensor, words_s1: torch.Tensor, sup_counts: torch.Tensor, s: int,
+                cl_lo: torch.Tensor, cl_hi: torch.Tensor):
+    """Stage 2 on the card (cull_stage2_kernel): stage 1's tiles, words_s1
+    (Nt, >= s) and sup_counts, s = max(sup_counts), the cluster boxes
+    (Ncl, 3) -> (words (Nt, s*SUPER_FACTOR) int32: row t the tile's
+    counts[t] surviving words, sorted where counts[t] <= SORT_CAP, then
+    WORD_INVALID; counts (Nt,) int32)."""
+    dev = tiles.device
+    check_dense(dev, (tiles, torch.float32), (words_s1, torch.int32),
+                (sup_counts, torch.int32), (cl_lo, torch.float32), (cl_hi, torch.float32))
+    n_tiles = tiles.shape[0]
+    width = s * SUPER_FACTOR
+    words = torch.empty((n_tiles, width), dtype=torch.int32, device=dev)
+    counts = torch.empty(n_tiles, dtype=torch.int32, device=dev)
+    launch("cull_stage2", "cu_stage2", dev, tiles, words_s1, words_s1.shape[1], sup_counts,
+           n_tiles, cl_lo, cl_hi, cl_lo.shape[0], width, *_block(width), words, counts)
+    return words, counts
+
+
+def _cull_sorted2_cuda(accel, o: torch.Tensor, d: torch.Tensor, t_max):
+    """cull_clusters_sorted2 through cull_stage1 and cull_stage2, with the
+    plain version's spans and read-backs. A stage whose fullest tile holds
+    more than SORT_CAP words (S, then the max count, both read by the host
+    anyway) sorts the pass's words with torch.sort; the counter
+    "cull_spills" counts such passes (0 for a pass sorted in the kernels)."""
+    with span("cull.stage1"):
+        words_s1, sup_counts, tiles = cull_stage1(o, d, t_max, accel.super_lo, accel.super_hi)
+        n_tiles = words_s1.shape[0]
+        S = readback(sup_counts.max(), "cull.s")
+        spilled = S > SORT_CAP
+        if spilled:
+            cols = torch.arange(S, device=o.device)[None] < sup_counts[:, None]
+            words_s1 = torch.sort(torch.where(cols, words_s1[:, :S], WORD_INVALID),
+                                  dim=1).values
+    with span("cull.stage2"):
+        if S > 0:
+            words, counts = cull_stage2(tiles, words_s1, sup_counts, S, accel.cluster_lo,
+                                        accel.cluster_hi)
+            m = readback(counts.max(), "cull.k")
+            if m > SORT_CAP:
+                spilled = True
+                words = torch.sort(words, dim=1).values
+            k = _round8(m)
+            words = _cut_words(words, k)
+        else:
+            counts, k, words = _no_candidates(n_tiles, o.device)
+        sup_excess = torch.clamp_min(sup_counts - S, 0).sum()
+        excess = torch.clamp_min(counts - k, 0).sum() + sup_excess
+    count("cull_spills", int(spilled))
     return words, counts, excess, (readback(counts.max(), "cull.need") if n_tiles else 0, S)

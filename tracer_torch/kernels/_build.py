@@ -21,7 +21,7 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("traversal2.cu", "stream.cu", "traversal.cu", "traversal3.cu", "gather.cu")
+SOURCES = ("traversal2.cu", "stream.cu", "traversal.cu", "traversal3.cu", "gather.cu", "cull.cu")
 HEADERS = ("common.cuh", "sorted.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tracer_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -29,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # words, counts, n_tiles, k_cap, tr, o4, d4, w, n_cl, c, bt, bid, stream
 _CLOSEST = [_P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P]
 # words, counts, n_tiles, k_cap, tr, o4, d4, w, n_cl, c, order, ends, n_ranks,
@@ -55,6 +57,13 @@ _SIGNATURES = {
     "pr_anyhit": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     # gather.cu. keys, perm, vals, n, w, out, ka, va, kb, vb, stream
     "gr_rows_sum": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # cull.cu. o, d, their strides (3 + 3), tm, its strides (2), tm_cols, tm_scalar, n_tiles,
+    # tr, box_lo, box_hi, n_box, threads, cap, words, counts, tiles, stream
+    "cu_stage1": [_P, _P, _L, _L, _L, _L, _L, _L, _P, _L, _L, _I, _F, _I, _I, _P, _P, _I, _I,
+                  _I, _P, _P, _P, _P],
+    # tiles, words_s1, s1_stride, sup_counts, n_tiles, cl_lo, cl_hi, n_cl, width, threads,
+    # cap, words, counts, stream
+    "cu_stage2": [_P, _P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P],
 }
 
 

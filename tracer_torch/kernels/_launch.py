@@ -13,7 +13,8 @@ LAUNCHES = {"closest": 0, "closest_fast": 0, "anyhit": 0,              # travers
             "closest_stream": 0, "anyhit_stream": 0,                   # stream.cu
             "worklist_closest": 0, "worklist_anyhit": 0,               # traversal.cu
             "pair_closest": 0, "pair_anyhit": 0,                       # traversal3.cu
-            "rows_sum": 0}                                             # gather.cu
+            "rows_sum": 0,                                             # gather.cu
+            "cull_stage1": 0, "cull_stage2": 0}                        # cull.cu
 
 
 def check_dense(dev, *pairs):
