@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (tracer_torch) on one NVIDIA GPU.
+"""On-card check of the PyTorch/CUDA port (tracer_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases, each of which raises (non-zero exit, no result line) on failure:
-  1. device: CUDA must be available; prints the card's name and power limit;
-  2. build: compiles the CUDA kernels of tracer_torch/kernels/csrc/ with nvcc
+It checks; it does not time. The port's times come from the benchmark
+(rtbench/, BENCHMARK.json). Phases, each of which raises (non-zero exit, no
+result line) on failure:
+  device: CUDA must be available; prints the card's name and power limit;
+  build: compiles the CUDA kernels of tracer_torch/kernels/csrc/ with nvcc
      (one process per source, all started together) and prints each
      kernel's ptxas register and spill lines;
   cull: the cull kernels of cull.cu (bvh/cull.py's kernel path of
@@ -16,99 +18,78 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      counts, excess and need equal and no spill counted, stage 1's sorted
      survivors, tile bounds and t_max equal to the plain stage 1's; again with
      SORT_CAP the largest power of two below S, so that tiles leave the
-     kernels unsorted for torch.sort: equal, one spill counted; each
-     stage's kernel alone (CUDA events behind a spin), the kernel path and
-     the plain version, and each stage's bound;
+     kernels unsorted for torch.sort: equal, one spill counted; both kernels
+     launched in every pass.
   The tiled tier, on the bench100k frame (102,402 triangles, 1920x1080):
-  3. kernels: at the frame's own shapes (its primary-ray cull and its
+  kernels: at the frame's own shapes (its primary-ray cull and its
      shadow-segment cull; the 256 heaviest tiles plus every 16th tile), each
      traversal2.cu kernel against its plain PyTorch version on the card: slot
-     ids and occlusion equal, best t bit-equal; times by CUDA events; for
-     each also the kernel's own device time (its wrapper's less its segment
-     table's, by CUDA events behind a spin that hides the host), its time on
-     the heaviest tile alone and on the selection without its 256 heaviest
-     tiles (what is left of the tail of long candidate lists), and for the
-     segmented ones the number of segments; the two closest-hit kernels also
-     on every tile of their region (9,675 generic and 12,461 count-1 tiles):
-     bits, three identical runs, time, bound and tests a second;
-  4. frame: the frame through tracer_torch.api.make_render_fn on the card:
+     ids and occlusion equal, best t bit-equal; the two closest-hit kernels
+     also on every tile of their region (9,675 generic and 12,461 count-1
+     tiles): bits, and three runs bit-identical;
+  frame: the frame through tracer_torch.api.make_render_fn on the card:
      overflow 0, a finite, lit image, every kernel of the tier launched and
      no kernel of the streamed tier;
-  5. cross-device: bench100k at 384x216 on the card and on the CPU (plain
-     versions), held to the golden image gate;
-  6. timing: tracer_torch.api.benchmark("bench100k") with 2 warm-ups and 10
-     frames;
-  7. layers: the frame's layers one at a time, with a sync after each (host
-     clock, median of 5 warm repetitions);
-  8. profile: device time by kernel over one warm frame (torch.profiler),
-     and the device's idle share in that same frame.
+  cross-device: bench100k at 384x216 on the card and on the CPU (plain
+     versions), held to the golden image gate.
   The streamed tier, on the pod-1m frame (3.94M triangles, 1920x1080, 1
-  bounce, 2 lights), one scene and accel shared by phases 9-11:
-  9. scene: builds the scene and its accel on the card;
-  10. stream kernels: at the frame's own shapes (its primary-ray cull, and
+  bounce, 2 lights), one scene and accel shared by the next two phases:
+  pod scene: builds the scene and its accel on the card;
+  stream kernels: at the frame's own shapes (its primary-ray cull, and
      the first light's surface-origin shadow rays from the wavefront's own
      arithmetic; the 256 heaviest tiles plus every 16th), each stream.cu
-     kernel against its plain version at B = 2, as in phase 3;
-  11. frame: the frame through make_render_fn: overflow 0, a finite, lit
-     image, both stream kernels launched and no traversal2.cu kernel; then
-     the profile of phase 8 over one warm pod-1m frame;
-  12. cross-device: pod-1m at 256x144 on the card and on the CPU, held to
-     the golden image gate;
-  13. timing: tracer_torch.api.benchmark("pod-1m", max_bounces=1) with 1
-     warm-up and 3 frames.
+     kernel against its plain version at B = 2, as in kernels, and
+     closest_stream_kernel on all 32,400 primary tiles;
+  pod frame: the frame through make_render_fn: overflow 0, a finite, lit
+     image, both stream kernels and the cull kernels launched and no
+     traversal2.cu kernel;
+  pod cross-device: pod-1m at 256x144 on the card and on the CPU, held to
+     the golden image gate.
   The wavefront tiers behind the (trace_fn, occlude_fn) seam, on the
-  bench100k frame (1 bounce, 1 light), one scene and accel shared by phases
-  14-16:
-  14. wavefront kernels: the work-list kernels (traversal.cu) at tiles of 256
+  bench100k frame (1 bounce, 1 light), one scene and accel shared by the
+  next two phases:
+  wavefront kernels: the work-list kernels (traversal.cu) at tiles of 256
      rays in order, the pair kernels (traversal3.cu) at 8x8 tiles, each at
      the frame's primary rays and its first light's surface-origin shadow
      rays (the heaviest tiles plus a stride), against its plain version:
-     ids, slots and occlusion equal, t, u, v bit-equal; for each work-list
-     kernel also what phase 3 reports of the any-hit kernel (segments,
-     kernel alone, table, heaviest tile alone, selection without its 256
-     heaviest), its tests a second beside the card's issue rate (132 SMs x
-     128 lanes x the SM clock nvidia-smi reports under the load), one
-     comparison on every tile of the pass, untimed, and for closest hit,
+     ids, slots and occlusion equal, t, u, v bit-equal; for closest hit,
      whose blocks merge by atomics, three runs that must be bit-identical;
-     pair_closest_kernel's tail report and its whole primary pass: bt bits
-     and bid against the plain version and a replay of its walk, three
-     identical runs, time, bound, tests a second beside the issue rate, its
+     each work-list kernel once more on every tile of the pass, and at
+     clusters of 32 triangles on a reduced selection;
+     pair_closest_kernel on its whole primary pass: bt bits and bid against
+     the plain version and a replay of its walk, three identical runs, its
      edge pairs (a ray with a hit below its best t in a cluster whose
      rounded slab entry is not) and its tiles of one origin (where it
      computes the origin's products once a warp); pair_closest_kernel on the
      first light's shadow rays (many origins: its general path), bits;
-     pair_anyhit_kernel's tail report and its whole shadow pass: occlusion
-     against the plain version and a replay of its walk, three identical
-     runs, time, bound, and its edge pairs (a ray with a hit under t_max in
-     a cluster whose rounded slab entry is not, which only another ray's
-     vote gets tested);
+     pair_anyhit_kernel on its whole shadow pass: occlusion against the
+     plain version and a replay of its walk, three identical runs, and its
+     edge pairs (a ray with a hit under t_max in a cluster whose rounded
+     slab entry is not, which only another ray's vote gets tested);
      then, on the pair tier's shadow rays, anyhit_kernel over the two-stage cull's lists
      against pair_anyhit_kernel over the single-stage cull's, on the same
      tiles and on all tiles: occlusion equal on every ray;
-  15. wavefront frames: render_wavefront over make_accel_tracers(
+  wavefront frames: render_wavefront over make_accel_tracers(
      use_pallas=True), make_sorted_tracers, make_pair_tracers and
      make_streamed_tracers: a finite, lit image each, its own kernels
-     launched and no other tier's, no warning, the four images pairwise
-     under the golden gate; each of 10 frames after 2 timed on the host
-     clock, then one profiled frame's device time by kernel;
-  16. routing: make_render_fn on cornell256 and bunny-grad: the wavefront
+     launched and no other tier's, no warning in two frames, the four images
+     pairwise under the golden gate;
+  routing: make_render_fn on cornell256 and bunny-grad: the wavefront
      aux {"overflow": 0}, no kernel launched, and a 64x64 frame of each on
      the card against the CPU under the golden gate; where pixels differ,
      their primary hits and first-light occlusion on both devices.
-  The backward of the tiled grad step's row gathers, before phase 17:
+  The backward of the tiled grad step's row gathers:
   rows sum: gather.cu's segmented row sum (kernels/gather.py rows_sum) at
      the bunny512 fit's shapes (the 262,144 rays' slot ids, 32 columns; the
      82,048 slots' 3 corners, 3 columns; the slots' materials, 3 columns),
-     gradient rows from a fixed seed: two runs bit-equal, each within fp32
-     re-association of a float64 sum (as is the plain version,
-     index_add_), the wrapper's and the kernel's ms beside the byte bound
-     and beside ATen's index_put_(accumulate=True) at the same shapes (the
-     backward of x[idx] it replaces, as the yardstick).
+     gradient rows from a fixed seed: two launches, two runs bit-equal, each
+     within fp32 re-association of a float64 sum (as is the plain version,
+     index_add_); then 300 random problems, the same two gates each.
   The grad step (tracer_torch.api.make_grad_step_fn: the tiled tier's three
   traversal2.cu kernels on detached inputs under autograd, the shade rows'
   and the slots' gathers summed back by gather.cu, or the plain cluster
-  tier with each candidate slot checkpointed), phase 17:
-  17. (a, b) bunny-grad at 64x64 with use_pallas, target a CPU frame + 0.05:
+  tier with each candidate slot checkpointed):
+  grad: (a, b) bunny-grad at 64x64 with use_pallas, target a CPU frame + 0.05:
      one SGD(1.0) step on the card and on the CPU for verts, albedo and
      cam_pos through the tiled tier ("auto") and the jnp tier ("off"): loss
      to rtol 1e-5, each gradient nonzero and to rtol 2e-3 + atol 2e-6 of
@@ -118,50 +99,41 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      closest_hit_kernel, closest_fast_kernel (where the frame has count-1
      tiles), anyhit_kernel, the two cull kernels and five row sums (shade
      rows; vertices, normals, albedo by slot; face normals by vertex), and
-     nothing else
-     (counts printed), and, under a
-     profiler, the row sums' span lands under "grad.backward" in the step's
-     unit; (d)
-     bench_torch.py's three grad steps, each with its peak device memory,
-     overflow and launches (the jnp tier none), the jnp tier's peak without
-     the checkpoint at 128x128 and at full size (out of memory is logged,
-     not fatal), and the tiled bunny512 step split into accel build, render
-     and loss, backward and optimizer (host clock, a sync after each part,
-     median of 5), then one profiled step (device time by operation, idle
-     share); (e) bench_torch.py's JSON line (the frame of phase 6 and
-     the steps of (d)).
+     nothing else (counts printed), and, under a profiler, the row sums'
+     span lands under "grad.backward" in the step's unit; (d) two Adam
+     steps each of GRAD_STEPS at the presets' full size (bunny-grad, whose
+     config routes it to the jnp tier; bunny512 through the tiled tier;
+     bunny512 through the jnp tier): overflow 0, the tiled tier's kernels
+     (closest_hit_kernel among them) and no other, the jnp tier none.
   The fit and the command lines (tracer_torch.diff.fit, bin/trace_torch),
-  phase 18, after a check that TF32 products are off:
-  18. (a) each of make_loss_fn's five modes at 64x64 on the card against the
+  after a check that TF32 products are off:
+  fit: (a) each of make_loss_fn's five modes at 64x64 on the card against the
      CPU, one CPU target, the camera 0.0123 and 0.0071 off the preset's
      point: tiled (bunny-grad with use_pallas), edge-aware accel and jnp
      (bunny-grad), edge-aware brute and replay (cornell256); the grad gate
-     of 17 for vert_offset and albedo; the tiled mode launches
+     of grad (a, b) for vert_offset and albedo; the tiled mode launches
      closest_hit_kernel, anyhit_kernel and five row sums, the edge-aware
      accel mode four (its shade rows carry the vertices' gradients), the
      jnp mode one (the vertex normals), no mode another kernel; (b)
      the fits bin/fit_torch runs, at the presets' full size (verts, Adam
      5e-3, a target moved by its seeded offset): bunny-grad jnp and
      edge-aware accel, cornell256 replay and edge-aware brute, 10 steps
-     each, bunny512 tiled, 5 steps: the loss falls, ms a step (host clock,
-     mean after the first), peak device memory, launches (tiled: one of
+     each, bunny512 tiled, 5 steps: the loss falls, launches (tiled: one of
      each traversal2.cu kernel, four row sums and the same number of cull
-     kernels a step; edge-aware accel:
-     three row sums a step; jnp one; the others none); (c) a 6-step fit
-     checkpointed every 3, resumed to 9: exactly 3 more steps; (d)
-     bin/trace_torch as a subprocess on cornell256, bench100k and
-     sponza1080 (3 bounces, 2 lights): exit 0, the PNG read back of the
-     right shape, neither blank nor saturated, overflow 0, no non-finite
-     value, its steady-state frame time; sponza1080 at 128x72 on the card
-     against the CPU under the golden gate; then bench_torch.py's line of
-     sponza1080 (BENCH_PRESET=sponza1080 BENCH_GRAD=0; not the last line).
-  The rest of the one-card surface, phase 19, each part with its seconds:
-  19. (a) trace_tiles_sorted and any_hit_tiles_sorted over bench100k's
+     kernels a step; edge-aware accel: three row sums a step; jnp one; the
+     others none); (c) a 6-step fit checkpointed every 3, resumed to 9:
+     exactly 3 more steps; (d) bin/trace_torch as a subprocess on
+     cornell256, bench100k and sponza1080 (3 bounces, 2 lights): exit 0,
+     the PNG read back of the right shape, neither blank nor saturated,
+     overflow 0, no non-finite value; sponza1080 at 128x72 on the card
+     against the CPU under the golden gate.
+  one-card surface, each part logged when it passes:
+     (sorted) trace_tiles_sorted and any_hit_tiles_sorted over bench100k's
      1080p primary tiles and shadow-segment tiles: bit-equal to
      trace_tiles_split and any_hit_tiles_graded and, on select_tiles'
      subset, to the plain versions; one launch each of closest_hit_kernel
-     and anyhit_kernel (counts set to 0 just before each pass); each pass's
-     ms beside the split passes'; (b) goldens against the fp64 C++ oracle
+     and anyhit_kernel (counts set to 0 just before each pass); (goldens)
+     goldens against the fp64 C++ oracle
      (tracer_torch.refcpu.cpp, built from cpp/oracle.cpp; a build failure
      fails the phase) at the reference's full sizes, under the golden gate
      ("[gate] <what>: pixels off by > 2e-3: <share> (gate <limit>), p98
@@ -169,61 +141,52 @@ Phases, each of which raises (non-zero exit, no result line) on failure:
      tier), the 4x3 hall 256x256 with 2 bounces through render_tiled, rows
      640-768 of sponza1080's 1080p frame (3 bounces, 2 lights, gate 2.5%)
      through generate_rays_band and render_wavefront over tracers built on
-     (a)'s wrappers, cornell256 256x256 through render_image (brute) in both
-     shadings, tests/golden/test_phong.py's scene 96x96 brute and tiled;
-     (c) bunny512 512x512 through render_image over make_lbvh_tracers,
-     gated against (b)'s tiled frame and the oracle: build ms, each pass's
-     ms, loop iterations, peak memory; (d) bunny512's geometry through
+     the sorted wrappers, cornell256 256x256 through render_image (brute) in
+     both shadings, tests/golden/test_phong.py's scene 96x96 brute and
+     tiled; (lbvh) bunny512 512x512 through render_image over
+     make_lbvh_tracers, no kernel launched, gated against the goldens'
+     tiled frame and the oracle; (obj) bunny512's geometry through
      save_obj, load_obj's native and Python parsers field for field, the
      obj: scene through make_render_fn against the oracle, and
-     bin/trace_torch on it; (e) bin/bench_torch --preset bench100k --iters 3
-     --no-grad: overflow 0, ms_per_frame within half to twice phase 6's;
-     (f) utils.debug.checked(render_image): a clean cornell frame passes,
-     NaN vertices raise CheckError; benchmark("cornell256", profile=True)
-     writes trace.json; seeded jittered rays card vs CPU to 2^-22; (g)
-     cornell256 64x64 stage by stage on the card against the CPU, from the
-     same inputs and each from its own, in units of 2^-23 (the first stage
-     past 4 is named with its operations), and where the replay-mode loss
-     gap of phase 18 (a) comes from.
-  The distributed paths (tracer_torch.dist), phase 20, in a world of one
-  rank (NCCL on the card, a file:// store), each part with its seconds:
-  20. (a) make_sharded_accel_render_fn at data = 1 over build_tracers on
+     bin/trace_torch on it; (guard) utils.debug.checked(render_image): a
+     clean cornell frame passes, NaN vertices raise CheckError;
+     benchmark("cornell256", profile=True) writes trace.json; seeded
+     jittered rays card vs CPU to 2^-22; (cornell stages) cornell256 64x64
+     stage by stage on the card against the CPU, from the same inputs and
+     each from its own, in units of 2^-23 (the first stage past 4 is named
+     with its operations), and where the replay-mode loss gap of fit (a)
+     comes from.
+  dist: the distributed paths (tracer_torch.dist) in a world of one rank
+     (NCCL on the card, a file:// store), each part logged when it passes:
+     (tile DP) make_sharded_accel_render_fn at data = 1 over build_tracers on
      bench100k 1080p: bit-equal to render_wavefront over build_tracers,
      launching exactly closest_hit_kernel, closest_fast_kernel,
      anyhit_kernel and the two cull kernels (counts set to 0 just before the
-     frame), its ms a frame beside phase 6's; (b) the same on pod-1m 1080p,
-     1 bounce: bit-equal, exactly the two stream kernels and the two cull
-     kernels; (c) reshard_bounces=True on
-     sponza1080 1080p, 3 bounces: under the golden gate of the frame
-     without the re-shard, one all_to_all_single each way a bounce after
-     the first; (d) make_ring_render_fn over the shard accel (k_cap None,
-     with_aux), ring and reduce, on bench100k 1080p, 1 bounce: overflow 0,
-     exactly the two work-list kernels, under the golden gate of (a)'s
-     image, with the shard accel's build time and the peak memory; (e) the
-     brute ring and reduce on cornell256 256x256 against make_render_fn's
-     frame, no kernel; (f) make_sharded_grad_fn and make_overlapped_grad_fn
-     (4 buckets) on cornell256 256x256 and the overlapped step over
-     build_tracers on bunny-grad, from phase 18's off-centre camera against
+     frame); the same on pod-1m 1080p, 1 bounce: bit-equal, exactly the two
+     stream kernels and the two cull kernels; (re-shard)
+     reshard_bounces=True on sponza1080 1080p, 3 bounces: under the golden
+     gate of the frame without the re-shard, one all_to_all_single each way
+     a bounce after the first; (ring accel) make_ring_render_fn over the
+     shard accel (k_cap None, with_aux), ring and reduce, on bench100k
+     1080p, 1 bounce: overflow 0, exactly the two work-list kernels, under
+     the golden gate of tile DP's image; (brute ring) the brute ring and
+     reduce on cornell256 256x256 against make_render_fn's frame, no
+     kernel; (grads) make_sharded_grad_fn and make_overlapped_grad_fn (4
+     buckets) on cornell256 256x256 and the overlapped step over
+     build_tracers on bunny-grad, from fit (a)'s off-centre camera against
      a zeros target, on the card against the CPU (a world of one gloo rank
-     in a spawned process, run while the card works) under the grad gate of
-     17; (g) scaling_sweep on bench100k (one row) and bin/bench_torch
-     --scaling (the measured row, two pending); (h) dryrun.
-Each phase prints its wall time. The run adopts its orphans and, when it
-ends, reaps its children: a process it started that is still running
-then is killed and fails the run. The last lines are a JSON line of
-per-kernel results (launches: on the main paths of phases 4, 11 and 15,
-whose frames launch no row sum, and rows_sum's in 17 (c)'s tiled grad step;
-dist_launches: on phase 20's (a), (b) and (d) ring frame), the nvidia-smi
-line, and {"ok": true, "device": {...}}.
-
-A kernel's bound is the larger of its operations over the card's fp32 peak
-and its bytes over the card's memory rate, counting what its function needs
-on this run's inputs and nothing its specification lets it skip: a walk
-with an early-out needs the words under the tile's final bound; a pair
-kernel tests those of them that pass its slab vote against the final state,
-and slab-tests all of them; an OR needs, for a ray it leaves unoccluded,
-every candidate the ray can reach before its t_max, and for a ray it
-occludes one triangle test.
+     in a spawned process, run while the card works) under the grad gate;
+     (scaling) scaling_sweep on bench100k (one row, efficiency 1) and
+     bin/bench_torch --scaling (the one-card table: the card's row, two
+     pending); (dryrun) dryrun.
+Each phase prints "[phase] <name>: passed". The run adopts its orphans
+and, when it ends, reaps its children: a process it started that is still
+running then is killed and fails the run. The last lines are a JSON line of
+the kernels (launches: on the main paths of frame, pod frame and wavefront
+frames, whose frames launch no row sum, and rows_sum's in grad (c)'s tiled
+grad step; dist_launches: on dist's tile DP frames and its ring frame;
+checks: what each kernel was held to) and the phases passed, the
+nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 import dataclasses
 import json
@@ -242,10 +205,9 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-import bench_torch  # noqa: E402
 from tracer_torch import api  # noqa: E402
 from tracer_torch.bvh import cull, lbvh  # noqa: E402
-from tracer_torch.bvh.cluster import SUPER_FACTOR, build_scene_accel  # noqa: E402
+from tracer_torch.bvh.cluster import build_scene_accel  # noqa: E402
 from tracer_torch.bvh.cull import (  # noqa: E402
     CLUSTER_BITS, cull_clusters, cull_clusters_sorted, cull_clusters_sorted2)
 from tracer_torch.core.camera import Camera, generate_rays, generate_rays_band  # noqa: E402
@@ -253,15 +215,14 @@ from tracer_torch.core.types import T_FAR  # noqa: E402
 from tracer_torch.diff.fit import (  # noqa: E402
     FitConfig, fit, init_params, latest_checkpoint, make_loss_fn)
 from tracer_torch.kernels import (  # noqa: E402
-    _build, _launch, gather, stream as st, traversal as t1, traversal2 as t2,
-    traversal3 as t3)
+    _build, gather, stream as st, traversal as t1, traversal2 as t2, traversal3 as t3)
 from tracer_torch.kernels.traversal import (  # noqa: E402
     _homog, generate_rays_tiled, tile_rays, tiled_tmax, untile)
 from tracer_torch.refcpu import cpp as cpp_oracle  # noqa: E402
 from tracer_torch.render import tiled, whitted  # noqa: E402
 from tracer_torch.scene import cpp_loader, procedural  # noqa: E402
 from tracer_torch.scene.io import load_obj, save_obj  # noqa: E402
-from tracer_torch.scene.types import make_vertex_normal_fn  # noqa: E402
+from tracer_torch.utils import metrics  # noqa: E402
 from tracer_torch.utils.config import load_config  # noqa: E402
 from tracer_torch.utils.debug import CheckError, checked  # noqa: E402
 from tracer_torch.utils.image import read_png  # noqa: E402
@@ -286,9 +247,6 @@ KERNELS = {
     "cull_stage1": ("tracer_torch/kernels/csrc/cull.cu", None),   # replaces none
     "cull_stage2": ("tracer_torch/kernels/csrc/cull.cu", None),   # replaces none
 }
-KERNEL_FUNCTIONS = ({"closest_hit_kernel", "closest_hit_finish_kernel",
-                     "rows_sum_cols_kernel", "rows_sum_scan_kernel"}
-                    | {f"{k}_kernel" for k in KERNELS if k not in ("closest", "rows_sum")})
 # The kernels each tier's frame must launch; it must launch none of the others.
 # The tiled, sorted and streamed tiers cull with cull_clusters_sorted2.
 CULL_KERNELS = ("cull_stage1", "cull_stage2")
@@ -297,22 +255,6 @@ TIERS = {"tiled": ("closest", "closest_fast", "anyhit", *CULL_KERNELS),
          "streamed": ("closest_stream", "anyhit_stream", *CULL_KERNELS),
          "worklist": ("worklist_closest", "worklist_anyhit"),
          "pair": ("pair_closest", "pair_anyhit")}
-
-# Published peaks of one H100 SXM at its full 700 W power limit: fp32 outside
-# the tensor cores, and device memory. A kernel's bound is the larger of its
-# operations over the first and its bytes over the second.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# Arithmetic operations per (ray, triangle) test, compares not counted.
-# tri_t (traversal2.cu, stream.cu, traversal3.cu): so 3 x (3 mul + 3 add), sd
-# 3 x (3 mul + 2 add), negate, divide, u and v 2 x (mul + add), 1 - u - v.
-FLOPS_TRI = 41
-# _field_epilogue (field_hit of traversal.cu): so and sd 6 x (4 mul + 3 add), negate, divide, u
-# and v 2 x (mul + add), u + v.
-FLOPS_FIELD = 49
-# _slab_enter (traversal3.cu) per (ray, box): per axis 2 subtractions, 2
-# products, and 4 min/max.
-FLOPS_SLAB = 24
 _CL_MASK = (1 << CLUSTER_BITS) - 1
 
 
@@ -320,18 +262,9 @@ def log(msg: str):
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call of fn on the current stream (CUDA events), warm."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def held(results: dict, kernel: str, what: str):
+    """Record that `kernel` passed its comparison `what`, for the kernels line."""
+    results.setdefault(kernel, []).append(what)
 
 
 def select_tiles(counts: torch.Tensor) -> torch.Tensor:
@@ -354,11 +287,9 @@ def phase_device() -> tuple[str, str]:
 
 
 def phase_build():
-    t0 = time.perf_counter()
     path, compiler_log = _build.build()
     _build.load()
-    log(f"[build] {path.name} from {', '.join(_build.SOURCES)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"[build] {path.name} from {', '.join(_build.SOURCES)}")
     for line in compiler_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"[build]   {line.strip()}")
@@ -428,93 +359,8 @@ def count_stats(counts: torch.Tensor) -> str:
     return f"count max {int(counts.max())}, mean {float(c.mean()):.2f}"
 
 
-def bound(flops, n_tiles, tr, list_items, cluster_bytes, in_ray, out_ray):
-    """The least time the card could take for a traversal kernel's work on
-    this run's inputs: `flops` operations, against these bytes, each input
-    once and each output once: in_ray + out_ray per ray, 4 per list item and
-    per tile, and cluster_bytes of cluster data."""
-    nbytes = n_tiles * tr * (in_ray + out_ray) + 4 * (list_items + n_tiles) + cluster_bytes
-    ops_ms, bytes_ms = float(flops) / PEAK_FP32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None}
-
-
-def needed_words(words, counts, final_bits):
-    """Which of each tile's sorted words any front-to-back walk of this data
-    must visit: those whose entry bits lie under the tile's final bound (the
-    bound only falls during a walk) -> (Nt, K) bool."""
-    slot = torch.arange(words.shape[1], device=words.device)[None]
-    return ((words & ~_CL_MASK) < final_bits[:, None]) & (slot < counts[:, None])
-
-
-def closest_bound(words, counts, final_bits, tr, c):
-    """bound() of a closest-hit kernel that walks sorted words with an
-    early-out and tests every ray of the tile against a visited cluster.
-    Rays: o4, d4 in (32 B), bt, bid out (8 B)."""
-    need = needed_words(words, counts, final_bits)
-    tests = int(need.sum())
-    clusters = torch.unique((words & _CL_MASK)[need]).numel()
-    return (bound(tests * tr * c * FLOPS_TRI, words.shape[0], tr, tests, clusters * 48 * c,
-                  32, 8), f"{tests} cluster tests x {tr} x {c} x {FLOPS_TRI}")
-
-
-def sorted_closest_bound(name, words, counts, bt, tr, c):
-    """closest_bound of the sorted closest-hit kernel `name` on its output bt
-    -> (bound, its text, the (ray, triangle) tests it counts). The fast
-    kernel's walk is its first word, whatever the bound."""
-    if name == "closest_fast":
-        words, counts = words[:, :1], counts.clamp_max(1)
-        final = torch.full_like(counts, 2**31 - 1)
-    else:
-        final = float_bits(bt).amax(1)
-    bnd, tests = closest_bound(words, counts, final, tr, c)
-    return bnd, tests, int(needed_words(words, counts, final).sum()) * tr * c
-
-
-def open_rays(occ, tmax):
-    """The rays an OR must follow to the end: not occluded, and with a
-    non-empty interval (T_MIN, t_max)."""
-    return ~occ & (tmax > t1.T_MIN)
-
-
-def anyhit_bound(words, counts, occ, tmax, c):
-    """bound() of an any-hit kernel over sorted words, per ray: a ray left
-    unoccluded needs every word whose entry bits lie under its own t_max (the
-    tile frustum's entry distance is a lower bound of the ray's), a ray that
-    ends occluded one triangle test. Rays: o4, d4, tmax in (36 B), occ out
-    (1 B)."""
-    slot = torch.arange(words.shape[1], device=words.device)[None]
-    valid = slot < counts[:, None]
-    need = (((words & ~_CL_MASK)[:, :, None] < float_bits(tmax)[:, None, :])
-            & valid[:, :, None] & open_rays(occ, tmax)[:, None, :])          # (Nt, K, TR)
-    tests = int(need.sum()) * c + int(occ.sum())
-    used = need.any(2)
-    items = int(torch.maximum(used.sum(1), occ.any(1).long()).sum())
-    clusters = torch.unique((words & _CL_MASK)[used]).numel()
-    return (bound(tests * FLOPS_TRI, words.shape[0], occ.shape[1], items, clusters * 48 * c,
-                  36, 1), f"{tests} (ray, triangle) tests x {FLOPS_TRI}")
-
-
-def pair_enter(o4, d4, lo, hi, words, need):
-    """For each needed (tile, word) pair, the entry distance of every ray of
-    the tile into the word's cluster box -> (tile (P,), cluster (P,), enter
-    (P, TR))."""
-    t, k = torch.nonzero(need, as_tuple=True)
-    cl = (words[t, k] & _CL_MASK).long()
-    rt = t3._ray_rows(o4[..., :3], d4[..., :3])
-    return t, cl, t3._slab_enter(rt[t], lo[cl], hi[cl])
-
-
 def float_bits(x):
     return x.contiguous().view(torch.int32)
-
-
-def report(name, results, n_tiles, what, ms, plain_ms, err, bnd, tests):
-    log(f"[kernels] {name}: {n_tiles} tiles, {what}; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']} "
-        f"({tests})")
-    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bnd}
 
 
 def compare_closest(name, kernel, plain, o4, d4, w, words, counts, results):
@@ -525,182 +371,42 @@ def compare_closest(name, kernel, plain, o4, d4, w, words, counts, results):
     bad_bid = int((bid_k != bid_p).sum())
     bad_bt = int((float_bits(bt_k) != float_bits(bt_p)).sum())
     err = float((bt_k - bt_p).abs().max()) if bt_k.numel() else 0.0
-    ms = cuda_ms(lambda: kernel(o4, d4, w, words, counts), 20)
-    plain_ms = cuda_ms(lambda: plain(o4, d4, w, words, counts), 1)
-    bnd, tests, _ = sorted_closest_bound(name, words, counts, bt_k, o4.shape[1], w.shape[2] // 3)
-    report(name, results, o4.shape[0],
-           f"{count_stats(counts)}: gid mismatches {bad_bid}, bt bit mismatches {bad_bt}, "
-           f"max |dbt| {err:.3g}", ms, plain_ms, err, bnd, tests)
+    log(f"[kernels] {name}: {o4.shape[0]} tiles, {count_stats(counts)}: gid mismatches "
+        f"{bad_bid}, bt bit mismatches {bad_bt}, max |dbt| {err:.3g}")
     if bad_bid or bad_bt:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    held(results, name, "plain version, selected tiles")
 
 
 def compare_anyhit(name, kernel, plain, args, results):
     """args = (o4, d4, tmax, w, words, counts) of tiles with count > 0."""
     check(args[0].shape[0] > 0, f"{name}: the selection holds no tile")
-    o4, _, tmax, w, words, counts = args
     occ_k = kernel(*args)
     occ_p = plain(*args)
     torch.cuda.synchronize()
     bad = int((occ_k != occ_p).sum())
-    ms = cuda_ms(lambda: kernel(*args), 20)
-    plain_ms = cuda_ms(lambda: plain(*args), 1)
-    bnd, tests = anyhit_bound(words, counts, occ_k, tmax, w.shape[2] // 3)
-    report(name, results, o4.shape[0],
-           f"{count_stats(counts)}, occluded {float(occ_k.float().mean()):.3f}: occ "
-           f"mismatches {bad}", ms, plain_ms, float(bad > 0), bnd, tests)
+    log(f"[kernels] {name}: {args[0].shape[0]} tiles, {count_stats(args[5])}, occluded "
+        f"{float(occ_k.float().mean()):.3f}: occ mismatches {bad}")
     if bad:
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    held(results, name, "plain version, selected tiles")
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device ms per call of fn with the host's time between launches
-    taken out: the stream is first held busy (a spin of some 30 ms) while the
-    host enqueues all `reps` calls, so the card then runs them back to back
-    and the CUDA events around them see no gap the host left."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    check(not end.query(), "device_ms: the card caught up with the host, the spin is too short")
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def tail_report(name, results, geometry, counts, call, table):
-    """What is left of the tail of long candidate runs in a kernel, on a
-    selection of tiles by descending count (`counts`): how many segments
-    its work is cut into, and the kernel's own device time on all of the
-    selection, on the heaviest tile alone and on the selection without its
-    256 heaviest tiles. call(a, b) and table(a, b) give a function that runs
-    the wrapper, and one that builds its segment table, on tiles a:b of the
-    selection (table None: a kernel that walks a tile in one block, which
-    builds no table). The wrapper builds the table at every call, in eager
-    PyTorch, so the kernel's own time is the wrapper's device time less the
-    table's (device_ms of each: what is left holds the kernel and the fills
-    of its scratch). Returns the kernel's own ms on all."""
-    parts = ((0, None), (0, 1), (256, None))
-    check(counts.shape[0] > 256, f"{name}: the selection holds no tile past the 256 heaviest")
-    if table is None:
-        n_seg = seg_heavy = seg_rest = "no"
-        table_ms = [0.0, 0.0, 0.0]
-    else:
-        n_seg, seg_heavy, seg_rest = (int(table(a, b)()[1][-1]) for a, b in parts)
-        table_ms = [device_ms(table(a, b), 10) for a, b in parts]
-    wrap_ms = [device_ms(call(a, b), 10) for a, b in parts]
-    ms_all, ms_heavy, ms_rest = (w - t for w, t in zip(wrap_ms, table_ms))
-    log(f"[kernels] {name}: {n_seg} segments, {geometry}; the wrapper takes "
-        f"{results[name]['ms']:.4f} ms a call "
-        f"with the host's gaps, {wrap_ms[0]:.4f} ms of device time without them, of which the "
-        f"segment table {table_ms[0]:.4f} ms and the kernel alone {ms_all:.4f} ms; kernel "
-        f"alone on the heaviest tile (count {int(counts[0])}, {seg_heavy} segments) "
-        f"{ms_heavy:.4f} ms (wrapper {wrap_ms[1]:.4f} less table {table_ms[1]:.4f}); without "
-        f"the 256 heaviest tiles ({counts.shape[0] - 256} tiles, count max {int(counts[256])}, "
-        f"{seg_rest} segments) {ms_rest:.4f} ms (wrapper {wrap_ms[2]:.4f} less table "
-        f"{table_ms[2]:.4f})")
-    return ms_all
-
-
-def sorted_tail_report(name, kernel, args, results):
-    """tail_report of a sorted any-hit kernel on args = (o4, d4, tmax, w,
-    words, counts), tiles by descending count."""
-    def cut(a, b):
-        return tuple(x if x is args[3] else x[a:b].contiguous() for x in args)
-
-    def call(a, b):
-        part = cut(a, b)
-        return lambda: kernel(*part)
-
-    def table(a, b):
-        part = cut(a, b)
-        return lambda: _launch.run_segments(part[5], t2.SEG, part[4].shape[1])
-
-    tail_report(name, results, f"of {t2.SEG} words, {t2.SLICES} threads a ray, "
-                f"{t2.BLOCKS_PER_SM} blocks an SM", args[5], call, table)
-
-
-def closest_table(name, counts, k_cap):
-    """The segment table the sorted closest-hit wrapper `name` builds at
-    every call, as a function of no arguments; None for closest_stream,
-    which walks a tile in one block and builds none."""
-    if name != "closest":
-        return None
-    return lambda: _launch.run_segments(counts, t2.SEG, k_cap)
-
-
-def closest_tail_report(name, kernel, args, results):
-    """tail_report of a sorted closest-hit kernel on args = (o4, d4, w,
-    words, counts), tiles by descending count."""
-    def cut(a, b):
-        return tuple(x if x is args[2] else x[a:b].contiguous() for x in args)
-
-    def call(a, b):
-        part = cut(a, b)
-        return lambda: kernel(*part)
-
-    def table(a, b):
-        part = cut(a, b)
-        return closest_table(name, part[4], part[3].shape[1])
-
-    geometry = {"closest": f"of {t2.SEG} words, {t2.SLICES_CLOSEST} threads a ray, "
-                           f"{t2.BLOCKS_PER_SM_CLOSEST} blocks an SM",
-                "closest_fast": f"{t2.SLICES_FAST} threads a ray, blocks of up to "
-                                f"{t2.FAST_THREADS} threads",
-                "closest_stream": "one block a tile, one thread a ray"}[name]
-    tail_report(name, results, geometry, args[4], call, None if name != "closest" else table)
-
-
-def closest_whole_pass(name, kernel, plain, args, what):
+def closest_whole_pass(name, kernel, plain, args, what, results):
     """A sorted closest-hit kernel on every tile of its pass, args = (o4, d4,
-    w, words, counts): bt and bid bit for bit against the plain version
-    (untimed), three runs bit-identical (blocks meet in an order that
-    varies), the kernel's own device time (device_ms of the wrapper less its
-    segment table's), the bound on these tiles (closest_bound), and the
-    cluster tests a second that the bound counts beside the SM clock under
-    the load. Returns (kernel-alone ms, bound ms)."""
-    o4, _, w, words, counts = args
-    tr, c = o4.shape[1], w.shape[2] // 3
-    t0 = time.perf_counter()
+    w, words, counts): bt and bid bit for bit against the plain version, and
+    three runs bit-identical (blocks meet in an order that varies)."""
+    counts = args[4]
     out_k, out_p = kernel(*args), plain(*args)
     bad = bit_mismatches(out_k, out_p)
     again = sum(sum(bit_mismatches(out_k, kernel(*args))) for _ in range(2))
     torch.cuda.synchronize()
-    cmp_s = time.perf_counter() - t0
-    table = closest_table(name, counts, words.shape[1])
-    wrap = device_ms(lambda: kernel(*args), 10)
-    tab = 0.0 if table is None else device_ms(table, 10)
-    alone = wrap - tab
-    bnd, tests, n_tests = sorted_closest_bound(name, words, counts, out_k[0], tr, c)
-    mhz = clock_under_load(lambda: kernel(*args), wrap)
-    sms = _launch.sm_count(0)
     log(f"[kernels] {name} on every tile of its pass ({what}: {counts.shape[0]} tiles, "
         f"{count_stats(counts)}): bit mismatches bt {bad[0]}, bid {bad[1]}, elements that "
-        f"differ between three runs {again} ({cmp_s:.1f} s, untimed); wrapper {wrap:.4f} ms "
-        f"of device time, segment table {tab:.4f}, kernel alone {alone:.4f} ms; bound "
-        f"{bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), kernel alone / bound "
-        f"{alone / bnd['bound_ms']:.2f}; {n_tests / alone / 1e6:.1f} G (ray, triangle) tests/s "
-        f"of those the bound counts, beside {sms} SMs x 128 lanes x {mhz} MHz (nvidia-smi, "
-        f"under this load) = {sms * 128 * mhz / 1e6:.2f} T instructions/s")
+        f"differ between three runs {again}")
     check(not any(bad) and not again,
           f"{name}: kernel disagrees with its plain version, or with itself, on the whole pass")
-    return alone, bnd["bound_ms"]
-
-
-def clock_under_load(fn, ms: float) -> int:
-    """The SM clock in MHz that nvidia-smi reports while the card runs fn
-    back to back: some 0.5 s of calls (ms each) are enqueued, the query runs
-    beside them."""
-    for _ in range(max(1, int(500.0 / max(ms, 1e-3)))):
-        fn()
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True).stdout
-    torch.cuda.synchronize()
-    return int(out.split()[0])
+    held(results, name, f"plain version and three runs, {what}")
 
 
 def anyhit_args(accel, so, sd, tmax, words, counts):
@@ -728,13 +434,10 @@ def phase_kernels(results: dict, cfg, dev):
         w_s, c_s = words[sel].contiguous(), counts[sel].contiguous()
         gen = c_s > t2.FAST_BATCH
         one = c_s == 1
-        gen_args = (o4[gen], d4[gen], w, w_s[gen].contiguous(), c_s[gen].contiguous())
-        compare_closest("closest", t2.closest_hit, t2.closest_hit_plain, *gen_args, results)
-        closest_tail_report("closest", t2.closest_hit, gen_args, results)
-        fast_args = (o4[one], d4[one], w, w_s[one].contiguous(), c_s[one].contiguous())
-        compare_closest("closest_fast", t2.closest_fast, t2.closest_fast_plain, *fast_args,
-                        results)
-        closest_tail_report("closest_fast", t2.closest_fast, fast_args, results)
+        compare_closest("closest", t2.closest_hit, t2.closest_hit_plain, o4[gen], d4[gen], w,
+                        w_s[gen].contiguous(), c_s[gen].contiguous(), results)
+        compare_closest("closest_fast", t2.closest_fast, t2.closest_fast_plain, o4[one], d4[one],
+                        w, w_s[one].contiguous(), c_s[one].contiguous(), results)
         # The frame's generic and fast regions: the tiles with count > 1 and
         # those with count 1, by descending count, as trace_tiles_split hands
         # them to the kernels.
@@ -747,7 +450,8 @@ def phase_kernels(results: dict, cfg, dev):
                  "the fast region")):
             closest_whole_pass(name, kernel, plain,
                                (*_homog(o_t[region], d_t[region]), w,
-                                words[region].contiguous(), counts[region].contiguous()), what)
+                                words[region].contiguous(), counts[region].contiguous()), what,
+                               results)
 
         # The frame's shadow pass: segments from the light to the primary hits.
         gid, rows, _, _, _ = tiled._trace_rows(accel, o_t, d_t)
@@ -756,26 +460,19 @@ def phase_kernels(results: dict, cfg, dev):
         so, sd, tmax = tiled._segment_rays(scene.lights.position[0], target)
         words2, counts2, excess2, _ = cull_clusters_sorted2(accel, so, sd, tmax)
         check(int(excess2) == 0, "shadow cull dropped candidates")
-        args = anyhit_args(accel, so, sd, tmax, words2, counts2)
-        compare_anyhit("anyhit", t2.anyhit, t2.anyhit_plain, args, results)
-        sorted_tail_report("anyhit", t2.anyhit, args, results)
+        compare_anyhit("anyhit", t2.anyhit, t2.anyhit_plain,
+                       anyhit_args(accel, so, sd, tmax, words2, counts2), results)
 
 
 def phase_pod_scene(cfg, dev="cuda"):
-    """The pod-1m scene and its accel on the card, built once for phases
-    10-11."""
-    t0 = time.perf_counter()
+    """The pod-1m scene and its accel on the card, built once for the stream
+    kernels and the pod frame."""
     scene, camera = api.get_scene(cfg, dev)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     with torch.inference_mode():
         accel = build_scene_accel(scene)
-    torch.cuda.synchronize()
-    t_accel = time.perf_counter()
     log(f"[scene] {cfg.scene} scale {cfg.scene_arg}: {scene.num_tris} triangles, "
         f"{accel.num_clusters} clusters, {accel.super_lo.shape[0]} superclusters, "
-        f"{scene.lights.count} lights; scene {t1 - t0:.2f} s, accel build {t_accel - t1:.3f} s, "
-        f"tri_w {accel.tri_w.numel() * 4 / 1e6:.0f} MB, shade {accel.shade.numel() * 4 / 1e6:.0f} MB")
+        f"{scene.lights.count} lights")
     return scene, camera, accel
 
 
@@ -791,15 +488,13 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
         log(f"[stream] primary cull: {o_t.shape[0]} tiles, {count_stats(counts)}, S {need[1]}")
         sel = select_tiles(counts)
         o4, d4 = _homog(o_t[sel], d_t[sel])
-        sel_args = (o4, d4, accel.tri_w, words[sel].contiguous(), counts[sel].contiguous())
-        compare_closest("closest_stream", st.closest_stream, st.closest_stream_plain, *sel_args,
-                        results)
-        closest_tail_report("closest_stream", st.closest_stream, sel_args, results)
+        compare_closest("closest_stream", st.closest_stream, st.closest_stream_plain, o4, d4,
+                        accel.tri_w, words[sel].contiguous(), counts[sel].contiguous(), results)
         closest_whole_pass("closest_stream", st.closest_stream, st.closest_stream_plain,
                            (*_homog(o_t, d_t), accel.tri_w, words.contiguous(),
                             counts.contiguous()),
-                           "the primary pass, in tile order")
-        del words, sel_args
+                           "the primary pass, in tile order", results)
+        del words
 
         trace_fn, _ = st.make_streamed_tracers_aux(scene, accel)
         hit, _ = trace_fn(rays)
@@ -812,9 +507,8 @@ def phase_stream_kernels(results: dict, cfg, scene, camera, accel):
         far = int((tm.amax(1) > 1e29).sum())
         log(f"[stream] shadow cull (light 0): {so.shape[0]} tiles, {count_stats(counts2)}, "
             f"S {need2[1]}; {far} tiles hold a ray with t_max > 1e29 (a missed receiver)")
-        args = anyhit_args(accel, so, sd, tm, words2, counts2)
-        compare_anyhit("anyhit_stream", st.anyhit_stream, st.anyhit_stream_plain, args, results)
-        sorted_tail_report("anyhit_stream", st.anyhit_stream, args, results)
+        compare_anyhit("anyhit_stream", st.anyhit_stream, st.anyhit_stream_plain,
+                       anyhit_args(accel, so, sd, tm, words2, counts2), results)
 
 
 def first_shadow_rays(scene, cfg, rays, trace_fn, tr):
@@ -829,18 +523,18 @@ def first_shadow_rays(scene, cfg, rays, trace_fn, tr):
 
 def worklist_case(accel, o_t, d_t, tmax_t, cand, counts, sel):
     """A work-list wrapper's arguments on tiles `sel` (closest hit when
-    tmax_t is None, else any-hit) -> (run_k, run_p, clusters, tm): the kernel
-    and its plain version as functions that return a tuple of outputs, the
-    flat list of the tiles' runs, and their t_max (None for closest hit)."""
+    tmax_t is None, else any-hit) -> (run_k, run_p, clusters): the kernel
+    and its plain version as functions that return a tuple of outputs, and
+    the flat list of the tiles' runs."""
     offs, clusters = t1.tile_runs(cand[sel], counts[sel])
     o4, d4 = _homog(o_t[sel], d_t[sel])
     w, ids, k_cap = accel.tri_w, accel.tri_ids, cand.shape[1]
     if tmax_t is None:
         return (lambda: t1.worklist_closest(o4, d4, w, ids, offs, clusters, k_cap),
-                lambda: t1.worklist_closest_plain(o4, d4, w, ids, offs, clusters), clusters, None)
+                lambda: t1.worklist_closest_plain(o4, d4, w, ids, offs, clusters), clusters)
     tm = tmax_t[sel].contiguous()
     return (lambda: (t1.worklist_anyhit(o4, d4, tm, w, offs, clusters, k_cap),),
-            lambda: (t1.worklist_anyhit_plain(o4, d4, tm, w, offs, clusters),), clusters, tm)
+            lambda: (t1.worklist_anyhit_plain(o4, d4, tm, w, offs, clusters),), clusters)
 
 
 def bit_mismatches(out_a, out_b):
@@ -852,10 +546,9 @@ def bit_mismatches(out_a, out_b):
 def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
     """One work-list kernel against its plain version: closest hit when
     tmax_t is None, else any-hit. On the selected tiles: outputs bit for
-    bit, times, the bound, the tail report and the achieved tests a second
-    beside the card's issue rate; for closest hit three runs whose outputs
-    must be bit-identical (its blocks merge by atomics, in an order that
-    varies). Then once on every tile of the pass, untimed."""
+    bit; for closest hit three runs whose outputs must be bit-identical (its
+    blocks merge by atomics, in an order that varies). Then once on every
+    tile of the pass."""
     closest = tmax_t is None
     name = "worklist_closest" if closest else "worklist_anyhit"
     sel = select_tiles(counts)
@@ -863,8 +556,7 @@ def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
         sel = sel[counts[sel] > 0]
     check(sel.numel() > 0, "work-list comparison: the selection holds no tile")
     case = lambda idx: worklist_case(accel, o_t, d_t, tmax_t, cand, counts, idx)
-    run_k, run_p, clusters, tm = case(sel)
-    tr, c = o_t.shape[1], accel.tri_ids.shape[1]
+    run_k, run_p, _ = case(sel)
     out_k, out_p = run_k(), run_p()
     torch.cuda.synchronize()
     bad = bit_mismatches(out_k, out_p)
@@ -874,56 +566,21 @@ def compare_worklist(results, accel, o_t, d_t, tmax_t, cand, counts):
         what = (f"bit mismatches bt {bad[0]}, btri {bad[1]}, bu {bad[2]}, bv {bad[3]}, "
                 f"max |d| {err:.3g}; elements that differ between three runs: {again}")
         bad.append(again)
-        # No early-out: every item, every ray. Inputs o4, d4 (32 B a ray),
-        # outputs bt, btri, bu, bv (16 B a ray); a cluster is its matrix plus
-        # its C triangle ids.
-        n_tests = clusters.numel() * tr * c
-        bnd = bound(n_tests * FLOPS_FIELD, sel.numel(), tr, clusters.numel(),
-                    torch.unique(clusters).numel() * 52 * c, 32, 16)
-        tests = f"{clusters.numel()} cluster tests x {tr} x {c} x {FLOPS_FIELD}"
     else:
-        occ_k = out_k[0]
-        err = float(bad[0] > 0)
-        what = f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad[0]}"
-        # Per ray, in an unsorted list: a ray left unoccluded needs every
-        # item of its tile, a ray that ends occluded one triangle test.
-        # Inputs o4, d4, tmax (36 B a ray), output occ (1 B a ray).
-        open_ = open_rays(occ_k, tm)
-        n_items = counts[sel].long()
-        n_tests = int((open_.sum(1) * n_items).sum()) * c + int(occ_k.sum())
-        walked = torch.repeat_interleave(open_.any(1), n_items)
-        items = int(walked.sum()) + int((occ_k.any(1) & ~open_.any(1)).sum())
-        bnd = bound(n_tests * FLOPS_FIELD, sel.numel(), tr, items,
-                    torch.unique(clusters[walked]).numel() * 48 * c, 36, 1)
-        tests = f"{n_tests} (ray, triangle) tests x {FLOPS_FIELD}"
-    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 1)
-    report(name, results, sel.numel(), f"{count_stats(counts[sel])}: {what}", ms, plain_ms,
-           err, bnd, tests)
+        what = f"occluded {float(out_k[0].float().mean()):.3f}: occ mismatches {bad[0]}"
+    log(f"[kernels] {name}: {sel.numel()} tiles, {count_stats(counts[sel])}: {what}")
     if any(bad):
         raise SystemExit(f"{name}: kernel disagrees with its plain version, or with itself")
 
-    k_cap = cand.shape[1]
-    table = lambda a, b: (lambda n=counts[sel[a:b]].contiguous():
-                          _launch.run_segments(n, t1.SEG_WL, k_cap))
-    alone = tail_report(name, results, f"of {t1.SEG_WL} items, one thread a ray, "
-                        f"{t1.BLOCKS_PER_SM_WL} blocks an SM", counts[sel],
-                        lambda a, b: case(sel[a:b])[0], table)
-    mhz = clock_under_load(run_k, ms)
-    sms = _launch.sm_count(0)
-    log(f"[kernels] {name}: {n_tests} tests in {alone:.4f} ms of the kernel alone, "
-        f"{n_tests / alone / 1e6:.1f} G tests/s; the card issues {sms} SMs x 128 lanes x "
-        f"{mhz} MHz (nvidia-smi, under this load) = {sms * 128 * mhz / 1e6:.2f} T "
-        f"instructions/s, {sms * 128 * mhz * 1e3 * alone / n_tests:.1f} issue slots a test")
-
-    t0 = time.perf_counter()
     every = torch.argsort(-counts, stable=True)   # by count, so the plain version's chunks are even
-    run_k, run_p, clusters, _ = case(every)
+    run_k, run_p, clusters = case(every)
     bad = bit_mismatches(run_k(), run_p())
     torch.cuda.synchronize()
     log(f"[kernels] {name} on every tile of the pass ({every.numel()} tiles, "
-        f"{clusters.numel()} items), untimed: bit mismatches {bad} "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"{clusters.numel()} items): bit mismatches {bad}")
     check(not any(bad), f"{name}: kernel disagrees with its plain version on the whole pass")
+    held(results, name, "plain version, selected tiles and every tile" + (
+        ", three runs" if closest else ""))
 
 
 def pair_case(accel, o_t, d_t, tmax_t, words, counts, idx):
@@ -941,45 +598,6 @@ def pair_case(accel, o_t, d_t, tmax_t, words, counts, idx):
     return o4, d4, tm, accel.tri_w, lo, hi, offs, pwords
 
 
-def pair_closest_bound(o4, d4, w, lo, hi, words, counts, bt):
-    """bound() of pair_closest_kernel on its output bt: every word under the
-    tile's final bound is slab-tested by every ray; those that some ray
-    enters before its final best t are tested by every ray (the vote against
-    the final state passes only where the walk's own did). Inputs o4, d4 (32
-    B a ray), outputs bt, bid (8 B); a visited cluster's box is 24 B, a
-    tested one's matrix 48 C. Returns (bound, its text, the (ray, triangle)
-    tests it counts)."""
-    tr, c = o4.shape[1], w.shape[2] // 3
-    need = needed_words(words, counts, float_bits(bt).amax(1))
-    t, cl, enter = pair_enter(o4, d4, lo, hi, words, need)
-    voted = (enter < bt[t]).any(1)
-    n_vis, n_tst = int(need.sum()), int(voted.sum())
-    bnd = bound(n_tst * tr * c * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, o4.shape[0], tr, n_vis,
-                torch.unique(cl).numel() * 24 + torch.unique(cl[voted]).numel() * 48 * c, 32, 8)
-    return bnd, (f"{n_tst} cluster tests x {tr} x {c} x {FLOPS_TRI} + {n_vis} slab tests x "
-                 f"{tr} x {FLOPS_SLAB}"), n_tst * tr * c
-
-
-def pair_anyhit_bound(o4, d4, tm, w, lo, hi, words, counts, occ):
-    """bound() of pair_anyhit_kernel on its output occ: every word under the
-    tile's final bound is slab-tested by every ray. Per ray: one left
-    unoccluded needs every such cluster it enters before its t_max, one that
-    ends occluded one triangle test. Inputs o4, d4, tmax (36 B a ray), output
-    occ (1 B a ray)."""
-    tr, c = o4.shape[1], w.shape[2] // 3
-    open_ = open_rays(occ, tm)
-    need = needed_words(words, counts, float_bits(torch.where(occ, 0.0, tm)).amax(1))
-    t, cl, enter = pair_enter(o4, d4, lo, hi, words, need)
-    reach = (enter < tm[t]) & open_[t]
-    n_vis, n_tst = int(need.sum()), int(reach.sum()) * c + int(occ.sum())
-    items = int(torch.maximum(need.sum(1), occ.any(1).long()).sum())
-    used = reach.any(1)
-    bnd = bound(n_tst * FLOPS_TRI + n_vis * tr * FLOPS_SLAB, o4.shape[0], tr, items,
-                torch.unique(cl).numel() * 24 + torch.unique(cl[used]).numel() * 48 * c, 36, 1)
-    return bnd, (f"{n_tst} (ray, triangle) tests x {FLOPS_TRI} + {n_vis} slab tests x {tr} x "
-                 f"{FLOPS_SLAB}")
-
-
 def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
     """One pair kernel against its plain version on the selected tiles:
     closest hit when tmax_t is None, else any-hit (t_max 0 for d == 0)."""
@@ -988,40 +606,33 @@ def compare_pairs(results, accel, o_t, d_t, tmax_t, words, counts):
         sel = sel[counts[sel] > 0]
     check(sel.numel() > 0, "pair comparison: the selection holds no tile")
     args = pair_case(accel, o_t, d_t, tmax_t, words, counts, sel)
-    w_s, c_s = words[sel], counts[sel]
     if tmax_t is None:
         name = "pair_closest"
-        run_k, run_p = (lambda: t3.pair_closest(*args)), (lambda: t3.pair_closest_plain(*args))
-        (bt_k, bid_k), (bt_p, bid_p) = run_k(), run_p()
+        (bt_k, bid_k), (bt_p, bid_p) = t3.pair_closest(*args), t3.pair_closest_plain(*args)
         torch.cuda.synchronize()
         bad = [int((bid_k != bid_p).sum()), int((float_bits(bt_k) != float_bits(bt_p)).sum())]
         err = float((bt_k - bt_p).abs().max())
         what = f"gid mismatches {bad[0]}, bt bit mismatches {bad[1]}, max |dbt| {err:.3g}"
-        bnd, tests, _ = pair_closest_bound(*args[:5], w_s, c_s, bt_k)
     else:
         name = "pair_anyhit"
-        run_k, run_p = (lambda: t3.pair_anyhit(*args)), (lambda: t3.pair_anyhit_plain(*args))
-        occ_k, occ_p = run_k(), run_p()
+        occ_k, occ_p = t3.pair_anyhit(*args), t3.pair_anyhit_plain(*args)
         torch.cuda.synchronize()
         bad = [int((occ_k != occ_p).sum())]
-        err = float(bad[0] > 0)
         what = f"occluded {float(occ_k.float().mean()):.3f}: occ mismatches {bad[0]}"
-        bnd, tests = pair_anyhit_bound(*args[:6], w_s, c_s, occ_k)
-    ms, plain_ms = cuda_ms(run_k, 10), cuda_ms(run_p, 1)
-    report(name, results, sel.numel(), f"{count_stats(c_s)}: {what}", ms, plain_ms, err, bnd,
-           tests)
+    log(f"[kernels] {name}: {sel.numel()} tiles, {count_stats(counts[sel])}: {what}")
     if any(bad):
         raise SystemExit(f"{name}: kernel disagrees with its plain version")
+    held(results, name, "plain version, selected tiles")
 
 
 def phase_bench_scene(cfg, dev="cuda"):
-    """The bench100k scene and its accel on the card, built once for phases
-    14-15."""
+    """The bench100k scene and its accel on the card, built once for the
+    wavefront kernels and frames."""
     scene, camera = api.get_scene(cfg, dev)
     with torch.inference_mode():
         accel = build_scene_accel(scene)
     log(f"[scene] {cfg.scene}: {scene.num_tris} triangles, {accel.num_clusters} clusters, "
-        f"{scene.lights.count} light(s), tri_w {accel.tri_w.numel() * 4 / 1e6:.1f} MB")
+        f"{scene.lights.count} light(s)")
     return scene, camera, accel
 
 
@@ -1050,7 +661,7 @@ def worklist_cluster_size(cfg, scene, rays, c: int = 32):
     own), tiles of 256 rays in order, against their plain versions on a
     reduced selection (the 64 heaviest tiles and every 64th): the primary
     rays, and the first light's shadow rays from the tier's own primary hits
-    at that size; outputs bit for bit, untimed."""
+    at that size; outputs bit for bit."""
     accel = build_scene_accel(scene, c)
     o_t, d_t, _ = tile_rays(rays.o, rays.d, t1.DEFAULT_TILE)
     trace_fn, _ = t1.make_accel_tracers(scene, accel, use_pallas=True)
@@ -1063,7 +674,7 @@ def worklist_cluster_size(cfg, scene, rays, c: int = 32):
                                       torch.arange(0, n, 64, device=counts.device)]))
         if rt is not None:
             sel = sel[counts[sel] > 0]
-        run_k, run_p, clusters, _ = worklist_case(accel, ro, rd, rt, cand, counts, sel)
+        run_k, run_p, clusters = worklist_case(accel, ro, rd, rt, cand, counts, sel)
         bad = bit_mismatches(run_k(), run_p())
         torch.cuda.synchronize()
         log(f"[wavefront] work-list kernels at C = {c} ({accel.num_clusters} clusters), {what} "
@@ -1151,52 +762,29 @@ def pair_closest_walk(o4, d4, w, lo, hi, offs, pwords):
 
 
 def pair_closest_pass(results, accel, o_t, d_t, words, counts):
-    """pair_closest_kernel's tail report on the comparison tiles, then the
-    kernel on every tile of the pair tier's primary pass: bt bits and bid
-    against its plain version and against pair_closest_walk's replay, three
-    runs identical, the kernel-alone time, the bound on these tiles, the
-    (ray, triangle) tests a second that the bound counts beside the SM clock
-    under the load, the edge pairs of the pass and its shared-origin
-    tiles."""
-    sel = select_tiles(counts)
-
-    def call(a, b):
-        part = pair_case(accel, o_t, d_t, None, words, counts, sel[a:b])
-        return lambda: t3.pair_closest(*part)
-
-    tail_report("pair_closest", results, f"one block a tile, {t3.SLICES_PAIR_CLOSEST} threads "
-                f"a ray, windows of {t3.WINDOW} words, a ring of {t3.NBUF_PAIR_CLOSEST} stages",
-                counts[sel], call, None)
+    """pair_closest_kernel on every tile of the pair tier's primary pass: bt
+    bits and bid against its plain version and against pair_closest_walk's
+    replay, three runs identical, the edge pairs of the pass and its
+    shared-origin tiles."""
     args = pair_case(accel, o_t, d_t, None, words, counts, torch.arange(counts.shape[0],
                                                                          device=counts.device))
-    t0 = time.perf_counter()
     out_k, out_p = t3.pair_closest(*args), t3.pair_closest_plain(*args)
     walk_bt, walk_bid, walked, tested, reached = pair_closest_walk(*args)
     bad = bit_mismatches(out_k, out_p)
     bad_walk = bit_mismatches((walk_bt, walk_bid), out_p)
     again = sum(sum(bit_mismatches(out_k, t3.pair_closest(*args))) for _ in range(2))
     torch.cuda.synchronize()
-    cmp_s = time.perf_counter() - t0
-    alone = device_ms(lambda: t3.pair_closest(*args), 10)
-    bnd, tests, n_tests = pair_closest_bound(*args[:5], words, counts, out_k[0])
-    mhz = clock_under_load(lambda: t3.pair_closest(*args), alone)
-    sms = _launch.sm_count(0)
     log(f"[kernels] pair_closest on every tile of its pass (the primary rays: "
         f"{counts.shape[0]} tiles, {count_stats(counts)}, total {int(counts.sum())}; "
         f"{shared_origin_tiles(*args[:2])} tiles of one origin): bit mismatches bt {bad[0]}, "
         f"bid {bad[1]}, elements that differ between three runs {again}, the replayed walk "
-        f"against the plain version {bad_walk} ({cmp_s:.1f} s, untimed), the walk tests "
-        f"{walked} clusters; edge pairs (a hit "
-        f"below the ray's best t, a slab entry not below it) in the clusters the walk tests "
-        f"{tested}, in every word under a tile's first bound {reached}; kernel alone "
-        f"{alone:.4f} ms; bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), "
-        f"kernel alone / bound {alone / bnd['bound_ms']:.2f}; {n_tests / alone / 1e6:.1f} G "
-        f"(ray, triangle) tests/s of those the bound counts, beside {sms} SMs x 128 lanes x "
-        f"{mhz} MHz (nvidia-smi, under this load) = {sms * 128 * mhz / 1e6:.2f} T "
-        f"instructions/s")
+        f"against the plain version {bad_walk}, the walk tests {walked} clusters; edge pairs "
+        f"(a hit below the ray's best t, a slab entry not below it) in the clusters the walk "
+        f"tests {tested}, in every word under a tile's first bound {reached}")
     check(not any(bad) and not again and not any(bad_walk),
           "pair_closest: kernel disagrees with its plain version, or with itself, on the whole "
           "pass")
+    held(results, "pair_closest", "plain version, replayed walk and three runs, whole pass")
 
 
 def pair_closest_general(accel, so, sd, words, counts):
@@ -1252,41 +840,25 @@ def pair_anyhit_walk(o4, d4, tm, w, lo, hi, offs, pwords):
 
 
 def pair_anyhit_pass(results, accel, so, sd, tm, words, counts):
-    """pair_anyhit_kernel's tail report on the comparison tiles, then the
-    kernel on every tile of the pair tier's shadow pass: occlusion against
-    its plain version and against pair_anyhit_walk's replay, three runs
-    identical, kernel-alone time, the bound on these tiles, and the edge
-    pairs of the pass."""
-    sel = select_tiles(counts)
-    sel = sel[counts[sel] > 0]
-    def call(a, b):
-        part = pair_case(accel, so, sd, tm, words, counts, sel[a:b])
-        return lambda: t3.pair_anyhit(*part)
-
-    tail_report("pair_anyhit", results, f"one block a tile, {t3.SLICES_PAIR} threads a ray, "
-                f"windows of {t3.WINDOW} words, a ring of {t3.NBUF_PAIR} stages", counts[sel],
-                call, None)
+    """pair_anyhit_kernel on every tile of the pair tier's shadow pass:
+    occlusion against its plain version and against pair_anyhit_walk's
+    replay, three runs identical, and the edge pairs of the pass."""
     args = pair_case(accel, so, sd, tm, words, counts, torch.arange(counts.shape[0],
                                                                     device=counts.device))
-    t0 = time.perf_counter()
     occ_k, occ_p = t3.pair_anyhit(*args), t3.pair_anyhit_plain(*args)
     walk, tested, reached = pair_anyhit_walk(*args)
     again = sum(int((occ_k != t3.pair_anyhit(*args)).sum()) for _ in range(2))
     bad, bad_walk = int((occ_k != occ_p).sum()), int((walk != occ_p).sum())
-    cmp_s = time.perf_counter() - t0
-    alone = device_ms(lambda: t3.pair_anyhit(*args), 10)
-    bnd, tests = pair_anyhit_bound(*args[:6], words, counts, occ_k)
     log(f"[kernels] pair_anyhit on every tile of its pass (the first light's shadow rays: "
         f"{counts.shape[0]} tiles, {count_stats(counts)}, total {int(counts.sum())}): occ "
         f"mismatches {bad}, elements that differ between three runs {again}, the replayed "
-        f"walk against the plain version {bad_walk} ({cmp_s:.1f} s, untimed); edge pairs "
-        f"(a hit under t_max, a slab entry at or past it) in the clusters the walk tests "
-        f"{tested}, in every word under a tile's first bound {reached}; kernel alone "
-        f"{alone:.4f} ms; bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']} ({tests}), "
-        f"kernel alone / bound {alone / bnd['bound_ms']:.2f}")
+        f"walk against the plain version {bad_walk}; edge pairs (a hit under t_max, a slab "
+        f"entry at or past it) in the clusters the walk tests {tested}, in every word under a "
+        f"tile's first bound {reached}")
     check(not bad and not again and not bad_walk,
           "pair_anyhit: kernel disagrees with its plain version, or with itself, on the whole "
           "pass")
+    held(results, "pair_anyhit", "plain version, replayed walk and three runs, whole pass")
 
 
 def phase_wavefront_kernels(results: dict, cfg, scene, camera, accel):
@@ -1302,10 +874,10 @@ def phase_wavefront_kernels(results: dict, cfg, scene, camera, accel):
 def compare_shadow_lists(accel, so, sd, tm, words, counts):
     """On the pair tier's surface-origin shadow rays: anyhit_kernel over the
     two-stage cull's lists against pair_anyhit_kernel over the single-stage
-    cull's (words, counts), on the pair comparison's tiles and on all tiles;
-    timed in turns. Both are exact: their occlusion must be equal on every
-    ray (on all tiles this is the any-hit kernel's one run over a whole
-    frame's lists that is held against another kernel)."""
+    cull's (words, counts), on the pair comparison's tiles and on all tiles.
+    Both are exact: their occlusion must be equal on every ray (on all
+    tiles this is the any-hit kernel's one run over a whole frame's lists
+    that is held against another kernel)."""
     words2, counts2, excess, _ = cull_clusters_sorted2(accel, so, sd, tm)
     check(int(excess) == 0, "shadow cull dropped candidates")
     tmz = torch.where((sd != 0.0).any(-1), tm, 0.0)
@@ -1320,20 +892,16 @@ def compare_shadow_lists(accel, so, sd, tm, words, counts):
         offs, pwords, overflow = t3._tile_stream(words[idx].contiguous(),
                                                  counts[idx].contiguous(), None)
         check(not overflow, "an exact pair stream overflowed")
-        run_a = lambda: t2.anyhit(o4, d4, t_m, accel.tri_w, w2, c2)
-        run_p = lambda: t3.pair_anyhit(o4, d4, t_m, accel.tri_w, lo, hi, offs, pwords)
-        differ = int((run_a() != run_p()).sum())
-        check(differ == 0, f"anyhit_kernel and pair_anyhit_kernel differ on {differ} rays of "
-                           f"{what}")
-        ms_a, ms_p = [], []
-        for run, ms in ((run_a, ms_a), (run_p, ms_p), (run_p, ms_p), (run_a, ms_a)):
-            ms.append(cuda_ms(run, 5))
+        occ_a = t2.anyhit(o4, d4, t_m, accel.tri_w, w2, c2)
+        occ_p = t3.pair_anyhit(o4, d4, t_m, accel.tri_w, lo, hi, offs, pwords)
+        differ = int((occ_a != occ_p).sum())
         log(f"[wavefront] surface-origin shadow rays, {what} ({idx.numel()}): anyhit_kernel "
             f"over the two-stage cull's lists ({count_stats(c2)}, total {int(c2.sum())}) "
-            f"{np.mean(ms_a):.4f} ms {[round(x, 4) for x in ms_a]}; pair_anyhit_kernel over "
-            f"the single-stage cull's ({count_stats(counts[idx])}, total "
-            f"{int(counts[idx].sum())}) {np.mean(ms_p):.4f} ms {[round(x, 4) for x in ms_p]}; "
-            f"rays on which their occlusion differs: {differ}")
+            f"against pair_anyhit_kernel over the single-stage cull's "
+            f"({count_stats(counts[idx])}, total {int(counts[idx].sum())}): rays on which "
+            f"their occlusion differs: {differ}")
+        check(differ == 0, f"anyhit_kernel and pair_anyhit_kernel differ on {differ} rays of "
+                           f"{what}")
 
 
 def golden_gate(a, b, what: str, frac_tol: float = 0.015):
@@ -1348,17 +916,13 @@ def golden_gate(a, b, what: str, frac_tol: float = 0.015):
         raise SystemExit(f"{what}: the frames disagree beyond the golden gate")
 
 
-def phase_wavefront_frames(smi: str, cfg, scene, camera, accel) -> dict:
+def phase_wavefront_frames(cfg, scene, camera, accel) -> dict:
     """The frame through render_wavefront over each tracer factory. For each
     tier the launch counts are set to 0 just before its first frame and read
     just after: its own kernels must have launched, and no other tier's. The
-    tracers' lists hold every candidate; any warning is an error. Then 10
-    frames, each timed on the host clock around a synchronize, after one
-    more warm-up; then one profiled frame's device time, by kernel of the
-    port (the four tiers trace the same rays, so these compare). Returns the
+    tracers' lists hold every candidate; any warning in that frame or the
+    next, on the tracers as the first left them, is an error. Returns the
     launches of the work-list and pair tiers."""
-    from torch.profiler import ProfilerActivity, profile
-
     wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces,
                                  smooth_shading=cfg.smooth_shading)
     factories = {"worklist": lambda: t1.make_accel_tracers(scene, accel, use_pallas=True),
@@ -1374,35 +938,18 @@ def phase_wavefront_frames(smi: str, cfg, scene, camera, accel) -> dict:
                 rays = generate_rays(camera, cfg.height, cfg.width)
                 return whitted.render_wavefront(scene, rays, wcfg, *tracers)
 
-        torch.cuda.reset_peak_memory_stats()
-        for key in t2.LAUNCHES:
-            t2.LAUNCHES[key] = 0
+        zero_launches()
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             img = frame()
             torch.cuda.synchronize()
             launches = dict(t2.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated() / 2**30
             frame()
             torch.cuda.synchronize()
-            ms = []
-            for _ in range(10):
-                t0 = time.perf_counter()
-                frame()
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            frame()
-            torch.cuda.synchronize()
-        by_kernel = device_ms_by_kernel(prof.events())
         img = img.cpu().numpy()
         log(f"[wavefront] {tier} tier, {cfg.scene} {cfg.width}x{cfg.height}, "
-            f"{cfg.max_bounces} bounce(s), on {smi}: ms/frame over 10 frames after 2: mean "
-            f"{np.mean(ms):.3f}, median {np.median(ms):.3f}, min {min(ms):.3f}, max "
-            f"{max(ms):.3f}; one profiled frame: device busy {busy_ms(prof.events()):.3f} ms, "
-            f"of it { {k: round(v, 3) for k, v in by_kernel.items()} }; "
-            f"image mean {img.mean():.4f}, launches { {k: v for k, v in launches.items() if v} }, "
-            f"peak device memory {peak:.2f} GiB, no warning")
+            f"{cfg.max_bounces} bounce(s): image mean {img.mean():.4f}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }, no warning")
         check(img.shape == (cfg.height, cfg.width, 3) and bool(np.isfinite(img).all()),
               f"{tier}: the frame is not a finite (H, W, 3) image")
         check(img.mean() > 0.01, f"{tier}: the frame is black (mean {img.mean()})")
@@ -1423,8 +970,7 @@ def phase_routing(preset: str):
     wavefront aux, no kernel launched, and a 64x64 card-vs-CPU gate."""
     cfg = load_config(preset)
     scene, camera = api.get_scene(cfg, "cuda")
-    for key in t2.LAUNCHES:
-        t2.LAUNCHES[key] = 0
+    zero_launches()
     img, aux = api.make_render_fn(scene, cfg, "cuda")(scene, camera, with_aux=True)
     torch.cuda.synchronize()
     img = img.cpu().numpy()
@@ -1481,21 +1027,15 @@ def phase_frame(cfg, dev, tier, scene=None, camera=None, accel=None) -> dict:
     run = api.make_render_fn(scene, cfg, dev)
     if accel is not None:
         run.state.update(scene=scene, accel=accel)
-    torch.cuda.reset_peak_memory_stats()
-    for key in t2.LAUNCHES:
-        t2.LAUNCHES[key] = 0
-    t0 = time.perf_counter()
+    zero_launches()
     img, aux = run(scene, camera, with_aux=True)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = dict(t2.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     img = img.cpu().numpy()
     log(f"[frame] {cfg.scene} {cfg.width}x{cfg.height}, {cfg.max_bounces} bounce(s), {tier} "
-        f"tier: {wall:.3f} s, image {img.shape}, mean {img.mean():.4f}, overflow "
-        f"{aux['overflow']}, live_rays {aux.get('live_rays', 'not counted')}, launches "
-        f"{launches}, needs { {k: v for k, v in aux.items() if k.startswith('need_')} }, "
-        f"peak device memory {peak:.2f} GiB")
+        f"tier: image {img.shape}, mean {img.mean():.4f}, overflow {aux['overflow']}, "
+        f"live_rays {aux.get('live_rays', 'not counted')}, launches {launches}, needs "
+        f"{ {k: v for k, v in aux.items() if k.startswith('need_')} }")
     if aux["overflow"] != 0:
         raise SystemExit(f"frame dropped {aux['overflow']} cull candidates")
     if img.shape != (cfg.height, cfg.width, 3) or not np.isfinite(img).all():
@@ -1514,146 +1054,17 @@ def phase_cross_device(cfg, devs=("cuda", "cpu")):
     gate: < 1.5% of pixels off by > 2e-3, p98 error < 2e-3."""
     imgs = {}
     for dev in devs:
-        t0 = time.perf_counter()
         scene, camera = api.get_scene(cfg, dev)
         img, aux = api.make_render_fn(scene, cfg, dev)(scene, camera, with_aux=True)
         if aux["overflow"] != 0:
             raise SystemExit(f"{dev} frame dropped {aux['overflow']} cull candidates")
         imgs[dev] = img.cpu().numpy()
-        log(f"[cross] {cfg.scene} {dev} {cfg.width}x{cfg.height} in "
-            f"{time.perf_counter() - t0:.1f} s, live_rays {aux.get('live_rays', 'not counted')}")
+        log(f"[cross] {cfg.scene} {dev} {cfg.width}x{cfg.height}, live_rays "
+            f"{aux.get('live_rays', 'not counted')}")
     card, cpu = (imgs[d] for d in devs)
     check(np.isfinite(card).all(), "card frame is not finite")
     golden_gate(card, cpu, f"{cfg.scene} {devs[0]} vs {devs[1]}")
     return card, cpu
-
-
-def phase_timing(smi: str, preset: str, iters: int, warmup: int, **overrides):
-    res = api.benchmark(preset, iters=iters, warmup=warmup, device="cuda", **overrides)
-    if res["overflow"] != 0:
-        raise SystemExit(f"benchmark frame dropped {res['overflow']} cull candidates")
-    live = res["live_rays_per_s"]
-    cfg = res["config"]
-    log(f"[timing] {preset} {cfg.width}x{cfg.height}, {cfg.max_bounces} bounce(s), "
-        f"{res['num_tris']} triangles, {iters} frames after {warmup} warm-up(s), on {smi}: "
-        f"{res['ms_per_frame']:.3f} ms/frame, {res['rays_per_s']:.4g} rays/s, "
-        f"{res['primary_rays_per_s']:.4g} primary rays/s, "
-        f"{'not counted' if live is None else f'{live:.4g}'} live rays/s")
-    return res
-
-
-def phase_layers(cfg, reps: int = 5):
-    """Time of each layer of the frame's first bounce and first light, run
-    one at a time: host clock from a synchronize before the layer to one
-    after it, median of `reps` warm repetitions. A layer's time includes
-    its own host syncs and launch gaps; the syncs between layers make the
-    sum exceed an unsynchronised frame."""
-    scene, camera = api.get_scene(cfg, "cuda")
-    lpos = scene.lights.position[0]
-    s = {}
-
-    def primary_rays():
-        s["o"], s["d"], _ = generate_rays_tiled(camera, cfg.height, cfg.width, 64)
-
-    def primary_cull():
-        s["words"], s["counts"], _, _ = cull_clusters_sorted2(s["accel"], s["o"], s["d"], T_FAR)
-
-    def closest():
-        _, s["gid"], _, _ = t2.trace_tiles_split(s["o"], s["d"], s["accel"], s["words"],
-                                                 s["counts"])
-
-    def shade():
-        rows = s["accel"].shade[s["gid"].clamp_min(0).long()]
-        found, p, n = tiled._surface(s["o"], s["d"], s["gid"], rows, cfg.smooth_shading)
-        *_, s["target"] = tiled._light_target(p, n, found, lpos)
-
-    def segment_rays():
-        s["so"], s["sd"], s["tmax"] = tiled._segment_rays(lpos, s["target"])
-
-    def shadow_cull():
-        s["words2"], s["counts2"], _, _ = cull_clusters_sorted2(s["accel"], s["so"], s["sd"],
-                                                                s["tmax"])
-
-    def anyhit():
-        t2.any_hit_tiles_graded(s["so"], s["sd"], s["tmax"], s["accel"], s["words2"],
-                                s["counts2"])
-
-    layers = (primary_rays, primary_cull, closest, shade, segment_rays, shadow_cull, anyhit)
-    times = {fn.__name__: [] for fn in layers}
-    with torch.inference_mode():
-        s["accel"] = build_scene_accel(scene)
-        for rep in range(reps + 1):                  # repetition 0 warms up
-            for fn in layers:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                fn()
-                torch.cuda.synchronize()
-                if rep:
-                    times[fn.__name__].append((time.perf_counter() - t0) * 1e3)
-    med = {k: float(np.median(v)) for k, v in times.items()}
-    total = sum(med.values())
-    log(f"[layers] {cfg.scene} {cfg.width}x{cfg.height}, median of {reps} (ms): "
-        + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in med.items())
-        + f"; sum {total:.3f}")
-
-
-def busy_ms(events) -> float:
-    """Union of the device-activity intervals of a profile, in ms."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False))
-    busy, end = 0.0, float("-inf")
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return busy / 1e3
-
-
-def device_ms_by_kernel(events) -> dict:
-    """Device ms of each kernel of the port in a profile, by the name of its
-    __global__ function."""
-    from torch.autograd import DeviceType
-
-    out = {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for fn in re.findall(r"\w+_kernel", e.name):
-            if fn in KERNEL_FUNCTIONS:
-                out[fn] = out.get(fn, 0.0) + (e.time_range.end - e.time_range.start) / 1e3
-    return out
-
-
-def phase_profile(cfg, scene=None, camera=None, accel=None):
-    """Device time by kernel over one warm frame, and the device's idle
-    share in that same frame: 1 - (union of its device activity) / (its own
-    wall time, host clock from the call to the end of a synchronize). The
-    profiler's host overhead makes the frame slower than an unprofiled one.
-    A given accel is handed to the render fn as the one it built for
-    `scene`."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if scene is None:
-        scene, camera = api.get_scene(cfg, "cuda")
-    run = api.make_render_fn(scene, cfg, "cuda")
-    if accel is not None:
-        run.state.update(scene=scene, accel=accel)
-    run(scene, camera)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(scene, camera)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = busy_ms(prof.events())
-    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
-    # The profiler now and then loses device events; the frame itself is
-    # checked by the frame phases, so an empty trace only leaves no reading.
-    idle = f"idle {1.0 - busy / wall:.1%}" if busy > 0.0 else "idle share not measured"
-    log(f"[profile] one {cfg.scene} frame: wall {wall:.3f} ms, device busy {busy:.3f} ms, {idle}")
 
 
 GRAD_FAMILIES = ("verts", "albedo", "cam_pos")
@@ -1670,6 +1081,13 @@ TIERED = ("closest", "closest_fast", "anyhit", "rows_sum", *CULL_KERNELS)
 # with-albedo count; the grad step's jnp tier, whose normals are
 # compute_vertex_normals_torch's scatter, launches none.
 ROWS_SUMS = {"tiled": (4, 5), "edge accel": (3, 4), "jnp": (1, 1)}
+# The grad steps held to their launches at the presets' full size, as
+# (preset, overrides, params, tiled): bunny-grad, whose config routes
+# "auto" to the jnp tier; bunny512 through the tiled tier; bunny512 through
+# the jnp tier.
+GRAD_STEPS = (("bunny-grad", {}, ("verts",), "auto"),
+              ("bunny512", {}, GRAD_FAMILIES, "auto"),
+              ("bunny512", {"use_pallas": False}, GRAD_FAMILIES, "off"))
 
 
 def zero_launches():
@@ -1731,8 +1149,9 @@ def phase_grad_devices(cfg, devs=("cuda", "cpu")):
 
 def phase_grad_launches(dev="cuda") -> int:
     """(c): one tiled bunny512 grad step launches the tiled tier's kernels
-    (closest_fast only where the frame has count-1 tiles) and no other.
-    Returns the row sums it launched."""
+    (closest_fast only where the frame has count-1 tiles) and no other; the
+    row sums' spans land under "grad.backward" in the step's unit. Returns
+    the row sums it launched."""
     cfg = load_config("bunny512")
     scene, camera = api.get_scene(cfg, dev)
     _, aux = api.make_render_fn(scene, cfg, dev)(scene, camera, with_aux=True)
@@ -1758,20 +1177,15 @@ def phase_grad_launches(dev="cuda") -> int:
           f"the tiled grad step launched {launches['rows_sum']} row sums, want "
           f"{ROWS_SUMS['tiled'][1]} (shade rows; vertices, normals, albedo by slot; face "
           f"normals by vertex)")
-    from torch.profiler import ProfilerActivity, profile
-
-    from tracer_torch.utils import metrics
-
     metrics.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with tempfile.TemporaryDirectory() as tmp, metrics.profile_trace(True, tmp):
         step(scene, camera, target, p, opt)
     recs = [r for r in metrics.span_records() if r.name == "grad.rows_sum"]
     tot = metrics.span_totals("grad.step")
     metrics.reset()
     log(f"[grad] one profiled tiled bunny512 step: {len(recs)} \"grad.rows_sum\" spans, parents "
         f"{sorted({r.parent for r in recs})}, units {sorted({r.unit for r in recs})}; "
-        f"{tot['spans']['grad.rows_sum']['stream_ms']:.4f} stream ms, rows_summed "
-        f"{tot['counters'].get('rows_summed')}" if recs else
+        f"rows_summed {tot['counters'].get('rows_summed')}" if recs else
         "[grad] one profiled tiled bunny512 step: no \"grad.rows_sum\" span")
     check(len(recs) == ROWS_SUMS["tiled"][1] and tot["units"] == 1
           and {(r.parent, r.unit) for r in recs} == {("grad.backward", 0)},
@@ -1779,110 +1193,48 @@ def phase_grad_launches(dev="cuda") -> int:
     return launches["rows_sum"]
 
 
-def grad_run(what: str, dev="cuda", **kw) -> dict:
-    """benchmark_grad_step(**kw) on `dev` with its peak device memory and
-    launches; None for a run that ran out of device memory."""
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    try:
-        res = api.benchmark_grad_step(**kw, device=dev)
-    except torch.cuda.OutOfMemoryError as e:
-        res, why = None, str(e).splitlines()[0][:160]
-    if res is None:                  # the failed step's tensors are released by now
-        torch.cuda.empty_cache()
-        log(f"[grad] {what}: out of device memory ({why})")
-        return None
-    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
-    res["launches"] = dict(t2.LAUNCHES)
-    cfg = res["config"]
-    log(f"[grad] {what}: {cfg.scene} {cfg.width}x{cfg.height}, {kw.get('iters', 5)} steps after "
-        f"{kw.get('warmup', 1)}, params {kw.get('params', ('verts',))}, tiled "
-        f"{kw.get('tiled', 'auto')}: {res['grad_step_ms']:.3f} ms/step, loss {res['loss']:.6g}, "
-        f"overflow {res['overflow']}, peak device memory {res['peak_gib']:.3f} GiB, "
-        f"launches {sum(res['launches'].values())}")
-    check(res["overflow"] == 0, f"{what}: overflow {res['overflow']}")
-    return res
+def phase_grad_steps(dev="cuda"):
+    """(d): two Adam(1e-3) steps of each of GRAD_STEPS against a zeros
+    target: overflow 0; a step through the tiled tier launches
+    closest_hit_kernel and only TIERED kernels, one through the jnp tier
+    none."""
+    for preset, overrides, params, mode in GRAD_STEPS:
+        cfg = load_config(preset, **overrides)
+        scene, camera = api.get_scene(cfg, dev)
+        p = api.grad_params(scene, camera, params)
+        opt = torch.optim.Adam(p.values(), lr=1e-3)
+        step = api.make_grad_step_fn(cfg, scene, camera, mode, device=dev)
+        target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
+        zero_launches()
+        for _ in range(2):
+            loss, p, opt, aux = step(scene, camera, target, p, opt)
+        sync(dev)
+        launches = dict(t2.LAUNCHES)
+        tiled_tier = mode != "off" and cfg.use_bvh and cfg.use_pallas
+        log(f"[grad] {preset} {cfg.width}x{cfg.height}, params {params}, tiled {mode}: 2 steps, "
+            f"loss {float(loss):.6g}, overflow {aux['overflow']}, launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check(aux["overflow"] == 0, f"{preset} tiled {mode} grad step: overflow "
+                                    f"{aux['overflow']}")
+        stray = [k for k, v in launches.items() if v and not (tiled_tier and k in TIERED)]
+        check(not stray and (not tiled_tier or launches["closest"] > 0),
+              f"{preset} tiled {mode} grad step: launches {launches}")
 
 
-def without_checkpoint(fn, *args, **kwargs):
-    """fn with the plain tier's per-slot checkpoint replaced by a direct call."""
-    real = t1.checkpoint
-    t1.checkpoint = lambda step, *a, **kw: step(*a)
-    try:
-        return fn(*args, **kwargs)
-    finally:
-        t1.checkpoint = real
-
-
-def phase_grad_split(reps: int = 5, dev="cuda"):
-    """The tiled bunny512 step (verts, albedo, cam_pos; Adam) in parts, a
-    sync after each, host clock, median of `reps` after one warm-up: the
-    params put in (normals by the gather) and the accel built; the frame and
-    the loss; backward; the optimizer."""
-    cfg = load_config("bunny512")
-    scene, camera = api.get_scene(cfg, dev)
-    p = api.grad_params(scene, camera, GRAD_FAMILIES)
-    opt = torch.optim.Adam(p.values(), lr=1e-3)
-    normal_fn = make_vertex_normal_fn(scene.tris.cpu().numpy(), scene.verts.shape[0], device=dev)
-    wcfg = whitted.WhittedConfig(max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
-    target = torch.zeros((cfg.height, cfg.width, 3), device=dev)
-    s = {}
-
-    def accel_build():
-        s["scene"], s["camera"] = api._apply_grad_params(scene, camera, p, normal_fn)
-        s["accel"] = build_scene_accel(s["scene"])
-
-    def render_loss():
-        img = tiled.render_tiled(s["scene"], s["accel"], s["camera"], cfg.height, cfg.width, wcfg)
-        s["loss"] = torch.mean((img - target) ** 2)
-
-    def backward():
-        s["loss"].backward()
-
-    def optimizer():
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-
-    parts = (accel_build, render_loss, backward, optimizer)
-    times = {fn.__name__: [] for fn in parts}
-    for rep in range(reps + 1):
-        for fn in parts:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            if rep:
-                times[fn.__name__].append((time.perf_counter() - t0) * 1e3)
-    med = {k: float(np.median(v)) for k, v in times.items()}
-    total = sum(med.values())
-    log(f"[grad] tiled bunny512 step in parts, median of {reps} (ms): "
-        + ", ".join(f"{k} {v:.3f} ({v / total:.1%})" for k, v in med.items())
-        + f"; sum {total:.3f}")
-    if dev != "cuda":
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for fn in parts:
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = busy_ms(prof.events())
-    log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=20))
-    idle = f"idle {1.0 - busy / wall:.1%}" if busy > 0.0 else "idle share not measured"
-    log(f"[grad] one profiled tiled bunny512 step: wall {wall:.3f} ms, device busy "
-        f"{busy:.3f} ms, {idle}")
+def phase_grad(dev="cuda") -> int:
+    """grad: the grad step on the card (see the module docstring). Returns
+    the row sums of (c)'s tiled bunny512 step."""
+    phase_grad_devices(load_config("bunny-grad", height=64, width=64, use_pallas=True),
+                       (dev, "cpu"))
+    rows_sums = phase_grad_launches(dev)
+    phase_grad_steps(dev)
+    return rows_sums
 
 
 # The frames whose cull passes phase_cull captures: (preset, overrides,
 # camera of the pan path or None for the preset's).
 CULL_CELLS = (("bench100k", {}, None), ("bunny512", {}, None),
               ("pod-1m", {"max_bounces": 1}, 40))
-# Arithmetic operations a (tile, box) test of csrc/cull.cu: per axis two
-# subtractions, two divides and four min/max.
-FLOPS_CULL = 24
 
 
 def pan_camera(camera, i: int, period: int = 120):
@@ -1952,36 +1304,12 @@ def same_stage1(accel, o, d, t_max, words_s1, sup_counts, tiles_b) -> bool:
             and torch.equal(tiles_b[:, :13], torch.cat([*bounds, tm], 1)))
 
 
-def cull_bounds(accel, o, t_max, words_s1, sup_counts, k: int) -> tuple[dict, dict]:
-    """Each cull stage's bound on one pass: FLOPS_CULL operations a (tile,
-    box) pair tested (stage 1 every supercluster, stage 2 each survivor's
-    real members), against each input read once and each output written
-    once (stage 1: the rays, 24 B a ray and 4 more with a per-ray t_max, the
-    boxes, the survivors' words, a count and 64 B of bounds a tile; stage 2:
-    the bounds, the survivors' words, the clusters' boxes, k words and a
-    count a tile)."""
-    n_tiles, tr, _ = o.shape
-    n_sc, n_cl = accel.super_lo.shape[0], accel.num_clusters
-    per_ray = isinstance(t_max, torch.Tensor) and t_max.ndim > 0
-    s = int(sup_counts.max())
-    live = torch.arange(s, device=o.device)[None] < sup_counts[:, None]
-    sid = words_s1[:, :s].long() & ((1 << CLUSTER_BITS) - 1)
-    members = int(torch.where(live, (n_cl - sid * SUPER_FACTOR).clamp(0, SUPER_FACTOR), 0).sum())
-    n_words = int(sup_counts.sum())
-    one = bound(FLOPS_CULL * n_tiles * n_sc, n_tiles, tr, n_words, n_sc * 24 + n_tiles * 64,
-                24 + 4 * per_ray, 0)
-    two = bound(FLOPS_CULL * members, n_tiles, 0, n_words + n_tiles * k,
-                n_cl * 24 + n_tiles * 64, 0, 0)
-    return one, two
-
-
-def compare_cull(smi, what, accel, o, d, t_max, plain_reps: int, reps: int = 10) -> dict:
+def compare_cull(what, accel, o, d, t_max):
     """cull_clusters_sorted2's kernel path against its plain version on one
     pass: words, counts, excess and need equal with no spill; then with
     SORT_CAP the largest power of two below S, so that tiles leave the
-    kernels unsorted, equal again with one spill; each stage's kernel alone
-    (device_ms), the kernel path and the plain version (cuda_ms) and each
-    stage's bound. Returns the two kernels' entries of the kernels line."""
+    kernels unsorted, equal again with one spill; stage 1 alone against the
+    plain version's stage 1."""
     plain = cull.cull_clusters_sorted2_plain(accel, o, d, t_max)
     out = []
     seen = spill_counts(lambda: out.append(cull._cull_sorted2_cuda(accel, o, d, t_max)))
@@ -2001,29 +1329,16 @@ def compare_cull(smi, what, accel, o, d, t_max, plain_reps: int, reps: int = 10)
     words_s1, sup_counts, tiles_b = cull.cull_stage1(o, d, t_max, accel.super_lo, accel.super_hi)
     check(same_stage1(accel, o, d, t_max, words_s1, sup_counts, tiles_b),
           f"{what}: cull_stage1 differs from the plain version's stage 1")
-    one_ms = device_ms(lambda: cull.cull_stage1(o, d, t_max, accel.super_lo, accel.super_hi),
-                       reps)
-    two_ms = device_ms(lambda: cull.cull_stage2(tiles_b, words_s1, sup_counts, s,
-                                                accel.cluster_lo, accel.cluster_hi), reps)
-    path_ms = cuda_ms(lambda: cull._cull_sorted2_cuda(accel, o, d, t_max), reps)
-    plain_ms = cuda_ms(lambda: cull.cull_clusters_sorted2_plain(accel, o, d, t_max), plain_reps)
-    b1, b2 = cull_bounds(accel, o, t_max, words_s1, sup_counts, plain[0].shape[1])
     log(f"[cull] {what}: {o.shape[0]} tiles of {o.shape[1]} rays, "
         f"{accel.super_lo.shape[0]} superclusters, {accel.num_clusters} clusters, "
         f"{'per-ray' if isinstance(t_max, torch.Tensor) else 'scalar'} t_max, S {s}, "
         f"k {plain[0].shape[1]} ({count_stats(plain[1])}): words, counts, excess and need "
         f"equal to the plain version, 0 spills, stage 1's survivors, bounds and t_max equal; "
-        f"SORT_CAP {cap}: equal, {forced[0][1]} spill; "
-        f"stage 1 alone {one_ms:.4f} ms (bound {b1['bound_ms']:.5f} by {b1['bound_by']}), "
-        f"stage 2 alone {two_ms:.4f} ms (bound {b2['bound_ms']:.5f} by {b2['bound_by']}); "
-        f"the kernels' pass {path_ms:.4f} ms, the plain version's {plain_ms:.4f} ms; on {smi}")
-    return {"cull_stage1": {"max_abs_err": 0.0, "ms": one_ms, "plain_ms": plain_ms, **b1},
-            "cull_stage2": {"max_abs_err": 0.0, "ms": two_ms, "plain_ms": plain_ms, **b2}}
+        f"SORT_CAP {cap}: equal, {forced[0][1]} spill")
 
 
-def phase_cull(smi: str, results: dict, dev="cuda"):
-    """cull: (see the module docstring). The kernels line's entries are the
-    pod-1m primary pass's."""
+def phase_cull(results: dict, dev="cuda"):
+    """cull: (see the module docstring)."""
     for preset, overrides, pan in CULL_CELLS:
         cfg = load_config(preset, **overrides)
         with torch.inference_mode():
@@ -2031,16 +1346,16 @@ def phase_cull(smi: str, results: dict, dev="cuda"):
             check(len(passes) >= 2, f"{preset}: {len(passes)} cull passes in a frame")
             for i, (accel, o, d, t_max) in enumerate(passes):
                 zero_launches()
-                r = compare_cull(smi, f"{preset} pass {i + 1} of {len(passes)}"
-                                 + (f" at pan camera {pan}" if pan is not None else ""),
-                                 accel, o, d, t_max, plain_reps=2 if preset == "pod-1m" else 5)
+                compare_cull(f"{preset} pass {i + 1} of {len(passes)}"
+                             + (f" at pan camera {pan}" if pan is not None else ""),
+                             accel, o, d, t_max)
                 check(all(t2.LAUNCHES[k] > 0 for k in CULL_KERNELS),
                       f"{preset}: the cull kernels never launched: {t2.LAUNCHES}")
-                if preset == "pod-1m" and i == 0:
-                    results.update(r)
         del passes
         torch.cuda.empty_cache()
-
+    for k in CULL_KERNELS:
+        held(results, k, "plain version, every cull pass of a frame of each cell's scene, "
+                         "with and without a forced spill")
 
 
 def rows_sum_cases(dev="cuda") -> list:
@@ -2108,13 +1423,11 @@ def rows_sum_fuzz(dev="cuda", cases: int = 300, seed: int = 18):
     return worst
 
 
-def phase_rows_sum(smi: str, results: dict, dev="cuda", reps: int = 20):
+def phase_rows_sum(results: dict, dev="cuda"):
     """gather.cu's segmented row sum at the fit's shapes (see the module
-    docstring): bits across two runs, each against a float64 sum within
-    fp32 re-association, times beside the byte bound and ATen's
-    index_put_(accumulate=True)."""
+    docstring): two launches, bits across two runs, each against a float64
+    sum within fp32 re-association; then rows_sum_fuzz."""
     gen = torch.Generator(device=dev).manual_seed(20261018)
-    worst = {}
     for name, idx, n_rows, w in rows_sum_cases(dev):
         n = idx.numel()
         g = torch.randn((n, w), generator=gen, device=dev)
@@ -2132,81 +1445,26 @@ def phase_rows_sum(smi: str, results: dict, dev="cuda", reps: int = 20):
         # A sum of m terms in any order is within (m - 1) u sum|x| of the
         # exact one (u = 2^-24); the kernel adds at most 127 terms a level,
         # 3 levels here: 381 u.
-        bound = 381 * 2.0 ** -24 * scale + 1e-30
-        err_k = float(((a.double() - exact).abs() / bound).max())
-        err_p = float(((plain.double() - exact).abs() / bound).max())
+        limit = 381 * 2.0 ** -24 * scale + 1e-30
+        err_k = float(((a.double() - exact).abs() / limit).max())
+        err_p = float(((plain.double() - exact).abs() / limit).max())
         counts = torch.bincount(idx, minlength=n_rows)
-        ms = cuda_ms(lambda: gather.rows_sum(g, idx, n_rows), reps)
-        keys, perm = torch.sort(idx, stable=True)
-        ka, kb = gather.slot_counts(n)
-        pk = torch.empty(ka + kb, dtype=torch.int64, device=dev)
-        pv = torch.empty((ka + kb, w), device=dev)
-        out = torch.zeros((n_rows, w), device=dev)
-        alone = device_ms(lambda: _launch.launch("rows_sum", "gr_rows_sum", g.device, keys, perm,
-                                                 g, n, w, out, pk, pv, pk[ka:], pv[ka:]), reps)
-        aten = cuda_ms(lambda: torch.zeros((n_rows, w), device=dev).index_put_(
-            (idx,), g, accumulate=True), 3)
-        plain_ms = cuda_ms(lambda: gather.rows_sum_plain(g, idx, n_rows), reps)
-        # rows_sum(g, idx) -> out reads each index and gradient row once and
-        # writes each output row once.
-        nbytes = n * (8 + 4 * w) + n_rows * 4 * w
-        bound_ms = nbytes / PEAK_BYTES * 1e3
         log(f"[rows sum] {name}: {n} entries of {w} floats into {n_rows} rows, "
             f"{int((counts > 0).sum())} rows hit, longest run {int(counts.max())}: two runs "
             f"bit-equal {same}; worst error / (381 u sum|g|): kernel {err_k:.4f}, plain "
-            f"(index_add_) {err_p:.4f}; wrapper (sort, zeroes, kernel) {ms:.4f} ms, kernel "
-            f"alone {alone:.4f} ms, bound {bound_ms:.4f} ms ({nbytes / 1e6:.2f} MB at "
-            f"3.35 TB/s); ATen index_put_(accumulate=True) {aten:.4f} ms; plain "
-            f"(index_add_, float atomics) {plain_ms:.4f} ms; on {smi}")
+            f"(index_add_) {err_p:.4f}")
         check(same, f"rows_sum {name}: two runs differ")
         check(err_k <= 1.0, f"rows_sum {name}: {err_k:.3f} of the re-association bound")
-        worst[name] = {"ms": ms, "alone_ms": alone, "aten_ms": aten, "plain_ms": plain_ms,
-                       "bound_ms": bound_ms, "bytes": nbytes, "err": err_k}
     fuzz = rows_sum_fuzz(dev)
     log(f"[rows sum] 300 random problems (1 to 300,000 entries, widths 1 to 32; uniform, "
         f"hot rows, runs): bits equal across two runs, worst error / bound {fuzz:.4f}")
-    shade = worst["shade rows by ray"]
-    results["rows_sum"] = {"max_abs_err": max(v["err"] for v in worst.values()),
-                           "ms": shade["ms"], "plain_ms": shade["plain_ms"],
-                           "library_ms": shade["aten_ms"], "bound_ms": shade["bound_ms"],
-                           "bound_by": "bytes", "cases": worst}
+    held(results, "rows_sum", "float64 sum and two runs, the fit's three gathers and 300 "
+                              "random problems")
 
 
-def phase_grad(smi: str, frame: dict, dev="cuda", mem_hw: int = 128) -> int:
-    """Phase 17: the grad step on the card (see the module docstring); the
-    jnp tier's memory with and without the checkpoint also at mem_hw^2.
-    Returns the row sums of (c)'s tiled bunny512 step."""
-    phase_grad_devices(load_config("bunny-grad", height=64, width=64, use_pallas=True),
-                       (dev, "cpu"))
-    rows_sums = phase_grad_launches(dev)
-    grads = {}
-    for key, kw in bench_torch.GRAD_RUNS.items():
-        res = grad_run(key, dev, **kw)
-        check(res is not None, f"{key}: out of device memory")
-        cfg = res["config"]
-        tiled_tier = kw.get("tiled", "auto") != "off" and cfg.use_bvh and cfg.use_pallas
-        stray = [k for k, v in res["launches"].items()
-                 if v and not (tiled_tier and k in TIERED)]
-        check(not stray and (not tiled_tier or res["launches"]["closest"] > 0),
-              f"{key}: launches {res['launches']}")
-        grads[key] = res
-    jnp_kw = bench_torch.GRAD_RUNS["grad_step_bunny512_jnp_ms"]
-    small = dict(jnp_kw, height=mem_hw, width=mem_hw)
-    grad_run(f"bunny512 jnp tier at {mem_hw}x{mem_hw}, checkpointed", dev, **small)
-    without_checkpoint(grad_run, f"bunny512 jnp tier at {mem_hw}x{mem_hw}, no checkpoint", dev,
-                       **small)
-    without_checkpoint(grad_run, "bunny512 jnp tier, no checkpoint", dev, **jnp_kw)
-    phase_grad_split(dev=dev)
-    rc, line = bench_torch.bench_line("bench100k", frame, grads)
-    log(f"[grad] bench_torch.py line, on {smi}:")
-    print(json.dumps(line), flush=True)
-    check(rc == 0, f"bench_torch.py's line says exit code {rc}")
-    return rows_sums
-
-
-# Phase 18: the fit's five loss modes, (mode, preset, config overrides,
-# edge_aware), in diff.fit.make_loss_fn's order, and the presets' full-size
-# fits in the modes bin/fit_torch reaches: (mode, preset, steps).
+# The fit's five loss modes, (mode, preset, config overrides, edge_aware),
+# in diff.fit.make_loss_fn's order, and the presets' full-size fits in the
+# modes bin/fit_torch reaches: (mode, preset, steps).
 FIT_MODES = (("tiled", "bunny-grad", {"use_pallas": True}, False),
              ("edge accel", "bunny-grad", {}, True),
              ("edge brute", "cornell256", {}, True),
@@ -2303,29 +1561,11 @@ def phase_fit_devices(size: int = 64, devs=("cuda", "cpu")):
               f"fit {mode}: launches {launches}, want {sums} row sums")
 
 
-class StepClock:
-    """A MetricsLogger stand-in for fit: the host clock at each step's
-    record (fit reads each step's loss back first, which waits for the
-    device)."""
-
-    def __init__(self):
-        self.times = []
-
-    def log(self, **_fields):
-        self.times.append(time.perf_counter())
-
-    def ms_per_step(self) -> float:
-        """Mean ms of a step after the first (the warm-up)."""
-        return float(np.mean(np.diff(self.times))) * 1e3
-
-
 def phase_fit_runs(dev="cuda"):
     """(b): bin/fit_torch's fits at the presets' full size (verts, Adam
-    5e-3): the loss falls (last < first), per-step launches (the tiled mode
-    one of each traversal2.cu kernel a step, closest_fast_kernel where the
-    frame has count-1 tiles; the others none), ms a step (mean after the
-    first, host clock between the steps' loss read-backs) and peak device
-    memory."""
+    5e-3): the loss falls (last < first), and the launches a step (the
+    tiled mode one of each traversal2.cu kernel a step, closest_fast_kernel
+    where the frame has count-1 tiles; the others none)."""
     for mode, preset, steps in FIT_RUNS:
         cfg = load_config(preset)
         scene, camera, target = fit_target(cfg, dev)
@@ -2336,21 +1576,14 @@ def phase_fit_runs(dev="cuda"):
                                             if aux["need_zero"] > aux["need_split"] else ())
         check(api.use_tiled_grad(scene, cfg, "auto") == (mode == "tiled"),
               f"{preset}: the fit's mode is not {mode}")
-        clock = StepClock()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
         zero_launches()
         _, losses = fit(scene, camera, target, cfg,
                         FitConfig(steps=steps, learning_rate=FIT_LR,
-                                  edge_aware=mode.startswith("edge")), metrics=clock)
+                                  edge_aware=mode.startswith("edge")))
         torch.cuda.synchronize()
         launches = dict(t2.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"[fit] {mode} mode, {preset} {cfg.width}x{cfg.height}, {steps} steps: loss "
             f"{losses[0]:.6g} -> {losses[-1]:.6g} (min {min(losses):.6g}), "
-            f"{clock.ms_per_step():.3f} ms/step after the first, peak device memory "
-            f"{peak:.3f} GiB, "
             f"launches {launches} ({sum(launches.values()) / steps:g} a step)")
         check(np.isfinite(losses).all() and losses[-1] < losses[0],
               f"fit {mode} on {preset}: the loss did not fall: {losses}")
@@ -2382,37 +1615,32 @@ def phase_fit_resume(dev="cuda"):
           "the resumed fit did not run exactly the 3 steps left")
 
 
-def trace_cli(preset: str, out_dir: str) -> float:
+def trace_cli(preset: str, out_dir: str):
     """bin/trace_torch --preset <preset> as a subprocess on the card: exit
     0, its PNG read back with read_png of the right shape, neither blank nor
-    saturated, overflow 0 and no non-finite value in the frame -> its
-    steady-state frame's ms."""
+    saturated, overflow 0 and no non-finite value in the frame."""
     cfg = load_config(preset)
     png = os.path.join(out_dir, f"{preset}.png")
-    t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "trace_torch"), "--preset",
                            preset, "-o", png], capture_output=True, text=True, timeout=600)
-    wall = time.perf_counter() - t0
-    log(f"[trace] bin/trace_torch --preset {preset} ({wall:.1f} s, exit {proc.returncode}):\n"
+    log(f"[trace] bin/trace_torch --preset {preset} (exit {proc.returncode}):\n"
         + proc.stdout.strip())
     check(proc.returncode == 0, f"bin/trace_torch {preset} failed:\n{proc.stderr[-4000:]}")
-    m = re.search(r"steady-state frame: ([0-9.]+) ms .*overflow (\d+), non-finite values (\d+)",
-                  proc.stdout)
+    m = re.search(r"steady-state frame: .*overflow (\d+), non-finite values (\d+)", proc.stdout)
     check(m is not None, f"bin/trace_torch {preset}: no steady-state line")
     img = read_png(png)
     lit = float((img > 0).mean())
     log(f"[trace] {png}: {img.shape}, mean {img.mean():.2f}, {lit:.1%} of values above 0, "
         f"{float((img == 255).mean()):.1%} at 255")
     check(img.shape == (cfg.height, cfg.width, 3), f"{preset}: PNG of shape {img.shape}")
-    check(int(m.group(2)) == 0 and int(m.group(3)) == 0,
-          f"{preset}: overflow {m.group(2)}, non-finite values {m.group(3)}")
+    check(int(m.group(1)) == 0 and int(m.group(2)) == 0,
+          f"{preset}: overflow {m.group(1)}, non-finite values {m.group(2)}")
     check(2.0 < img.mean() < 250.0 and lit > 0.05 and (img == 255).mean() < 0.9,
           f"{preset}: the frame is blank or saturated (mean {img.mean()})")
-    return float(m.group(1))
 
 
-def phase_fit(smi: str):
-    """Phase 18: the fit and the command lines (see the module docstring)."""
+def phase_fit():
+    """fit: the fit and the command lines (see the module docstring)."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 products are on: intersect_packed "
           "would misclassify hits")
     phase_fit_devices()
@@ -2420,18 +1648,12 @@ def phase_fit(smi: str):
     phase_fit_resume()
     with tempfile.TemporaryDirectory() as out_dir:
         for preset in ("cornell256", "bench100k", "sponza1080"):
-            ms = trace_cli(preset, out_dir)
-            log(f"[trace] {preset}: steady-state frame {ms:.3f} ms on {smi}")
+            trace_cli(preset, out_dir)
     phase_cross_device(load_config("sponza1080", height=72, width=128))
-    rc, line = bench_torch.run("sponza1080", 10, grad=False)
-    log(f"[trace] bench_torch.py line of sponza1080 (BENCH_PRESET=sponza1080 BENCH_GRAD=0), "
-        f"on {smi}:")
-    print(json.dumps(line), flush=True)
-    check(rc == 0, f"sponza1080's bench line says exit code {rc}")
 
 
 # ---------------------------------------------------------------------------
-# Phase 19
+# The one-card surface
 # ---------------------------------------------------------------------------
 
 # A stage's largest difference between the devices, in units of 2^-23 of its
@@ -2537,17 +1759,17 @@ def stage_ulps(a: dict, b: dict) -> tuple[dict, np.ndarray, np.ndarray]:
 
 
 def phase_cornell_stages(size: int = 64, devs=("cuda", "cpu")):
-    """cornell256 at size x size, with phase 18 (a)'s camera, one Whitted
-    bounce stage by stage on devs[0] against devs[1] (bounce_stages,
-    stage_ulps): first each stage from the same inputs, devs[1]'s outputs
-    of the stages before it, so that its difference is its own arithmetic's;
-    then each device from its own. Prints both and the first stage past
-    STAGE_ULPS in each, with the operations it runs. Then the loss of phase
-    18 (a)'s replay mode on each device, in float32 on the device and in
-    float64 on the host from each device's frame, and which pixels carry
-    the float64 gap: those off by more than 1e-4, and the fewest that carry
-    half of it, with their radiance against the frame's. Returns the
-    isolated {stage: ulps}."""
+    """cornell256 at size x size, with fit (a)'s camera, one Whitted bounce
+    stage by stage on devs[0] against devs[1] (bounce_stages, stage_ulps):
+    first each stage from the same inputs, devs[1]'s outputs of the stages
+    before it, so that its difference is its own arithmetic's; then each
+    device from its own. Prints both and the first stage past STAGE_ULPS in
+    each, with the operations it runs. Then the loss of fit (a)'s replay
+    mode on each device, in float32 on the device and in float64 on the
+    host from each device's frame, and which pixels carry the float64 gap:
+    those off by more than 1e-4, and the fewest that carry half of it, with
+    their radiance against the frame's. Returns the isolated {stage:
+    ulps}."""
     cfg = load_config("cornell256", height=size, width=size)
     a_dev, b_dev = devs
     (sa, ca), (sb, cb) = (fit_scene(cfg, dev, off_center=True) for dev in devs)
@@ -2601,11 +1823,8 @@ def golden_oracle(img, scene, camera, height, width, cfg_whitted, what,
     cpp/oracle.cpp) on the same scene and camera, under the golden gate
     (frac_tol: the reference's 2.5% for a 3-bounce, 2-light band); the
     frame must be lit (max > 0.05). Returns the oracle's frame."""
-    t0 = time.perf_counter()
     ref = cpp_oracle.cpp_render(scene, camera, height, width, max_bounces=cfg_whitted.max_bounces,
                                 smooth_shading=cfg_whitted.smooth_shading)
-    log(f"[golden] {what}: the C++ oracle's {width}x{height} frame in "
-        f"{time.perf_counter() - t0:.1f} s")
     check(np.isfinite(img).all() and img.max() > 0.05, f"{what}: frame not finite and lit "
           f"(max {img.max()})")
     golden_gate(img, ref, what, frac_tol)
@@ -2641,13 +1860,12 @@ def launched(fn, *args, **kwargs):
     return out, {k: v for k, v in t2.LAUNCHES.items() if v}
 
 
-def phase_sorted(smi: str, dev="cuda") -> dict:
-    """(a) trace_tiles_sorted and any_hit_tiles_sorted over bench100k's
+def phase_sorted(dev="cuda") -> dict:
+    """(sorted) trace_tiles_sorted and any_hit_tiles_sorted over bench100k's
     primary tiles and its shadow-segment tiles at 1920x1080: bit-equal to
     trace_tiles_split and any_hit_tiles_graded on the same inputs and to the
     plain versions on select_tiles' subset; their launches (counts set to 0
-    just before each pass) and each pass's ms (CUDA events, 10 passes)
-    beside the split passes'. Returns the launches of the two passes."""
+    just before each pass). Returns the launches of the two passes."""
     cfg = load_config("bench100k")
     scene, camera = api.get_scene(cfg, dev)
     with torch.inference_mode():
@@ -2664,12 +1882,9 @@ def phase_sorted(smi: str, dev="cuda") -> dict:
               "trace_tiles_sorted differs from trace_tiles_split")
         check(torch.equal(float_bits(bt[sel]), float_bits(p_bt)) and torch.equal(gid[sel], p_gid),
               "trace_tiles_sorted differs from closest_hit_plain")
-        ms = cuda_ms(lambda: t2.trace_tiles_sorted(o_t, d_t, accel, words, counts), 10)
-        ms_split = cuda_ms(lambda: t2.trace_tiles_split(o_t, d_t, accel, words, counts), 10)
         log(f"[sorted] trace_tiles_sorted, bench100k {counts.shape[0]} primary tiles "
             f"({count_stats(counts)}): bit-equal to trace_tiles_split and, on {sel.shape[0]} "
-            f"tiles, to closest_hit_plain; launches {l_trace}; {ms:.3f} ms a pass against "
-            f"trace_tiles_split's {ms_split:.3f}, on {smi}")
+            f"tiles, to closest_hit_plain; launches {l_trace}")
         check(l_trace == {"closest": 1}, f"trace_tiles_sorted launched {l_trace}")
 
         rows_gid, rows, _, _, _ = tiled._trace_rows(accel, o_t, d_t)
@@ -2686,22 +1901,18 @@ def phase_sorted(smi: str, dev="cuda") -> dict:
                                 words2[sel2], counts2[sel2])
         check(torch.equal(occ, g_occ), "any_hit_tiles_sorted differs from any_hit_tiles_graded")
         check(torch.equal(occ[sel2], p_occ), "any_hit_tiles_sorted differs from anyhit_plain")
-        ms2 = cuda_ms(lambda: t2.any_hit_tiles_sorted(so, sd, tmax, accel, words2, counts2), 10)
-        ms2_g = cuda_ms(lambda: t2.any_hit_tiles_graded(so, sd, tmax, accel, words2, counts2),
-                        10)
         log(f"[sorted] any_hit_tiles_sorted, bench100k {counts2.shape[0]} shadow tiles "
             f"({count_stats(counts2)}), {float(occ.float().mean()):.1%} occluded: equal to "
             f"any_hit_tiles_graded and, on {sel2.shape[0]} tiles, to anyhit_plain; launches "
-            f"{l_occ}; {ms2:.3f} ms a pass against any_hit_tiles_graded's {ms2_g:.3f}, "
-            f"on {smi}")
+            f"{l_occ}")
         check(l_occ == {"anyhit": 1}, f"any_hit_tiles_sorted launched {l_occ}")
     return {"closest": l_trace.get("closest", 0), "anyhit": l_occ.get("anyhit", 0)}
 
 
 def phase_goldens(dev="cuda") -> dict:
-    """(b) the reference's goldens against the port's binding to the fp64
-    C++ oracle, at the reference's full sizes, on the card. Returns
-    {"bunny512": (scene, camera, tiled frame, oracle frame)} for (c)."""
+    """(goldens) the reference's goldens against the port's binding to the
+    fp64 C++ oracle, at the reference's full sizes, on the card. Returns
+    {"bunny512": (scene, camera, tiled frame, oracle frame)} for (lbvh)."""
     check(cpp_oracle.available(), f"the C++ oracle did not build: {cpp_oracle._load()[1]}")
     out = {}
     cfg = load_config("bunny512")
@@ -2735,11 +1946,8 @@ def phase_goldens(dev="cuda") -> dict:
         tracers = whole_set_tracers(scene, build_scene_accel(scene))
         rays = generate_rays_band(camera, cfg.height, cfg.width, y0, hb)
         img, l_band = launched(whitted.render_wavefront, scene, rays, wcfg3, *tracers)
-    t0 = time.perf_counter()
     ref = cpp_oracle.cpp_render(scene, camera, cfg.height, cfg.width,
                                 max_bounces=cfg.max_bounces, smooth_shading=cfg.smooth_shading)
-    log(f"[golden] sponza1080: the C++ oracle's {cfg.width}x{cfg.height} frame in "
-        f"{time.perf_counter() - t0:.1f} s")
     img = img.cpu().numpy()
     check(np.isfinite(img).all() and img.max() > 0.05, "sponza1080 band not lit")
     golden_gate(img, ref[y0:y0 + hb], f"sponza1080 rows {y0}-{y0 + hb} of {cfg.height}, "
@@ -2783,52 +1991,29 @@ def phong_scene(dev):
                               device=dev)
 
 
-def phase_lbvh(smi: str, bunny):
-    """(c) bunny512 at 512x512 through render_image over make_lbvh_tracers:
-    the frame against (b)'s tiled frame and the oracle's, under the golden
-    gate; the build's ms, each traversal's ms (host clock around a
-    synchronize), its loop iterations, and the peak device memory."""
+def phase_lbvh(bunny):
+    """(lbvh) bunny512 at 512x512 through render_image over
+    make_lbvh_tracers: no kernel launched, the frame against the goldens'
+    tiled frame and the oracle's, under the golden gate."""
     scene, camera, tiled_img, ref = bunny
     h, w = tiled_img.shape[:2]
     wcfg = whitted.WhittedConfig(max_bounces=1, smooth_shading=True)
-    stats, times = {"trace": {}, "occlude": {}}, {"trace": [], "occlude": []}
-    torch.cuda.reset_peak_memory_stats()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     bvh = lbvh.build_lbvh(scene.verts, scene.tris)
-    torch.cuda.synchronize()
-    build_ms = (time.perf_counter() - t0) * 1e3
-
-    def clocked(name, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            times[name].append((time.perf_counter() - t) * 1e3)
-            return out
-        return run
-
-    trace = clocked("trace", lambda ray: lbvh.trace_rays_lbvh(ray, bvh, scene.verts, scene.tris,
-                                                              stats=stats["trace"]))
-    occlude = clocked("occlude", lambda ray, t_max: lbvh.any_hit_lbvh(
-        ray, t_max, bvh, scene.verts, scene.tris, stats=stats["occlude"]))
+    trace = lambda ray: lbvh.trace_rays_lbvh(ray, bvh, scene.verts, scene.tris)  # noqa: E731
+    occlude = lambda ray, t_max: lbvh.any_hit_lbvh(  # noqa: E731
+        ray, t_max, bvh, scene.verts, scene.tris)
     with torch.inference_mode():
         img, l_lbvh = launched(whitted.render_image, scene, camera, h, w, wcfg, trace, occlude)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     img = img.cpu().numpy()
-    log(f"[lbvh] bunny512 {w}x{h} ({scene.num_tris} triangles), render_image over the LBVH on "
-        f"{smi}: build {build_ms:.1f} ms; "
-        + "; ".join(f"{k} pass {times[k][0]:.1f} ms, {stats[k]['iterations']} loop iterations run "
-                    f"({stats[k]['needed']} with an active lane)" for k in times)
-        + f"; peak device memory {peak:.2f} GiB, launches {l_lbvh}")
+    log(f"[lbvh] bunny512 {w}x{h} ({scene.num_tris} triangles), render_image over the LBVH: "
+        f"launches {l_lbvh}")
     check(not l_lbvh, f"the LBVH frame launched {l_lbvh}")
     golden_gate(img, tiled_img, "bunny512 LBVH vs the tiled tier")
     golden_gate(img, ref, "bunny512 LBVH vs the C++ oracle")
 
 
 def phase_obj(tmp: str, dev="cuda"):
-    """(d) bunny512's geometry through save_obj, then obj:<path> through
+    """(obj) bunny512's geometry through save_obj, then obj:<path> through
     get_scene and make_render_fn on the card against the oracle on the same
     loaded scene; load_obj's native and Python parsers field for field;
     bin/trace_torch on the obj: scene."""
@@ -2836,15 +2021,9 @@ def phase_obj(tmp: str, dev="cuda"):
     src, _ = api.get_scene(cfg, dev)
     path = os.path.join(tmp, "bunny512.obj")
     save_obj(path, src.verts, src.tris)
-    t0 = time.perf_counter()
     check(cpp_loader.available(), f"the native OBJ parser did not build: {cpp_loader._load()[1]}")
-    log(f"[obj] the native parser built and loaded in {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
     native = load_obj(path, native=True, device=dev)
-    t_native = time.perf_counter() - t0
-    t0 = time.perf_counter()
     python = load_obj(path, native=False, device=dev)
-    t_python = time.perf_counter() - t0
     for name, a, b in (("verts", native.verts, python.verts), ("tris", native.tris, python.tris),
                        ("mat_id", native.mat_id, python.mat_id),
                        ("normals", native.normals, python.normals),
@@ -2859,9 +2038,8 @@ def phase_obj(tmp: str, dev="cuda"):
     check(aux["overflow"] == 0, f"obj frame overflow {aux['overflow']}")
     golden_oracle(img.cpu().numpy(), scene, camera, cfg.height, cfg.width, wcfg,
                   f"obj:{os.path.basename(path)} ({scene.num_tris} triangles) "
-                  f"{cfg.width}x{cfg.height}, tiled "
-                  f"tier (launches {l_obj}); parsed natively in {t_native:.2f} s, in Python in "
-                  f"{t_python:.2f} s, the same scene")
+                  f"{cfg.width}x{cfg.height}, tiled tier (launches {l_obj}); the native and "
+                  f"Python parsers give the same scene")
     png = os.path.join(tmp, "obj.png")
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "trace_torch"), "--preset",
                            "bunny512", "--scene", f"obj:{path}", "-o", png],
@@ -2873,27 +2051,11 @@ def phase_obj(tmp: str, dev="cuda"):
           "bin/trace_torch's obj: PNG has the wrong shape")
 
 
-def phase_bench_cli(frame: dict):
-    """(e) bin/bench_torch --preset bench100k --iters 3 --no-grad as a
-    subprocess: exit 0, its line's overflow 0, and its ms_per_frame within
-    half to twice phase 6's (the frame is host-bound and wanders)."""
-    proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "bench_torch"), "--preset",
-                           "bench100k", "--iters", "3", "--no-grad"], capture_output=True,
-                          text=True, timeout=600)
-    check(proc.returncode == 0, f"bin/bench_torch failed:\n{proc.stderr[-4000:]}")
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    ms, ref = line["detail"]["ms_per_frame"], frame["ms_per_frame"]
-    log(f"[bench] bin/bench_torch --preset bench100k --iters 3 --no-grad: {json.dumps(line)}")
-    log(f"[bench] ms_per_frame {ms:.3f} against phase 6's {ref:.3f}")
-    check(line["detail"]["overflow"] == 0, "bin/bench_torch: overflow")
-    check(ref / 2 <= ms <= ref * 2, f"bin/bench_torch's frame {ms} ms, phase 6's {ref} ms")
-
-
 def phase_guard_profile(tmp: str, dev="cuda"):
-    """(f) checked(render_image): a clean cornell frame passes on the card,
-    NaN vertices raise CheckError; benchmark("cornell256", profile=True)
-    writes trace.json under TRACER_PROFILE_DIR; generate_rays with a seeded
-    jitter on the card against the CPU to 2^-22."""
+    """(guard) checked(render_image): a clean cornell frame passes on the
+    card, NaN vertices raise CheckError; benchmark("cornell256",
+    profile=True) writes trace.json under TRACER_PROFILE_DIR; generate_rays
+    with a seeded jitter on the card against the CPU to 2^-22."""
     scene, camera = api.get_scene(load_config("cornell256"), dev)
     wc = whitted.WhittedConfig(max_bounces=1)
     run = checked(lambda s, c: whitted.render_image(s, c, 64, 64, wc))
@@ -2922,8 +2084,8 @@ def phase_guard_profile(tmp: str, dev="cuda"):
             os.environ["TRACER_PROFILE_DIR"] = before
     trace = os.path.join(prof_dir, "trace.json")
     check(os.path.exists(trace) and res["overflow"] == 0, "benchmark(profile=True) wrote no trace")
-    log(f"[guard] benchmark('cornell256', profile=True): {res['ms_per_frame']:.3f} ms/frame "
-        f"profiled, trace.json {os.path.getsize(trace)} bytes")
+    log(f"[guard] benchmark('cornell256', profile=True): trace.json {os.path.getsize(trace)} "
+        f"bytes")
 
     jit = np.random.default_rng(0).uniform(0.0, 1.0, (64, 96, 2)).astype(np.float32)
     rays = {}
@@ -2935,26 +2097,36 @@ def phase_guard_profile(tmp: str, dev="cuda"):
     check(err <= 2.0 ** -22, "jittered rays differ between the card and the CPU")
 
 
-def phase_19(smi: str, frame: dict) -> dict:
-    """Phase 19: the rest of the one-card surface (see the module
-    docstring). Returns the launches of (a)'s passes."""
-    launches = timed("19 (a) sorted wrappers", phase_sorted, smi)
-    bunny = timed("19 (b) goldens", phase_goldens)
-    timed("19 (c) lbvh", phase_lbvh, smi, bunny["bunny512"])
+def passed(checks: list, name: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs), which raises where a check fails; then `name`
+    logged and appended to `checks`."""
+    out = fn(*args, **kwargs)
+    log(f"[phase] {name}: passed")
+    checks.append(name)
+    return out
+
+
+def phase_one_card_surface(checks: list) -> dict:
+    """one-card surface: the whole-set sorted passes, the goldens, the LBVH
+    and OBJ frames, the debug guard and the profile option, and the
+    cornell256 stages (see the module docstring). Returns the launches of
+    the sorted passes."""
+    launches = passed(checks, "one-card surface (sorted)", phase_sorted)
+    bunny = passed(checks, "one-card surface (goldens)", phase_goldens)
+    passed(checks, "one-card surface (lbvh)", phase_lbvh, bunny["bunny512"])
     del bunny
     with tempfile.TemporaryDirectory() as tmp:
-        timed("19 (d) obj", phase_obj, tmp)
-        timed("19 (e) bench_torch", phase_bench_cli, frame)
-        timed("19 (f) guard, profile, jitter", phase_guard_profile, tmp)
-    timed("19 (g) cornell256 stages", phase_cornell_stages)
+        passed(checks, "one-card surface (obj)", phase_obj, tmp)
+        passed(checks, "one-card surface (guard)", phase_guard_profile, tmp)
+    passed(checks, "one-card surface (cornell stages)", phase_cornell_stages)
     return launches
 
 
 # ---------------------------------------------------------------------------
-# Phase 20: the distributed paths (tracer_torch.dist) in a world of one rank
+# The distributed paths (tracer_torch.dist) in a world of one rank
 # ---------------------------------------------------------------------------
 
-GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-6  # the grad gate of phase 17
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-6  # the grad gate of grad (a, b)
 
 
 def sync(dev):
@@ -2973,21 +2145,10 @@ def check_tier(what: str, launches: dict, tier: str | None, need=None):
     check(not missing and not stray, f"{what} never launched {missing}, and launched {stray}")
 
 
-def host_ms(dev, fn, reps: int) -> float:
-    """Mean host-clock ms of fn over reps calls after one, a sync at each end."""
-    fn()
-    sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    sync(dev)
-    return (time.perf_counter() - t0) / reps * 1e3
-
-
-def dist_tile_dp(mesh, smi, preset, tier, dev="cuda", reps: int = 5, **overrides):
-    """(a), (b): make_sharded_accel_render_fn at data = 1 over build_tracers:
-    bit-equal to render_wavefront over build_tracers of the same scene,
-    launching exactly the kernels of `tier`; its ms a frame (host clock)."""
+def dist_tile_dp(mesh, preset, tier, dev="cuda", **overrides):
+    """(tile DP): make_sharded_accel_render_fn at data = 1 over
+    build_tracers: bit-equal to render_wavefront over build_tracers of the
+    same scene, launching exactly the kernels of `tier`."""
     from tracer_torch.dist.ray_dp import make_sharded_accel_render_fn
 
     cfg = load_config(preset, **overrides)
@@ -2998,15 +2159,13 @@ def dist_tile_dp(mesh, smi, preset, tier, dev="cuda", reps: int = 5, **overrides
     with torch.inference_mode():
         ref = whitted.render_wavefront(scene, generate_rays(camera, cfg.height, cfg.width), wcfg,
                                        *api.build_tracers(scene, cfg))
-    ms = host_ms(dev, lambda: run(scene, camera), reps)
     log(f"[dist] (tile DP) {preset} {cfg.width}x{cfg.height}, {cfg.max_bounces} bounce(s), "
         f"data = 1: bit-equal to render_wavefront over build_tracers: {torch.equal(img, ref)}; "
-        f"launches {l_run}; {ms:.3f} ms a frame ({reps} after 1, accel built each frame), on "
-        f"{smi}")
+        f"launches {l_run}")
     check(torch.equal(img, ref), f"tile DP {preset}: not bit-equal to render_wavefront")
     check(img.mean() > 0.01, f"tile DP {preset}: frame not lit")
     check_tier(f"tile DP {preset}", l_run, tier)
-    return img, ms, l_run
+    return img, l_run
 
 
 class CountingAllToAll:
@@ -3028,9 +2187,10 @@ class CountingAllToAll:
         torch.distributed.all_to_all_single = self.inner
 
 
-def dist_reshard(mesh, smi, dev="cuda", preset="sponza1080"):
-    """(c): reshard_bounces=True against the same frame without the re-shard,
-    under the golden gate; one exchange each way a bounce after the first."""
+def dist_reshard(mesh, dev="cuda", preset="sponza1080"):
+    """(re-shard): reshard_bounces=True against the same frame without the
+    re-shard, under the golden gate; one exchange each way a bounce after
+    the first."""
     from tracer_torch.dist.ray_dp import make_sharded_accel_render_fn
 
     cfg = load_config(preset)
@@ -3040,12 +2200,9 @@ def dist_reshard(mesh, smi, dev="cuda", preset="sponza1080"):
     img_p = plain(scene, camera)
     with CountingAllToAll() as a2a:
         img_r, l_run = launched(resh, scene, camera)
-    ms_p = host_ms(dev, lambda: plain(scene, camera), 2)
-    ms_r = host_ms(dev, lambda: resh(scene, camera), 2)
     log(f"[dist] (re-shard) {preset} {cfg.width}x{cfg.height}, {cfg.max_bounces} bounces: "
         f"all_to_all_single {a2a.calls} calls, bit-equal to the plain frame "
-        f"{torch.equal(img_r, img_p)}, launches {l_run}; {ms_r:.3f} ms a frame against "
-        f"{ms_p:.3f} without the re-shard, on {smi}")
+        f"{torch.equal(img_r, img_p)}, launches {l_run}")
     check(a2a.calls == 2 * (cfg.max_bounces - 1),
           f"re-shard: {a2a.calls} exchanges for {cfg.max_bounces} bounces")
     # The sorted tracers. closest_fast runs only on tiles of at most FAST_BATCH
@@ -3055,32 +2212,22 @@ def dist_reshard(mesh, smi, dev="cuda", preset="sponza1080"):
     return l_run
 
 
-def dist_ring(mesh, smi, ref_img, dev="cuda", preset="bench100k"):
-    """(d): make_ring_render_fn over the accel (k_cap None, with_aux), ring
-    and reduce: overflow 0, kernels 6-7 launched and no other, the image
-    under the golden gate of (a)'s; the shard accel's build and peak memory."""
+def dist_ring(mesh, ref_img, dev="cuda", preset="bench100k"):
+    """(ring accel): make_ring_render_fn over the accel (k_cap None,
+    with_aux), ring and reduce: overflow 0, the work-list kernels launched
+    and no other, the image under the golden gate of (tile DP)'s."""
     from tracer_torch.dist import ring
 
     cfg = load_config(preset, max_bounces=1)
     scene, camera = api.get_scene(cfg, dev)
-    with torch.inference_mode():
-        rows = ring.pack_tri_rows(scene)
-        build_ms = host_ms(dev, lambda: ring.build_rows_accel(rows), 3)
-        accel = ring.build_rows_accel(rows)
-    log(f"[dist] (ring) {preset}: shard accel of {rows.shape[0]} rows, {accel.num_clusters} "
-        f"clusters: built in {build_ms:.3f} ms (host clock, mean of 3), on {smi}")
     out = {}
     for use_ring in (True, False):
         what = f"{'ring' if use_ring else 'reduce'} accel {preset}"
         run = ring.make_ring_render_fn(scene, cfg, mesh, use_ring=use_ring, use_accel=True,
                                        with_aux=True, k_cap=None)
-        if dev == "cuda":
-            torch.cuda.reset_peak_memory_stats()
         (img, aux), l_run = launched(run, scene, camera)
-        peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else 0.0
-        ms = host_ms(dev, lambda: run(scene, camera), 2)
         log(f"[dist] ({what}) {cfg.width}x{cfg.height}: overflow {aux['overflow']}, launches "
-            f"{l_run}, peak device memory {peak:.2f} GiB, {ms:.3f} ms a frame, on {smi}")
+            f"{l_run}")
         check(aux["overflow"] == 0, f"{what}: overflow {aux['overflow']}")
         check_tier(what, l_run, "worklist")
         golden_gate(img.cpu().numpy(), ref_img.cpu().numpy(), f"{what} vs tile DP")
@@ -3088,9 +2235,9 @@ def dist_ring(mesh, smi, ref_img, dev="cuda", preset="bench100k"):
     return out[True]
 
 
-def dist_brute_ring(mesh, smi, dev="cuda", preset="cornell256"):
-    """(e): the brute ring and reduce against make_render_fn's frame, no
-    kernel launched."""
+def dist_brute_ring(mesh, dev="cuda", preset="cornell256"):
+    """(brute ring): the brute ring and reduce against make_render_fn's
+    frame, no kernel launched."""
     from tracer_torch.dist import ring
 
     cfg = load_config(preset)
@@ -3100,9 +2247,7 @@ def dist_brute_ring(mesh, smi, dev="cuda", preset="cornell256"):
         what = f"{'ring' if use_ring else 'reduce'} brute {preset}"
         run = ring.make_ring_render_fn(scene, cfg, mesh, use_ring=use_ring, use_accel=False)
         img, l_run = launched(run, scene, camera)
-        ms = host_ms(dev, lambda: run(scene, camera), 3)
-        log(f"[dist] ({what}) {cfg.width}x{cfg.height}: {ms:.3f} ms a frame, launches {l_run}, "
-            f"on {smi}")
+        log(f"[dist] ({what}) {cfg.width}x{cfg.height}: launches {l_run}")
         check_tier(what, l_run, None)
         golden_gate(img.cpu().numpy(), ref, f"{what} vs make_render_fn")
 
@@ -3115,7 +2260,7 @@ def dist_grads(mesh, dev):
     """Each of GRAD_CASES on `dev`: make_sharded_grad_fn, or
     make_overlapped_grad_fn with 4 buckets (over build_tracers of the
     config for "accel"), from fit_scene's off-centre camera against a zeros
-    target -> {case: (loss, grads, host ms)}."""
+    target -> {case: (loss, grads)}."""
     from functools import partial
 
     from tracer_torch.dist.grad_overlap import make_overlapped_grad_fn
@@ -3131,45 +2276,43 @@ def dist_grads(mesh, dev):
         else:
             builder = partial(api.build_tracers, cfg=cfg) if "accel" in kind else None
             fn = make_overlapped_grad_fn(cfg, mesh, n_buckets=4, tracer_builder=builder)
-        sync(dev)
-        t0 = time.perf_counter()
         loss, grads = fn(scene, camera, target)
         sync(dev)
-        out[kind] = (float(loss), grads.cpu().numpy(), (time.perf_counter() - t0) * 1e3)
+        out[kind] = (float(loss), grads.cpu().numpy())
     return out
 
 
 def dist_grads_world(rank):
-    """The CPU side of (f), in a world of one gloo rank."""
+    """The CPU side of (grads), in a world of one gloo rank."""
     from tracer_torch.dist.mesh import make_render_mesh
 
     return dist_grads(make_render_mesh(data=1, device="cpu"), "cpu")
 
 
-def dist_grad_gate(card: dict, cpu: dict, smi: str):
-    """(f): each case on the card against the CPU: loss to rtol 1e-5, the
-    vertex gradient nonzero and to rtol 2e-3 + atol 2e-6 of its largest."""
+def dist_grad_gate(card: dict, cpu: dict):
+    """(grads): each case on the card against the CPU: loss to rtol 1e-5,
+    the vertex gradient nonzero and to rtol 2e-3 + atol 2e-6 of its
+    largest."""
     for (kind, preset) in GRAD_CASES:
-        (lc, gc, ms), (lh, gh, ms_cpu) = card[kind], cpu[kind]
+        (lc, gc), (lh, gh) = card[kind], cpu[kind]
         scale = float(np.abs(gh).max())
         excess = np.abs(gc - gh) - (GRAD_ATOL * scale + GRAD_RTOL * np.abs(gh))
         rel = abs(lc - lh) / abs(lh)
         log(f"[dist] (grad) {kind} {preset}: loss {lc:.8g} card, {lh:.8g} CPU (relative "
             f"{rel:.3g}, gate 1e-5); gradient largest {scale:.4g}, worst excess over the gate "
-            f"{excess.max():.3g}; {ms:.1f} ms on the card (first call), {ms_cpu:.1f} on the "
-            f"CPU, on {smi}")
+            f"{excess.max():.3g}")
         check(rel <= 1e-5, f"{kind} grad: card and CPU losses differ by {rel:.3g}")
         check(scale > 0 and excess.max() <= 0, f"{kind} grad: gradients outside the grad gate")
 
 
-def dist_scaling(smi, frame_ms: float):
-    """(g): scaling_sweep on bench100k (one card: one row), then
+def dist_scaling():
+    """(scaling): scaling_sweep on bench100k (one card: one row), then
     bin/bench_torch --scaling: the measured row and two pending ones."""
     from tracer_torch.dist.scaling import scaling_sweep
 
     rows = scaling_sweep(load_config("bench100k"), iters=3)
-    log(f"[dist] (scaling) scaling_sweep bench100k: {json.dumps(rows)} (phase 6: "
-        f"{frame_ms:.3f} ms/frame), on {smi}")
+    log(f"[dist] (scaling) scaling_sweep bench100k: {len(rows)} row(s), devices "
+        f"{[r['devices'] for r in rows]}, efficiency {[r['efficiency'] for r in rows]}")
     check(len(rows) == 1 and rows[0]["devices"] == 1 and rows[0]["efficiency"] == 1.0,
           f"scaling_sweep rows {rows}")
     proc = subprocess.run([sys.executable, os.path.join(ROOT, "bin", "bench_torch"), "--scaling",
@@ -3184,10 +2327,10 @@ def dist_scaling(smi, frame_ms: float):
           "bin/bench_torch --scaling: not the one-card table")
 
 
-def phase_20(smi: str, frame: dict, dev="cuda") -> dict:
-    """Phase 20: the distributed paths in a world of one rank (NCCL on the
+def phase_dist(checks: list, dev="cuda") -> dict:
+    """dist: the distributed paths in a world of one rank (NCCL on the
     card), see the module docstring. Returns each kernel's launches over the
-    dist paths (a), (b) and (d)'s ring frame."""
+    tile DP frames and the ring accel frame."""
     from concurrent.futures import ThreadPoolExecutor
     from datetime import timedelta
 
@@ -3204,101 +2347,87 @@ def phase_20(smi: str, frame: dict, dev="cuda") -> dict:
             launches[k] = launches.get(k, 0) + v
 
     with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
-        # The CPU side of (f) runs in its own world while the card works.
+        # The CPU side of (grads) runs in its own world while the card works.
         cpu_grads = pool.submit(spawn_world, dist_grads_world, 1, device="cpu")
         dist.init_process_group(backend_for(dev), init_method=f"file://{tmp}/store", rank=0,
                                 world_size=1, timeout=timedelta(seconds=60),
                                 device_id=torch.device(dev, 0) if dev == "cuda" else None)
         try:
             mesh = make_render_mesh(data=1, geom=1, device=dev)
-            img, ms, l_run = timed("20 (a) tile DP bench100k", dist_tile_dp, mesh, smi,
-                                   "bench100k", "sorted", dev)
-            log(f"[dist] (tile DP) bench100k {ms:.3f} ms a frame against phase 6's "
-                f"{frame['ms_per_frame']:.3f} (make_render_fn's tiled tier)")
+            img, l_run = passed(checks, "dist (tile DP bench100k)", dist_tile_dp, mesh,
+                                "bench100k", "sorted", dev)
             add(l_run)
-            add(timed("20 (b) tile DP pod-1m", dist_tile_dp, mesh, smi, "pod-1m", "streamed",
-                      dev, reps=2, max_bounces=1)[2])
-            timed("20 (c) re-shard", dist_reshard, mesh, smi, dev)
-            add(timed("20 (d) ring accel", dist_ring, mesh, smi, img, dev))
+            add(passed(checks, "dist (tile DP pod-1m)", dist_tile_dp, mesh, "pod-1m", "streamed",
+                       dev, max_bounces=1)[1])
+            passed(checks, "dist (re-shard)", dist_reshard, mesh, dev)
+            add(passed(checks, "dist (ring accel)", dist_ring, mesh, img, dev))
             del img
-            timed("20 (e) brute ring", dist_brute_ring, mesh, smi, dev)
-            card = timed("20 (f) grads, card", dist_grads, mesh, dev)
-            dist_grad_gate(card, cpu_grads.result(timeout=600)[0], smi)
+            passed(checks, "dist (brute ring)", dist_brute_ring, mesh, dev)
+            card = dist_grads(mesh, dev)
+            passed(checks, "dist (grads)", dist_grad_gate, card,
+                   cpu_grads.result(timeout=600)[0])
             if dev == "cuda":
-                timed("20 (g) scaling", dist_scaling, smi, frame["ms_per_frame"])
-            timed("20 (h) dryrun", dryrun, dev)
+                passed(checks, "dist (scaling)", dist_scaling)
+            passed(checks, "dist (dryrun)", dryrun, dev)
         finally:
             dist.destroy_process_group()
     stop_fork_server()
     return launches
 
 
-def timed(name: str, fn, *args, **kwargs):
-    """fn(*args, **kwargs), then its wall time on a line of its own."""
-    t0 = time.perf_counter()
-    out = fn(*args, **kwargs)
-    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
-    return out
-
-
-def run_phases() -> tuple[str, str, list]:
-    """Phases 1-20 -> (the card's name, its nvidia-smi line, the kernels)."""
-    t0 = time.perf_counter()
-    name, smi = timed("device", phase_device)
-    timed("build", phase_build)
+def run_phases() -> tuple[str, str, list, list]:
+    """Every phase -> (the card's name, its nvidia-smi line, the kernels,
+    the phases passed)."""
+    checks = []
+    name, smi = passed(checks, "device", phase_device)
+    passed(checks, "build", phase_build)
     results, launches = {}, {}
-    timed("cull", phase_cull, smi, results)
+    passed(checks, "cull", phase_cull, results)
     bench = load_config("bench100k")
-    timed("kernels", phase_kernels, results, bench, torch.device("cuda"))
-    launches.update(timed("frame", phase_frame, bench, "cuda", "tiled"))
-    timed("cross-device", phase_cross_device, load_config("bench100k", height=216, width=384))
-    frame = timed("timing", phase_timing, smi, "bench100k", iters=10, warmup=2)
-    timed("layers", phase_layers, bench)
-    timed("profile", phase_profile, bench)
+    passed(checks, "kernels", phase_kernels, results, bench, torch.device("cuda"))
+    launches.update(passed(checks, "frame", phase_frame, bench, "cuda", "tiled"))
+    passed(checks, "cross-device", phase_cross_device,
+           load_config("bench100k", height=216, width=384))
 
     pod = load_config("pod-1m", max_bounces=1)
-    scene, camera, accel = timed("pod scene", phase_pod_scene, pod)
-    timed("stream kernels", phase_stream_kernels, results, pod, scene, camera, accel)
-    launches.update(timed("pod frame", phase_frame, pod, "cuda", "streamed", scene, camera,
-                          accel))
-    timed("pod profile", phase_profile, pod, scene, camera, accel)
+    scene, camera, accel = passed(checks, "pod scene", phase_pod_scene, pod)
+    passed(checks, "stream kernels", phase_stream_kernels, results, pod, scene, camera, accel)
+    launches.update(passed(checks, "pod frame", phase_frame, pod, "cuda", "streamed", scene,
+                           camera, accel))
     del scene, camera, accel
     torch.cuda.empty_cache()
-    timed("pod cross-device", phase_cross_device, pod.replace(height=144, width=256))
-    timed("pod timing", phase_timing, smi, "pod-1m", iters=3, warmup=1, max_bounces=1)
+    passed(checks, "pod cross-device", phase_cross_device, pod.replace(height=144, width=256))
 
-    scene, camera, accel = timed("bench scene", phase_bench_scene, bench)
-    timed("wavefront kernels", phase_wavefront_kernels, results, bench, scene, camera, accel)
-    launches.update(timed("wavefront frames", phase_wavefront_frames, smi, bench, scene, camera,
-                          accel))
+    scene, camera, accel = passed(checks, "bench scene", phase_bench_scene, bench)
+    passed(checks, "wavefront kernels", phase_wavefront_kernels, results, bench, scene, camera,
+           accel)
+    launches.update(passed(checks, "wavefront frames", phase_wavefront_frames, bench, scene,
+                           camera, accel))
     del scene, camera, accel
     for preset in ("cornell256", "bunny-grad"):
-        timed(f"routing {preset}", phase_routing, preset)
-    timed("rows sum", phase_rows_sum, smi, results)
-    launches["rows_sum"] = timed("grad", phase_grad, smi, frame)
-    timed("fit", phase_fit, smi)
-    t19 = time.perf_counter()
-    phase_19(smi, frame)
-    log(f"[phase] 19: {time.perf_counter() - t19:.1f} s")
-    t20 = time.perf_counter()
-    dist_launches = phase_20(smi, frame)
-    log(f"[phase] 20: {time.perf_counter() - t20:.1f} s")
-    log(f"[phase] all: {time.perf_counter() - t0:.1f} s")
+        passed(checks, f"routing {preset}", phase_routing, preset)
+    passed(checks, "rows sum", phase_rows_sum, results)
+    launches["rows_sum"] = passed(checks, "grad", phase_grad)
+    passed(checks, "fit", phase_fit)
+    phase_one_card_surface(checks)
+    dist_launches = phase_dist(checks)
 
+    check(set(results) == set(KERNELS),
+          f"kernels never held to their plain versions: {sorted(set(KERNELS) - set(results))}")
     kernels = [{"name": k, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k], "dist_launches": dist_launches.get(k, 0),
-                **results[k]} for k, (src, rep) in KERNELS.items()]
-    return name, smi, kernels
+                "checks": results[k]} for k, (src, rep) in KERNELS.items()]
+    return name, smi, kernels, checks
 
 
 def main() -> int:
     become_subreaper()
     try:
-        name, smi, kernels = run_phases()
+        name, smi, kernels, checks = run_phases()
     finally:
         stray = stop_children()
     check(not stray, f"processes still running at the end of the run (killed): {stray}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "checks": checks}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

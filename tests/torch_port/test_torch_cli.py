@@ -2,8 +2,8 @@
 (tonemap, write_png, read_png) against the JAX package's bytes,
 utils.metrics (MetricsLogger's append and truncate, profile_trace),
 api.benchmark's profile option, utils.config.DistConfig against the
-reference's, and bin/fit_torch, bin/trace_torch and bin/bench_torch, each
-run once with --cpu (the first two at 16x16 through a JSON config), and
+reference's, and bin/fit_torch, bin/trace_torch and bin/bench_torch
+--scaling, each run once with --cpu (at 16x16 through a JSON config), and
 without CUDA and without --cpu, where all three must refuse."""
 import json
 import os
@@ -121,7 +121,7 @@ def test_clis_refuse_without_cuda(tmp_path):
     no file written."""
     cfg = _config(tmp_path)
     for name, extra in (("trace_torch", ["-o", "out.png"]), ("fit_torch", ["-o", "fit"]),
-                        ("bench_torch", ["--no-grad"])):
+                        ("bench_torch", ["--scaling"])):
         proc = _cli(tmp_path, name, "--preset", cfg, *extra, cuda=False)
         assert proc.returncode != 0 and proc.stdout == "", (name, proc.stdout)
         assert "CUDA is not available" in proc.stderr
@@ -129,16 +129,8 @@ def test_clis_refuse_without_cuda(tmp_path):
 
 
 def test_bench_torch_cpu(tmp_path):
-    """bin/bench_torch --cpu: bench_torch.py's line (its metric, the frame's
-    ms and overflow 0, the device named), exit 0; --scaling --cpu prints
-    bench.py's scaling table over 1 and 2 gloo ranks, the first at 100 %."""
-    proc = _cli(tmp_path, "bench_torch", "--cpu", "--preset", "cornell256", "--iters", "1",
-                "--no-grad")
-    assert proc.returncode == 0, proc.stderr
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert line["metric"] == "rays_per_s_per_chip_100ktri_1080p" and line["value"] > 0
-    assert line["detail"]["overflow"] == 0 and line["detail"]["device"] == "cpu"
-    assert line["detail"]["preset"] == "cornell256" and "grad_step_ms" not in line["detail"]
+    """bin/bench_torch --scaling --cpu prints bench.py's scaling table over 1
+    and 2 gloo ranks, the first at 100 %, and exits 0."""
     proc = _cli(tmp_path, "bench_torch", "--scaling", "--cpu", "--preset", _config(tmp_path),
                 "--iters", "1")
     assert proc.returncode == 0, proc.stderr

@@ -7,7 +7,7 @@ renderer. Gates are the reference tests' own: the Cornell box 1.5% of
 pixels off by more than 2e-3 and p98 below 1e-4; the rest the golden gate
 (parity_util.golden_check: 1.5% and p98 2e-3). The C++ cases skip where
 g++ cannot build the oracle; the full-size goldens run on the card
-(chip_smoke.py phase 19)."""
+(chip_smoke.py's one-card surface)."""
 import dataclasses
 
 import numpy as np

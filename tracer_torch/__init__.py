@@ -12,7 +12,7 @@ replayed backward (diff/vjp.py), the edge-aware silhouette gradients
 against every triangle and against each tile's nearest clusters
 (diff/edge.py, diff/edge_accel.py), and the fit with checkpoint/resume
 (diff/fit.py), which bin/fit_torch runs; bin/trace_torch renders to PNG
-and bin/bench_torch prints the benchmark line. Beside them: OBJ scenes
+and bin/bench_torch --scaling prints the scaling table. Beside them: OBJ scenes
 (scene/io.py, with the native parser of cpp/objloader.cpp), the LBVH tier
 (bvh/lbvh.py), the debug guard (utils/debug.py) and the port's own
 bindings to the oracles it is held to (refcpu/: the fp64 C++ renderer of
