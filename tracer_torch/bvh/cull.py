@@ -55,7 +55,9 @@ SORT_CAP = 8192
 TILE_FLOATS = 16
 
 
-def _round8(v: int) -> int:
+def round8(v: int) -> int:
+    """v rounded up to a multiple of 8, at least 8: the k a pass's word lists
+    are cut to from its fullest tile's count."""
     return max(8, -(-int(v) // 8) * 8)
 
 
@@ -184,7 +186,7 @@ def cull_clusters_sorted(accel, o: torch.Tensor, d: torch.Tensor, t_max):
     counts = ok.sum(1, dtype=torch.int32)
     ids = torch.arange(accel.num_clusters, dtype=torch.int32, device=o.device)[None]
     words = torch.sort(pack_candidates(t_lo, ids, ok), dim=1).values
-    k = _round8(readback(counts.max(), "cull.k")) if n_tiles else 8
+    k = round8(readback(counts.max(), "cull.k")) if n_tiles else 8
     excess = torch.clamp_min(counts - k, 0).sum()
     return _cut_words(words, k), counts, excess
 
@@ -263,7 +265,7 @@ def cull_clusters_sorted2_plain(accel, o: torch.Tensor, d: torch.Tensor, t_max):
             parts_c.append(ok2.sum(1, dtype=torch.int32))
         if parts_c:
             counts = torch.cat(parts_c)
-            k = _round8(readback(counts.max(), "cull.k"))
+            k = round8(readback(counts.max(), "cull.k"))
             words = torch.cat([_cut_words(w, k) for w in parts_w])
         else:
             counts, k, words = _no_candidates(n_tiles, dev)
@@ -371,7 +373,7 @@ def _cull_sorted2_cuda(accel, o: torch.Tensor, d: torch.Tensor, t_max):
             if m > SORT_CAP:
                 spilled = True
                 words = torch.sort(words, dim=1).values
-            k = _round8(m)
+            k = round8(m)
             words = _cut_words(words, k)
         else:
             counts, k, words = _no_candidates(n_tiles, o.device)

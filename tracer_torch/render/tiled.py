@@ -18,22 +18,29 @@ own. The gather of the shade rows by slot id (kernels/gather.py
 `gather_rows`, whose backward is the segmented row sum of csrc/gather.cu) is
 where gradients enter. Edge terms (a silhouette that moves) are not
 differentiated.
+
+Tracing (utils/metrics.py): each mirror bounce after the primary pass runs
+under the span "render.bounce" (its closest-hit pass, its shadow passes and
+its shading), and the counter "bounce_words" adds the words of those passes'
+candidate lists, tiles x k, from the k each cull read. A one-bounce frame
+records neither.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 
 from tracer_torch.bvh.cluster import ClusterAccel
-from tracer_torch.bvh.cull import cull_clusters_sorted2
+from tracer_torch.bvh.cull import cull_clusters_sorted2, round8
 from tracer_torch.core.camera import Camera
 from tracer_torch.core.types import T_FAR, RAY_EPS, dot, normalize
 from tracer_torch.kernels.gather import gather_rows
 from tracer_torch.kernels.traversal import untile, generate_rays_tiled, T_MIN
 from tracer_torch.kernels.traversal2 import trace_tiles_split, any_hit_tiles_graded
 from tracer_torch.render.whitted import WhittedConfig, phong_specular
-from tracer_torch.utils.metrics import readback, span
+from tracer_torch.utils.metrics import count, readback, span
 
 
 def mt_from_edges(o, d, v0, e1, e2, t_min=T_MIN, eps=1e-12, bary_eps=1e-5):
@@ -143,57 +150,62 @@ def render_tiled(scene, accel: ClusterAccel, camera: Camera, height: int,
         needs[key] = max(needs[key], int(value))
 
     for bounce in range(cfg.max_bounces):
-        live_rays = live_rays + (d_t != 0.0).any(-1).sum()
-        gid, rows, exc, need, sneed = _trace_rows(accel, o_t, d_t)
-        overflow = overflow + exc
-        grow("need_closest", need[0])
-        grow("need_s", need[1])
-        grow("need_split", sneed[0])
-        grow("need_zero", sneed[1])
-        with span("render.surface"):
-            found, p, n = _surface(o_t, d_t, gid, rows, cfg.smooth_shading)
-            valid = found & live
-            albedo = rows[..., 18:21]
-            emission = rows[..., 21:24]
-            mirror = rows[..., 24:25]
-            spec = rows[..., 26]
-            shin = rows[..., 27]
-            direct = torch.zeros_like(p)
-
-        for li in range(scene.lights.count):
-            with span("render.lights"):
-                lpos = scene.lights.position[li]
-                lint = scene.lights.intensity[li]
-                dist2, wi, cos, lit, target = _light_target(p, n, valid, lpos)
-                live_rays = live_rays + lit.sum()
-            occ, exc, need, sneed = _segment_occluded(accel, lpos, target)
+        with span("render.bounce") if bounce else contextlib.nullcontext():
+            live_rays = live_rays + (d_t != 0.0).any(-1).sum()
+            gid, rows, exc, need, sneed = _trace_rows(accel, o_t, d_t)
             overflow = overflow + exc
-            grow("need_shadow", need[0])
+            grow("need_closest", need[0])
             grow("need_s", need[1])
-            grow("need_sh_b1", sneed[0])
-            grow("need_sh_zero", sneed[1])
+            grow("need_split", sneed[0])
+            grow("need_zero", sneed[1])
+            if bounce:
+                count("bounce_words", shape[0] * round8(need[0]))
+            with span("render.surface"):
+                found, p, n = _surface(o_t, d_t, gid, rows, cfg.smooth_shading)
+                valid = found & live
+                albedo = rows[..., 18:21]
+                emission = rows[..., 21:24]
+                mirror = rows[..., 24:25]
+                spec = rows[..., 26]
+                shin = rows[..., 27]
+                direct = torch.zeros_like(p)
+
+            for li in range(scene.lights.count):
+                with span("render.lights"):
+                    lpos = scene.lights.position[li]
+                    lint = scene.lights.intensity[li]
+                    dist2, wi, cos, lit, target = _light_target(p, n, valid, lpos)
+                    live_rays = live_rays + lit.sum()
+                occ, exc, need, sneed = _segment_occluded(accel, lpos, target)
+                overflow = overflow + exc
+                grow("need_shadow", need[0])
+                grow("need_s", need[1])
+                grow("need_sh_b1", sneed[0])
+                grow("need_sh_zero", sneed[1])
+                if bounce:
+                    count("bounce_words", shape[0] * round8(need[0]))
+                with span("render.shade"):
+                    vis = torch.where(occ | ~lit, 0.0, 1.0)
+                    falloff = (vis / torch.clamp_min(dist2, 1e-20))[..., None] * lint
+                    brdf = (albedo / math.pi * cos[..., None]
+                            + phong_specular(d_t, n, wi, spec, shin)[..., None])
+                    direct = direct + brdf * falloff
+
             with span("render.shade"):
-                vis = torch.where(occ | ~lit, 0.0, 1.0)
-                falloff = (vis / torch.clamp_min(dist2, 1e-20))[..., None] * lint
-                brdf = (albedo / math.pi * cos[..., None]
-                        + phong_specular(d_t, n, wi, spec, shin)[..., None])
-                direct = direct + brdf * falloff
+                local = emission + albedo * cfg.ambient + direct
+                miss_contrib = torch.where((live & ~found)[..., None], sky, 0.0)
+                surf_contrib = torch.where(valid[..., None], local * (1.0 - mirror), 0.0)
+                radiance = radiance + throughput * (surf_contrib + miss_contrib)
 
-        with span("render.shade"):
-            local = emission + albedo * cfg.ambient + direct
-            miss_contrib = torch.where((live & ~found)[..., None], sky, 0.0)
-            surf_contrib = torch.where(valid[..., None], local * (1.0 - mirror), 0.0)
-            radiance = radiance + throughput * (surf_contrib + miss_contrib)
-
-            if bounce + 1 < cfg.max_bounces:
-                refl_d = d_t - 2.0 * dot(d_t, n, keepdim=True) * n
-                live = valid & (mirror[..., 0] > 0.0)
-                # Dead rays (a miss, or a non-mirror surface) get d = 0: the
-                # cull ignores them and all-dead tiles cost no kernel work.
-                m = live[..., None]
-                o_t = torch.where(m, p + n * RAY_EPS, 0.0)
-                d_t = torch.where(m, normalize(refl_d), 0.0)
-                throughput = throughput * mirror
+                if bounce + 1 < cfg.max_bounces:
+                    refl_d = d_t - 2.0 * dot(d_t, n, keepdim=True) * n
+                    live = valid & (mirror[..., 0] > 0.0)
+                    # Dead rays (a miss, or a non-mirror surface) get d = 0: the
+                    # cull ignores them and all-dead tiles cost no kernel work.
+                    m = live[..., None]
+                    o_t = torch.where(m, p + n * RAY_EPS, 0.0)
+                    d_t = torch.where(m, normalize(refl_d), 0.0)
+                    throughput = throughput * mirror
 
     with span("render.untile"):
         img = untile(radiance, tiling)
